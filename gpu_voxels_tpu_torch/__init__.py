@@ -1,0 +1,23 @@
+"""gpu_voxels_tpu_torch — the voxel-world collision engine in PyTorch and CUDA.
+
+A port of `gpu_voxels_tpu` (JAX/Pallas) to PyTorch, with the Pallas kernels
+rewritten by hand in CUDA C++ for Hopper (`csrc/`). Module paths mirror the
+JAX package so each module has one counterpart there; the JAX package is the
+reference every integer contract is held against.
+
+This slice covers the engine's core loop on dense maps, sense -> insert ->
+collide: `maps.voxelmap.ProbVoxelMap` / `BitVectorVoxelMap`, point insertion,
+prob x prob counting and marking collides (CUDA kernels K1, K2), depth-camera
+fusion with the exact projective carve (CUDA kernel K3), the `GpuVoxels`
+facade and map interop with the JAX package. Every method of the reference
+that is not ported yet raises NotImplementedError naming the ROADMAP item
+that brings it.
+
+The package imports torch and numpy only. Kernels build with nvcc at first
+use (`utils/kernels.py`); CPU tensors take each kernel's plain torch version.
+"""
+from .constants import BitVoxelMeaning, MapType
+
+__version__ = "0.1.0"
+
+__all__ = ["BitVoxelMeaning", "MapType", "__version__"]

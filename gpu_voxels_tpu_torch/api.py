@@ -1,0 +1,129 @@
+"""High-level scene facade (reference: gpu_voxels/GpuVoxels.{h,cpp}).
+
+Counterpart of gpu_voxels_tpu/api.py for the dense-map slice. `GpuVoxels`
+keeps a name -> map registry. Maps are functional values, so the facade
+holds the *current* map per name and rebinds it after every operation; a
+per-map lock guards each rebind, mirroring GpuVoxelsMap::m_mutex
+(GpuVoxelsMap.h:269).
+
+Every map lives on the device given to `initialize` (torch's default device
+when none is given). `add_map` builds MT_PROBAB_VOXELMAP and
+MT_BITVECTOR_VOXELMAP; every other MapType, and the facade's robot,
+primitive, file and visualisation surface, raise NotImplementedError naming
+the ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .constants import BitVoxelMeaning, MapType
+from .geometry import generation
+from .maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+from .utils import FACADE, ROBOTS, not_ported
+
+
+class GpuVoxels:
+    _instance: Optional["GpuVoxels"] = None
+
+    def __init__(self):
+        self._dims = None
+        self._side_length = None
+        self._device = None
+        self._maps: Dict[str, object] = {}
+        self._locks: Dict[str, threading.RLock] = {}
+
+    # -- lifecycle -----------------------------------------------------------
+    @classmethod
+    def get_instance(cls) -> "GpuVoxels":
+        if cls._instance is None:
+            cls._instance = cls()
+        return cls._instance
+
+    def initialize(self, dim_x: int, dim_y: int, dim_z: int, voxel_side_length: float, device=None) -> None:
+        self._dims = (int(dim_x), int(dim_y), int(dim_z))
+        self._side_length = float(voxel_side_length)
+        self._device = torch.device(device) if device is not None else torch.get_default_device()
+
+    def get_dimensions(self):
+        return self._dims
+
+    def get_voxel_side_length(self) -> float:
+        return self._side_length
+
+    # -- map registry ----------------------------------------------------------
+    def add_map(self, map_type: MapType, map_name: str):
+        """addMap factory (GpuVoxels.cpp:164-270) for the dense map types."""
+        if self._dims is None:
+            raise RuntimeError("Call initialize() first")
+        if map_name in self._maps:
+            raise ValueError(f"map '{map_name}' already exists")
+        mt = MapType(map_type)
+        if mt == MapType.MT_PROBAB_VOXELMAP:
+            m = ProbVoxelMap.create(self._dims, self._side_length, device=self._device)
+        elif mt == MapType.MT_BITVECTOR_VOXELMAP:
+            m = BitVectorVoxelMap.create(self._dims, self._side_length, device=self._device)
+        else:
+            raise NotImplementedError(
+                f"map type {mt.name} is not ported yet (ROADMAP Queue 1 items 6b-11)"
+            )
+        self._maps[map_name] = m
+        self._locks[map_name] = threading.RLock()
+        return m
+
+    def del_map(self, map_name: str) -> bool:
+        self._maps.pop(map_name, None)
+        self._locks.pop(map_name, None)
+        return True
+
+    def get_map(self, map_name: str):
+        return self._maps[map_name]
+
+    def set_map(self, map_name: str, new_map) -> None:
+        """Rebind a name after a functional update."""
+        with self._locks[map_name]:
+            self._maps[map_name] = new_map
+
+    def update_map(self, map_name: str, fn):
+        """Atomically apply a map -> map function; returns the new map."""
+        with self._locks[map_name]:
+            new = fn(self._maps[map_name])
+            self._maps[map_name] = new
+            return new
+
+    def clear_map(self, map_name: str, voxel_meaning: Optional[BitVoxelMeaning] = None) -> bool:
+        if voxel_meaning is not None:
+            raise NotImplementedError(f"clear_map with a voxel meaning is not ported yet ({ROBOTS})")
+        self.update_map(map_name, lambda m: m.clear_map())
+        return True
+
+    # -- insertion convenience -------------------------------------------------
+    def insert_point_cloud_into_map(self, cloud, map_name: str, voxel_meaning=BitVoxelMeaning.eBVM_OCCUPIED) -> bool:
+        self.update_map(map_name, lambda m: m.insert_point_cloud(cloud, voxel_meaning))
+        return True
+
+    def insert_box_into_map(
+        self,
+        corner_min,
+        corner_max,
+        map_name: str,
+        voxel_meaning=BitVoxelMeaning.eBVM_OCCUPIED,
+        points_per_voxel: int = 1,
+    ) -> bool:
+        """insertBoxIntoMap (GpuVoxels.cpp:519-535)."""
+        delta = self._side_length / points_per_voxel
+        cloud = generation.create_box_of_points(corner_min, corner_max, delta)
+        return self.insert_point_cloud_into_map(np.asarray(cloud, np.float32), map_name, voxel_meaning)
+
+    insert_meta_point_cloud_into_map = not_ported("insert_meta_point_cloud_into_map", ROBOTS)
+    insert_point_cloud_from_file = not_ported("insert_point_cloud_from_file", FACADE)
+    add_robot = not_ported("add_robot", ROBOTS)
+    add_robot_dh = not_ported("add_robot_dh", ROBOTS)
+    insert_robot_into_map = not_ported("insert_robot_into_map", ROBOTS)
+    add_primitives = not_ported("add_primitives", FACADE)
+    save_map = not_ported("save_map", FACADE)
+    load_map = not_ported("load_map", FACADE)
+    visualize_map = not_ported("visualize_map", FACADE)

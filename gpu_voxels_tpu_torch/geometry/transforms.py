@@ -1,0 +1,142 @@
+"""4x4 rigid transforms (reference: helpers/cuda_matrices.h).
+
+Counterpart of gpu_voxels_tpu/geometry/transforms.py, on torch tensors.
+
+* ``from_rpy(roll, pitch, yaw) = Rz(yaw) @ Ry(pitch) @ Rx(roll)``
+  (cuda_matrices.h:274-277, "acts like ROS tf setRPY").
+* Points are column vectors: ``p' = M[:3,:3] @ p + M[:3,3]``.
+
+Coordinates feed floor()-based voxelization, so every product here runs in
+full float32: on CUDA tensors the functions refuse to run while TF32
+matmuls are allowed. Host poses that must match the reference bit for bit
+(a Sensor's pose) are numpy, built by `from_rpy_np` exactly as the
+reference's ``xp=np`` branch builds them.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils import to_device
+
+F32 = torch.float32
+
+
+def _check_full_f32(t: torch.Tensor) -> None:
+    if t.is_cuda and (
+        torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest"
+    ):
+        raise RuntimeError(
+            "transforms need full-f32 matmuls: set torch.backends.cuda.matmul.allow_tf32 = False "
+            "and torch.set_float32_matmul_precision('highest')"
+        )
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Full-precision matrix multiply."""
+    _check_full_f32(a)
+    return torch.matmul(a, b)
+
+
+def identity(device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=F32, device=device)
+
+
+def from_translation(t, device=None) -> torch.Tensor:
+    m = torch.eye(4, dtype=F32, device=device)
+    m[:3, 3] = to_device(t, F32, m.device)
+    return m
+
+
+def _angle(a, device=None) -> torch.Tensor:
+    return to_device(a, F32, device)
+
+
+def _mat3(rows) -> torch.Tensor:
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2).to(F32)
+
+
+def rot_x(roll, device=None) -> torch.Tensor:
+    roll = _angle(roll, device)
+    c, s = torch.cos(roll), torch.sin(roll)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return _mat3([[o, z, z], [z, c, -s], [z, s, c]])
+
+
+def rot_y(pitch, device=None) -> torch.Tensor:
+    pitch = _angle(pitch, device)
+    c, s = torch.cos(pitch), torch.sin(pitch)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return _mat3([[c, z, s], [z, o, z], [-s, z, c]])
+
+
+def rot_z(yaw, device=None) -> torch.Tensor:
+    yaw = _angle(yaw, device)
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return _mat3([[c, -s, z], [s, c, z], [z, z, o]])
+
+
+def from_rpy(rpy, translation=None, device=None) -> torch.Tensor:
+    """Matrix4f::createFromRotationAndTranslation(Matrix3f::createFromRPY(rpy), t).
+
+    Rotation = Rz(yaw) @ Ry(pitch) @ Rx(roll) (cuda_matrices.h:274-277).
+    """
+    rpy = to_device(rpy, F32, device)
+    r3 = matmul(matmul(rot_z(rpy[..., 2]), rot_y(rpy[..., 1])), rot_x(rpy[..., 0]))
+    return compose(r3, translation)
+
+
+def compose(rot3, translation=None) -> torch.Tensor:
+    """Build a 4x4 from a 3x3 rotation and a translation."""
+    rot3 = torch.as_tensor(rot3, dtype=F32)
+    m = torch.zeros(rot3.shape[:-2] + (4, 4), dtype=F32, device=rot3.device)
+    m[..., :3, :3] = rot3
+    if translation is not None:
+        m[..., :3, 3] = to_device(translation, F32, rot3.device)
+    m[..., 3, 3].fill_(1.0)  # a scalar setitem would sync with the device
+    return m
+
+
+def transform_points(matrix, points: torch.Tensor) -> torch.Tensor:
+    """Apply a 4x4 (or a batch of per-point 4x4s) to [N,3] points
+    (kernelTransformCloud, helpers/kernels/MetaPointCloudOperations.h:36-53)."""
+    points = torch.as_tensor(points, dtype=F32)
+    matrix = to_device(matrix, F32, points.device)
+    rot = matrix[..., :3, :3]
+    t = matrix[..., :3, 3]
+    if matrix.ndim == 2:
+        return matmul(points, rot.T) + t
+    return matmul(rot, points[..., None])[..., 0] + t
+
+
+def invert(matrix: torch.Tensor) -> torch.Tensor:
+    """Rigid-transform inverse (rotation transpose + back-rotated translation)."""
+    rt = matrix[..., :3, :3].transpose(-1, -2)
+    ti = -matmul(rt, matrix[..., :3, 3:4])[..., 0]
+    return compose(rt, ti)
+
+
+def from_rpy_np(rpy, translation=None) -> np.ndarray:
+    """Host float32 pose, computed as the reference's ``from_rpy(..., xp=np)``."""
+    rpy = np.asarray(rpy, dtype=np.float32)
+
+    def mat3(rows):
+        return np.stack([np.stack(r, axis=-1) for r in rows], axis=-2).astype(np.float32)
+
+    def rot(a, axis):
+        c, s = np.cos(a), np.sin(a)
+        z, o = np.zeros_like(c), np.ones_like(c)
+        if axis == 0:
+            return mat3([[o, z, z], [z, c, -s], [z, s, c]])
+        if axis == 1:
+            return mat3([[c, z, s], [z, o, z], [-s, z, c]])
+        return mat3([[c, -s, z], [s, c, z], [z, z, o]])
+
+    r3 = rot(rpy[..., 2], 2) @ rot(rpy[..., 1], 1) @ rot(rpy[..., 0], 0)
+    m = np.zeros(r3.shape[:-2] + (4, 4), dtype=np.float32)
+    m[..., :3, :3] = r3
+    if translation is not None:
+        m[..., :3, 3] = np.asarray(translation, dtype=np.float32)
+    m[..., 3, 3] = 1.0
+    return m

@@ -1,0 +1,73 @@
+"""Map state carried between the JAX package and the port.
+
+The engine has no weights: its state is its maps. These functions convert a
+map's arrays, as numpy, in both directions, so a map built by
+gpu_voxels_tpu (``np.asarray(m.data)``) continues in the port and the two
+states can be compared byte for byte. Bit planes are uint32 in the
+reference and int32 here; the conversion reinterprets the same bits
+(``np.ndarray.view``), it never converts values.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+from .sensors import Sensor, SensorModel
+
+
+def prob_map_from_numpy(data, dims, side_length: float, device=None) -> ProbVoxelMap:
+    """A ProbVoxelMap over a copy of int8[N] log-odds `data`."""
+    data = np.asarray(data)
+    if data.dtype != np.int8 or data.shape != (dims[0] * dims[1] * dims[2],):
+        raise ValueError(f"prob map data must be int8[{dims[0] * dims[1] * dims[2]}], got {data.dtype}{data.shape}")
+    return ProbVoxelMap(
+        torch.tensor(data, device=device), tuple(int(d) for d in dims), float(side_length)
+    )
+
+
+def bit_map_from_numpy(planes, occ, dims, side_length: float, device=None) -> BitVectorVoxelMap:
+    """A BitVectorVoxelMap over a copy of uint32[8, N] `planes`; `occ` (uint8[N])
+    is the reference's occupancy summary, or None to compute it."""
+    planes = np.ascontiguousarray(planes)
+    n = dims[0] * dims[1] * dims[2]
+    if planes.dtype != np.uint32 or planes.shape != (8, n):
+        raise ValueError(f"bit planes must be uint32[8, {n}], got {planes.dtype}{planes.shape}")
+    m = BitVectorVoxelMap.from_planes(
+        torch.tensor(planes.view(np.int32), device=device), dims, side_length
+    )
+    if occ is not None:
+        occ = np.asarray(occ)
+        if occ.dtype != np.uint8 or occ.shape != (n,):
+            raise ValueError(f"occupancy summary must be uint8[{n}], got {occ.dtype}{occ.shape}")
+        m = dataclasses.replace(m, occ=torch.tensor(occ, device=device))
+    return m
+
+
+def to_numpy(m):
+    """The map's arrays in the reference's dtypes: int8[N] for a ProbVoxelMap,
+    (uint32[8, N] planes, uint8[N] occ) for a BitVectorVoxelMap."""
+    if isinstance(m, ProbVoxelMap):
+        return m.data.cpu().numpy()
+    if isinstance(m, BitVectorVoxelMap):
+        return m.data.cpu().numpy().view(np.uint32), m.occ.cpu().numpy()
+    raise TypeError(f"no numpy form for {type(m)}")
+
+
+def sensor_from_reference(fields) -> Sensor:
+    """A Sensor from the reference Sensor's plain fields (a dict, or any
+    object with those attributes, such as a gpu_voxels_tpu.sensors.Sensor)."""
+    if not isinstance(fields, dict):
+        fields = {f.name: getattr(fields, f.name) for f in dataclasses.fields(Sensor) if hasattr(fields, f.name)}
+    kw = dict(fields)
+    for k in ("position", "orientation_rpy"):
+        if k in kw:
+            kw[k] = np.array(kw[k], np.float32)
+    model = kw.pop("model", None)
+    if model is not None:
+        if not isinstance(model, dict):
+            model = {"initial_probability": model.initial_probability, "update_probability": model.update_probability}
+        kw["model"] = SensorModel(**model)
+    return Sensor(**kw)

@@ -1,0 +1,106 @@
+"""Dense map x dense map collision reductions, in plain torch.
+
+Counterpart of gpu_voxels_tpu/ops/collide.py (kernelCollideVoxelMaps /
+...Debug / ...Bitvector, VoxelMapOperations.hpp:78-239). These forms are the
+semantics spec: `ops/collide_cuda` holds the CUDA kernels K1 and K2 for
+count_prob_prob and count_and_mark_prob, and takes these functions for CPU
+tensors.
+
+Offset semantics replicate collisionCheckWithCounterRelativeTransform
+(TemplateVoxelMap.hpp:486-519): the *left* map's base pointer is shifted by
+the signed linear offset, i.e. collide(left[i+off], right[i]); indices where
+either side is out of range contribute nothing.
+
+Counts are 0-d int64 tensors on the maps' device: nothing here syncs with
+the host until the caller reads the number.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import bitops
+from ..constants import MAX_PROBABILITY
+from ..utils import HIERARCHY, ROBOTS, not_ported
+from .insert import linear_offset
+
+
+def _offset_slices(n: int, off: int):
+    """Valid flat ranges for collide(left[i+off], right[i])."""
+    off = int(off)
+    if off >= 0:
+        return slice(off, n), slice(0, n - off)
+    return slice(0, n + off), slice(-off, n)
+
+
+def _slices(n: int, dims, offset):
+    return _offset_slices(n, linear_offset(offset, dims) if dims else 0)
+
+
+def _count(hit: torch.Tensor) -> torch.Tensor:
+    return hit.sum(dtype=torch.int64)
+
+
+def prob_occupied(data: torch.Tensor, threshold) -> torch.Tensor:
+    return data.to(torch.int32) >= int(threshold)
+
+
+def count_prob_prob(a, b, t1, t2, dims=None, offset=(0, 0, 0)) -> torch.Tensor:
+    """Counting collide, prob x prob (DefaultCollider thresholds)."""
+    sa, sb = _slices(a.shape[-1], dims, offset)
+    return _count(prob_occupied(a[sa], t1) & prob_occupied(b[sb], t2))
+
+
+def count_and_mark_prob(a, b, t1, t2, dims=None, offset=(0, 0, 0)):
+    """kernelCollideVoxelMapsDebug semantics for prob maps: count collisions
+    AND insert eBVM_COLLISION (occupancy=127) into the left map's colliding
+    voxels (VoxelMapOperations.hpp:129-184). Returns (count, new_left)."""
+    sa, sb = _slices(a.shape[-1], dims, offset)
+    hit = prob_occupied(a[sa], t1) & prob_occupied(b[sb], t2)
+    new_a = a.clone()
+    new_a[sa] = torch.where(hit, MAX_PROBABILITY, a[sa]).to(a.dtype)
+    return _count(hit), new_a
+
+
+def count_bit_bit(a_planes, b_planes, dims=None, offset=(0, 0, 0)) -> torch.Tensor:
+    """Counting collide, bit x bit: both !noneButEmpty (DefaultCollider.hpp:76-81)."""
+    sa, sb = _slices(a_planes.shape[-1], dims, offset)
+    return _count(bitops.occupied(a_planes[:, sa]) & bitops.occupied(b_planes[:, sb]))
+
+
+def count_prob_bit(prob, t1, bit_planes, dims=None, offset=(0, 0, 0)) -> torch.Tensor:
+    """prob x bit: occupancy >= t && !noneButEmpty (DefaultCollider.hpp:60-73)."""
+    sa, sb = _slices(prob.shape[-1], dims, offset)
+    return _count(prob_occupied(prob[sa], t1) & bitops.occupied(bit_planes[:, sb]))
+
+
+def count_occ_occ(occ_a, occ_b, dims=None, offset=(0, 0, 0)) -> torch.Tensor:
+    """bit x bit over the maintained uint8 occupancy summaries: plain bit x bit
+    collision is exactly both-!noneButEmpty, so the summaries alone answer it
+    (2 bytes per voxel pair instead of a 64-byte plane fold)."""
+    sa, sb = _slices(occ_a.shape[-1], dims, offset)
+    return _count((occ_a[sa] & occ_b[sb]) != 0)
+
+
+def count_prob_occ(prob, t1, occ_b, dims=None, offset=(0, 0, 0)) -> torch.Tensor:
+    """prob x bit through the bit side's occupancy summary (same contract as
+    count_prob_bit)."""
+    sa, sb = _slices(prob.shape[-1], dims, offset)
+    return _count(prob_occupied(prob[sa], t1) & (occ_b[sb] != 0))
+
+
+def count_and_mark_bit(a_planes, b_planes, dims=None, offset=(0, 0, 0)):
+    """Debug-kernel semantics for bit maps: mark eBVM_COLLISION (bit 2)."""
+    sa, sb = _slices(a_planes.shape[-1], dims, offset)
+    hit = bitops.occupied(a_planes[:, sa]) & bitops.occupied(b_planes[:, sb])
+    new_a = a_planes.clone()
+    new_a[0, sa] = torch.where(hit, a_planes[0, sa] | (1 << 2), a_planes[0, sa])
+    return _count(hit), new_a
+
+
+def any_collision(hit_count: torch.Tensor) -> torch.Tensor:
+    return hit_count > 0
+
+
+collide_with_types_bit_bit = not_ported("collide_with_types_bit_bit", ROBOTS)
+collide_with_types_bit_prob = not_ported("collide_with_types_bit_prob", ROBOTS)
+count_with_resolution = not_ported("count_with_resolution", HIERARCHY)

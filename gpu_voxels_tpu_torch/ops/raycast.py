@@ -1,0 +1,147 @@
+"""Depth-camera fusion: occupied hits plus projective free-space carving.
+
+Counterpart of gpu_voxels_tpu/ops/raycast.py for the dense-map slice:
+`projective_free_space` is the plain spec of the exact carve (CUDA kernel
+K3 in ops/raycast_cuda.py), `depth_image_to_point_cloud` the pinhole
+back-projection and `insert_depth_image` the full frame update
+(ProbVoxelMap::insertSensorData semantics with visibility carving).
+
+The per-ray DDA path (`insert_sensor_data`, `ray_crossing_counts`) and the
+pooled carve (`carve_pool > 1`, kernel K6) are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .. import probability
+from ..constants import SENSOR_MODEL_FREE, SENSOR_MODEL_OCCUPIED
+from ..geometry import transforms
+from ..utils import SENSING, not_ported, to_device
+from .insert import floor_to_int32, in_map, linear_index, map_to_voxels
+
+Dims = Tuple[int, int, int]
+F32 = torch.float32
+
+
+def projective_free_space(
+    depth: torch.Tensor,
+    pose: torch.Tensor,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    side_length: float,
+    dims: Dims,
+    invalid_value: float = 0.0,
+    eps_vox: float = 1.0,
+) -> torch.Tensor:
+    """bool[N]: voxels observed free by a depth camera (visibility carving).
+
+    A voxel is free iff its centre projects inside the image, lies in front
+    of the camera (sz > 1e-6), its pixel is valid, and it sits at least
+    eps_vox voxels closer than the measurement: sz < d - eps_vox * side.
+    Every f32 operation is one torch op, rounded on its own, in the order of
+    the reference expression (gpu_voxels_tpu/ops/raycast.py:109-139).
+    """
+    h, w = depth.shape
+    dev = depth.device
+    pose = to_device(pose, F32, dev)
+    rot_t = pose[:3, :3].T
+    origin = pose[:3, 3]
+
+    dx, dy, dz = dims
+    side = float(np.float32(side_length))
+    zi = torch.arange(dz, dtype=F32, device=dev).view(dz, 1, 1)
+    yi = torch.arange(dy, dtype=F32, device=dev).view(1, dy, 1)
+    xi = torch.arange(dx, dtype=F32, device=dev).view(1, 1, dx)
+    wx = (xi + 0.5) * side - origin[0]
+    wy = (yi + 0.5) * side - origin[1]
+    wz = (zi + 0.5) * side - origin[2]
+    sx = rot_t[0, 0] * wx + rot_t[0, 1] * wy + rot_t[0, 2] * wz
+    sy = rot_t[1, 0] * wx + rot_t[1, 1] * wy + rot_t[1, 2] * wz
+    sz = rot_t[2, 0] * wx + rot_t[2, 1] * wy + rot_t[2, 2] * wz
+
+    in_front = sz > 1e-6
+    safe_z = torch.where(in_front, sz, 1.0)
+    u = floor_to_int32(fx * sx / safe_z + cx)  # the kernel's floor_to_int
+    v = floor_to_int32(fy * sy / safe_z + cy)
+    in_fov = in_front & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    ui = u.clamp(0, w - 1).to(torch.int64)
+    vi = v.clamp(0, h - 1).to(torch.int64)
+    d = depth.reshape(-1)[vi * w + ui]
+    valid = d != invalid_value
+    eps = float(np.float32(eps_vox) * np.float32(side_length))
+    free = in_fov & valid & (sz < d - eps)
+    return free.reshape(-1)
+
+
+def depth_image_to_point_cloud(depth: torch.Tensor, fx, fy, cx, cy, invalid_value=0.0) -> torch.Tensor:
+    """Pinhole back-projection: depth image -> sensor-frame points [H*W, 3].
+
+    Invalid measurements become NaN points, dropped by insert_depth_image.
+    """
+    depth = torch.as_tensor(depth, dtype=F32)
+    h, w = depth.shape
+    u = torch.arange(w, dtype=F32, device=depth.device)[None, :]
+    v = torch.arange(h, dtype=F32, device=depth.device)[:, None]
+    z = depth
+    x = (u - cx) * z / fx
+    y = (v - cy) * z / fy
+    pts = torch.stack([x, y, z * torch.ones_like(x)], dim=-1).reshape(-1, 3)
+    valid = (depth != invalid_value).reshape(-1)
+    return torch.where(valid[:, None], pts, torch.nan)
+
+
+def insert_depth_image(
+    data: torch.Tensor,
+    depth: torch.Tensor,
+    pose: torch.Tensor,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    side_length: float,
+    dims: Dims,
+    invalid_value: float = 0.0,
+    cut_real_robot: bool = False,
+    robot_occupied_mask=None,
+    carve_pool: int = 1,
+) -> torch.Tensor:
+    """Full projective sensor update of an int8 log-odds map: every
+    measurement adds SENSOR_MODEL_OCCUPIED (+72) to its voxel, and every voxel
+    carved free (and not hit) adds SENSOR_MODEL_FREE (-10), clamped.
+
+    The carve is the exact per-pixel one: `raycast_cuda.projective_free_space_exact`,
+    kernel K3 on CUDA tensors and the plain spec on CPU tensors. The pooled
+    carve (carve_pool > 1, kernel K6) is not ported yet and raises.
+    """
+    if carve_pool > 1:
+        raise NotImplementedError("K6 pooled carve not ported yet")
+    from . import raycast_cuda
+
+    depth = to_device(depth, F32, data.device)
+    pose = to_device(pose, F32, data.device)
+    pts = depth_image_to_point_cloud(depth, fx, fy, cx, cy, invalid_value)
+    world = transforms.transform_points(pose, pts)
+    n = dims[0] * dims[1] * dims[2]
+    finite = torch.all(torch.isfinite(world), dim=-1)
+    coords = map_to_voxels(torch.where(finite[:, None], world, -1.0), side_length)
+    inside = finite & in_map(coords, dims)
+    idx = torch.where(inside, linear_index(coords, dims), n)
+    hit_counts = torch.zeros(n + 1, dtype=torch.int32, device=data.device)
+    hit_counts = hit_counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))[:n]
+    if cut_real_robot and robot_occupied_mask is not None:
+        hit_counts = torch.where(robot_occupied_mask, 0, hit_counts)
+    free = raycast_cuda.projective_free_space_exact(
+        depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value
+    )
+    carved = (free & (hit_counts == 0)).to(torch.int32)
+    delta = hit_counts * SENSOR_MODEL_OCCUPIED + carved * SENSOR_MODEL_FREE
+    return torch.where(delta != 0, probability.update_occupancy(data, delta), data)
+
+
+ray_crossing_counts = not_ported("ray_crossing_counts", SENSING)
+insert_sensor_data = not_ported("insert_sensor_data", SENSING)

@@ -1,0 +1,115 @@
+"""The port's CUDA kernels K1, K2 and K3 against their plain torch versions.
+
+This file imports torch and the port only (no JAX), so it also runs on a
+machine with a card and no JAX:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+The tests marked `cuda` build the kernels with nvcc and need a CUDA device;
+they skip elsewhere. The others check, without a card, that the ctypes
+signatures match the C functions of csrc/ and that the build is keyed by
+the sources.
+"""
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from gpu_voxels_tpu_torch.geometry import transforms
+from gpu_voxels_tpu_torch.ops import collide_cuda, raycast_cuda
+from gpu_voxels_tpu_torch.utils import kernels
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    return torch.device("cuda")
+
+
+def test_ctypes_signatures_match_csrc():
+    """Every bound C function exists in csrc/ with as many parameters."""
+    found = {}
+    for src in kernels._sources():
+        for name, params in re.findall(r'extern "C" int (gv_\w+)\(([^)]*)\)', src.read_text()):
+            found[name] = len([p for p in params.split(",") if p.strip()])
+    assert found == {name: len(args) for name, args in kernels.SIGNATURES.items()}
+
+
+def test_library_path_is_keyed_by_sources_and_flags():
+    path = kernels.library_path()
+    assert path.parent == kernels.BUILD_DIR and path.name.startswith("libgvtorch_")
+    assert kernels.library_path() == path
+    assert "-fmad=false" in kernels.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+
+
+def _carve_scenes(dev):
+    rng = np.random.default_rng(7)
+    step = np.full((48, 64), 40.0, np.float32)
+    step[:, 32:] = 20.0
+    step[10:14, 5:9] = 0.0
+    step[30:34, :] += rng.uniform(-5, 5, (4, 64)).astype(np.float32)
+    noise = rng.uniform(5, 60, (48, 64)).astype(np.float32)
+    noise[noise < 6] = 0.0
+    axis = np.eye(4, dtype=np.float32)
+    axis[:3, 3] = [32, 32, 1]
+    tilted = transforms.from_rpy_np([0.4, 0.0, 0.0], [20, 45, 3])
+    inside = transforms.from_rpy_np([0.1, -0.2, 0.3], [32, 32, 32])
+    for depth in (step, noise):
+        for pose in (axis, tilted, inside):
+            yield torch.tensor(depth, device=dev), torch.tensor(pose, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [(0, 0, 0), (-1, 0, -1), (3, -2, 1), (16, 0, 0)])
+def test_k1_k2_match_plain_on_card(cuda_device, offset):
+    """K1/K2 at a ragged size, incl. views whose addresses differ mod 16."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    dims = (67, 45, 39)
+    n = dims[0] * dims[1] * dims[2]
+    a = torch.randint(-128, 128, (n,), dtype=torch.int8, device=cuda_device, generator=g)
+    b = torch.randint(-128, 128, (n,), dtype=torch.int8, device=cuda_device, generator=g)
+    before = dict(collide_cuda.launches)
+    for t1, t2 in ((-120, 0), (0, 0), (100, -50), (127, 127)):
+        got = collide_cuda.count_prob_prob(a, b, t1, t2, dims, offset)
+        assert got.dtype == torch.int64 and got.device == a.device
+        assert int(got) == int(collide_cuda.count_prob_prob_plain(a, b, t1, t2, dims, offset))
+        cnt, marked = collide_cuda.count_and_mark_prob(a, b, t1, t2, dims, offset)
+        ref_c, ref_m = collide_cuda.count_and_mark_prob_plain(a, b, t1, t2, dims, offset)
+        assert int(cnt) == int(ref_c)
+        assert torch.equal(marked, ref_m)
+    # same misalignment on both sides: the vector path's scalar head and tail
+    x, y = a[7 : n - 5], b[7 : n - 5]
+    assert int(collide_cuda.count_prob_prob(x, y, 0, 0)) == int(collide_cuda.count_prob_prob_plain(x, y, 0, 0))
+    cnt, marked = collide_cuda.count_and_mark_prob(x, y, 0, 0)
+    assert torch.equal(marked, collide_cuda.count_and_mark_prob_plain(x, y, 0, 0)[1])
+    torch.cuda.synchronize()
+    assert collide_cuda.launches["count_prob_prob"] == before["count_prob_prob"] + 5
+    assert collide_cuda.launches["count_and_mark_prob"] == before["count_and_mark_prob"] + 5
+
+
+@pytest.mark.cuda
+def test_k3_matches_plain_on_card(cuda_device):
+    """K3 bit for bit against the plain version on the card."""
+    before = raycast_cuda.launches["projective_free_space_exact"]
+    for i, (depth, pose) in enumerate(_carve_scenes(cuda_device)):
+        got = raycast_cuda.projective_free_space_exact(depth, pose, 52.0, 52.0, 32.0, 24.0, 1.0, (64, 64, 64))
+        ref = raycast_cuda.projective_free_space_plain(depth, pose, 52.0, 52.0, 32.0, 24.0, 1.0, (64, 64, 64))
+        assert got.dtype == torch.bool and torch.equal(got, ref), i
+    torch.cuda.synchronize()
+    assert raycast_cuda.launches["projective_free_space_exact"] == before + 6
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda_device):
+    a = torch.zeros(100, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):
+        collide_cuda.count_prob_prob(a, torch.zeros(100, dtype=torch.int8), 0, 0)
+    with pytest.raises(TypeError):
+        collide_cuda.count_prob_prob(a, torch.zeros(100, dtype=torch.int16, device=cuda_device), 0, 0)
+    with pytest.raises(ValueError):
+        collide_cuda.count_and_mark_prob(a[::2], a[::2], 0, 0)
+    depth = torch.ones((4, 4), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError):
+        raycast_cuda.projective_free_space_exact(depth, torch.eye(4), 1.0, 1.0, 2.0, 2.0, 1.0, (4, 4, 4))
