@@ -1,0 +1,79 @@
+#!/usr/bin/env python3
+"""Where the time goes on one NVIDIA GPU: the port's end-to-end paths under
+torch.profiler.
+
+    python3 chip_profile.py
+
+For each path of chip_smoke.py's phase 4 (the 512^3 insert -> collide cycle,
+the 256^3 fusion of one 640x480 frame, the UR10 64-step swept volume with
+its types collide) it prints the time per iteration from CUDA events
+(unprofiled), the device-busy time per iteration (the sum of the device
+rows of `key_averages()`: kernels, memsets and copies), the device's idle
+share, and the device rows that take the most time. Needs one CUDA card and
+nvcc, like chip_smoke.py.
+"""
+from __future__ import annotations
+
+import sys
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke as cs
+from gpu_voxels_tpu_torch.geometry import generation
+from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+from gpu_voxels_tpu_torch.robot.swept_volume import insert_swept_volume_batched
+from gpu_voxels_tpu_torch.sensors import SyntheticDepthSource
+from gpu_voxels_tpu_torch.utils import kernels, to_device
+
+ITERS = 20
+TOP = 8
+
+
+def breakdown(name: str, fn, smi: str) -> None:
+    wall_ms = cs.time_ms(fn, ITERS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / ITERS
+    print(f"{name}: {wall_ms:.4f} ms per iteration (CUDA events), device busy {busy_ms:.4f} ms, "
+          f"idle share {1.0 - busy_ms / wall_ms:.3f}  [{smi}]", flush=True)
+    for e in rows[:TOP]:
+        print(f"    {e.self_device_time_total / 1e3 / ITERS:9.4f} ms  x{e.count // ITERS:<3d} {e.key[:90]}", flush=True)
+
+
+def main() -> int:
+    dev, smi = cs.card()
+    kernels.library()
+
+    pts = to_device(generation.create_equidistant_points_in_box(307200, (511, 511, 511), 1.0), torch.float32, dev)
+
+    def cycle():
+        m1 = ProbVoxelMap.create(cs.CYCLE_DIMS, 1.0, device=dev).insert_point_cloud(pts)
+        m2 = ProbVoxelMap.create(cs.CYCLE_DIMS, 1.0, device=dev).insert_point_cloud(pts + 1.0)
+        return m1.collide_with(m2, 0.5)
+
+    sensor = cs.kinect_sensor()
+    frame = torch.as_tensor(SyntheticDepthSource(sensor, seed=0).get_frame(), device=dev)
+    fresh = ProbVoxelMap.create(cs.FUSION_DIMS, cs.FUSION_SIDE, device=dev)
+
+    robot = cs.robot_path(dev, ProbVoxelMap.create(cs.SV_DIMS, cs.SV_SIDE, device=dev))
+    placed, cfgs, env = robot["placed"], robot["cfgs"], robot["env"]
+
+    def trajectory():
+        sweep = insert_swept_volume_batched(BitVectorVoxelMap.create(cs.SV_DIMS, cs.SV_SIDE, device=dev), placed, cfgs)
+        return sweep.collide_with_types(env, 1.0, 5)
+
+    breakdown("512^3 insert->insert->collide cycle", cycle, smi)
+    breakdown("256^3 fusion of one 640x480 frame", lambda: fresh.insert_depth_image(frame, sensor), smi)
+    breakdown("UR10 64-step swept volume + types collide at 256^3", trajectory, smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,36 +12,57 @@ non-zero and prints no result. Phases, each an assert or an exception:
    size, exact equality: K1/K2 (prob x prob count / count-and-mark) on two
    random int8 512^3 maps over thresholds x offsets, incl. misaligned views;
    K3 (exact projective carve) at 256^3 on a 640x480 frame under 3 poses;
-3. the main path through the public entry points, on the card: the facade
-   linkage scene (count == 8000), Kinect fusion (5 frames of 640x480 into
-   256^3), a transformed sphere robot collided with the fused and a box
-   environment (counts > 0 and equal to the plain route), and the 512^3
-   insert -> collide cycle with a marking collide, with torch's sync debug
-   mode set to raise (the path never waits for the device); every kernel's
-   launch count must have risen during this phase;
+   K4 (swept-volume types collide) on 256^3 bit maps over margins
+   {0, 1, 4, 8, 24} x mark, dense-random and sparse (with the bit-0-only
+   hazard voxel) fixtures and a length that is not a multiple of the block;
+3. two paths through the public entry points, on the card, with torch's
+   sync debug mode set to raise (the paths never wait for the device), each
+   driven with every launch count set to 0 just before it and read just
+   after; each kernel of a path must have launched in it:
+   - the sense -> insert -> collide path (K1, K2, K3): the facade linkage
+     scene (count == 8000), Kinect fusion (5 frames of 640x480 into 256^3),
+     a transformed sphere robot collided with the fused and a box
+     environment, and the 512^3 insert -> collide cycle with a marking
+     collide;
+   - the robot -> swept volume -> types-collide path (K4): a UR10 through
+     the facade, the BASELINE #3 64-step UR10 swept volume into a 256^3
+     bit map, and its types collides and bit checks against an environment
+     whose obstacles carry the SV bits of a few steps;
+   every count, meanings vector and map must equal the same scene run
+   through the plain route;
 4. times with CUDA events (printed, never asserted): each kernel beside its
-   plain version, the 512^3 cycle rate and the 256^3 fusion rate.
+   plain version, the 512^3 cycle rate, the 256^3 fusion rate and the
+   64-step swept insert + types collide per trajectory.
 
 Output: progress lines, the card's `name, power.limit` line, one JSON line
-{"kernels": [...]}, and as the last line
+{"kernels": [...]} (each kernel with its launches on its path, its largest
+error against the plain version, its time, the plain version's time, the
+least time the card could take for the same work and what bounds it), and
+as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
 
+from gpu_voxels_tpu_torch import bitops
 from gpu_voxels_tpu_torch.api import GpuVoxels
-from gpu_voxels_tpu_torch.constants import BitVoxelMeaning, MapType
+from gpu_voxels_tpu_torch.constants import SV_START, BitVoxelMeaning, MapType
 from gpu_voxels_tpu_torch.geometry import generation, transforms
 from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
 from gpu_voxels_tpu_torch.ops import collide_cuda, raycast_cuda
+from gpu_voxels_tpu_torch.robot.dh import DHParameters
+from gpu_voxels_tpu_torch.robot.presets import ur_robot
+from gpu_voxels_tpu_torch.robot.swept_volume import insert_swept_volume_batched
 from gpu_voxels_tpu_torch.sensors import Sensor, SyntheticDepthSource
 from gpu_voxels_tpu_torch.utils import kernels, to_device
 
@@ -50,6 +71,16 @@ FUSION_DIMS, FUSION_SIDE = (256, 256, 256), 0.02
 CYCLE_DIMS = (512, 512, 512)
 THRESHOLDS = (-120, 0, 100)
 OFFSETS = ((0, 0, 0), (-1, 0, -1), (3, -2, 1))
+# BASELINE config #3 (bench.py:320-338): a UR10 at (2.56, 2.56, 0.5) over a
+# 64-step trajectory into a 256^3 BitVectorVoxelMap at 0.02 m
+SV_DIMS, SV_SIDE, SV_BASE = (256, 256, 256), 0.02, (2.56, 2.56, 0.5)
+SV_TRAJ = np.linspace([0.3, -0.5, 0.5, 0, 0, 0], [-1.2, -0.2, 1.0, 0.4, 0.3, 0], 64).astype(np.float32)
+OBSTACLE_STEPS = (12, 31, 50)  # env obstacles carry these steps' SV bits
+K4_MARGINS = (0, 1, 4, 8, 24)
+# H100 SXM data sheet: HBM rate and the f32 rate
+# outside the tensor cores, which the integer and f32 ops here are held to
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
 
 KERNELS = [
     # (wrapper name, module, source, TPU kernel it replaces)
@@ -59,6 +90,8 @@ KERNELS = [
      "gpu_voxels_tpu/ops/collide_pallas.py:394"),
     ("projective_free_space_exact", raycast_cuda, "gpu_voxels_tpu_torch/csrc/carve_exact.cu",
      "gpu_voxels_tpu/ops/raycast_pallas.py:189"),
+    ("collide_types_bit_bit", collide_cuda, "gpu_voxels_tpu_torch/csrc/collide_types.cu",
+     "gpu_voxels_tpu/ops/collide_pallas.py:189"),
 ]
 
 
@@ -137,8 +170,55 @@ def check_kernels(dev: torch.device) -> dict:
         err["projective_free_space_exact"] = max(err["projective_free_space_exact"], int(diff > 0))
         assert diff == 0 and int(got.sum()) > 0, (name, diff)
         log(f"  K3 pose={name}: {int(got.sum())} free voxels, mask equal to plain bit for bit")
+    del depth, got, ref
+
+    n = SV_DIMS[0] * SV_DIMS[1] * SV_DIMS[2]
+    dense = dense_bits(dev, n, g), dense_bits(dev, n, g)
+    k4_cases = [("dense", dense, m) for m in K4_MARGINS]
+    k4_cases += [("sparse", sparse_bits(dev, n, g), m) for m in (0, 4, 8)]
+    # a length that is not a multiple of the 256-thread block
+    ragged = tuple(x[:, : n - 37].contiguous() for x in dense)
+    k4_cases += [("ragged", ragged, m) for m in (0, 5)]
+    for name, (a, b), margin in k4_cases:
+        for mark in (True, False):
+            cnt, meanings, new = collide_cuda.collide_types_bit_bit(a, b, margin, mark)
+            ref_c, ref_m, ref_new = collide_cuda.collide_types_bit_bit_plain(a, b, margin, mark)
+            same = torch.equal(meanings, ref_m) and torch.equal(new, ref_new)
+            err["collide_types_bit_bit"] = max(err["collide_types_bit_bit"], abs(int(cnt) - int(ref_c)), int(not same))
+            assert int(cnt) == int(ref_c) and same, (name, margin, mark)
+            assert mark == (new.data_ptr() != a.data_ptr()), "the marked map must be new, the unmarked one a"
+        log(f"  K4 {name} N={a.shape[1]} margin={margin:2d}: count {int(cnt)} == plain, meanings and "
+            f"marked map equal (mark True/False)")
     torch.cuda.synchronize()
     return err
+
+
+def dense_bits(dev: torch.device, n: int, g: torch.Generator) -> torch.Tensor:
+    """Dense-random words, bit 31 included, with whole voxels zeroed with p = 0.7
+    (tests/test_collide_pallas.py:45-55)."""
+    w = torch.randint(-(2**31), 2**31 - 1, (8, n), dtype=torch.int32, device=dev, generator=g)
+    return w * (torch.rand(n, device=dev, generator=g) < 0.3)
+
+
+def sparse_bits(dev: torch.device, n: int, g: torch.Generator):
+    """A few single bits per map, plus the bit-0-only hazard voxel: a holds
+    only eBVM_FREE (occupancy 0) where b holds SV bit 6, which a window of
+    margin >= 4 reaches (collide_pallas.py:338-346)."""
+    maps = []
+    for _ in range(2):
+        k = n // 500
+        idx = torch.randint(0, n, (k,), device=dev, generator=g)
+        plane = torch.randint(0, 8, (k,), device=dev, generator=g)
+        bit = torch.randint(0, 32, (k,), device=dev, generator=g)
+        w = torch.zeros((8, n), dtype=torch.int32, device=dev)
+        w[plane, idx] = torch.where(bit == 31, -(2**31), 1 << bit.to(torch.int64)).to(torch.int32)
+        maps.append(w)
+    a, b = maps
+    a[:, 5] = 0
+    b[:, 5] = 0
+    a[0, 5] = 1
+    b[0, 5] = 1 << 6
+    return a, b
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -147,15 +227,16 @@ def plain_route():
     """Route the map methods through the plain torch versions (the reference
     run of the main path on the same card)."""
     saved = (collide_cuda.count_prob_prob, collide_cuda.count_and_mark_prob,
-             raycast_cuda.projective_free_space_exact)
+             raycast_cuda.projective_free_space_exact, collide_cuda.collide_types_bit_bit)
     collide_cuda.count_prob_prob = collide_cuda.count_prob_prob_plain
     collide_cuda.count_and_mark_prob = collide_cuda.count_and_mark_prob_plain
     raycast_cuda.projective_free_space_exact = raycast_cuda.projective_free_space_plain
+    collide_cuda.collide_types_bit_bit = collide_cuda.collide_types_bit_bit_plain
     try:
         yield
     finally:
         (collide_cuda.count_prob_prob, collide_cuda.count_and_mark_prob,
-         raycast_cuda.projective_free_space_exact) = saved
+         raycast_cuda.projective_free_space_exact, collide_cuda.collide_types_bit_bit) = saved
 
 
 def kinect_sensor() -> Sensor:
@@ -213,21 +294,97 @@ def main_path(dev: torch.device) -> dict:
     return out
 
 
-def drive_main_path(dev: torch.device) -> dict:
+class PlacedArm:
+    """The UR10 at the BASELINE #3 base (bench.py:328-334): FK for a batch
+    of 6-joint configurations, tool0's value pinned to 0, shifted to the base."""
+
+    def __init__(self, chain, dev: torch.device):
+        self.chain = chain
+        self.base = to_device(SV_BASE, torch.float32, dev)
+
+    def transformed_clouds_for(self, cfg: torch.Tensor):
+        full = torch.cat([cfg, torch.zeros_like(cfg[..., :1])], dim=-1)
+        clouds = self.chain.transformed_clouds_for(full)
+        return replace(clouds, points=clouds.points + self.base)
+
+
+def robot_path(dev: torch.device, fused_env: ProbVoxelMap) -> dict:
+    """The robot -> swept volume -> types-collide path through the public
+    entry points (BASELINE config #3)."""
+    out = {}
+    chain = ur_robot("ur10", SV_SIDE, device=dev)
+    out["chain"] = chain
+    # (e) the facade: the UR10 behind a fixed DH base link (theta pi/4,
+    # a = |(2.56, 2.56)|, d = 0.5: its first frame at the bench's base)
+    GpuVoxels._instance = None
+    gvl = GpuVoxels.get_instance()
+    gvl.initialize(*SV_DIMS, SV_SIDE, device=dev)
+    gvl.add_map(MapType.MT_BITVECTOR_VOXELMAP, "arm")
+    base = DHParameters(d=SV_BASE[2], theta=math.pi / 4, a=math.hypot(SV_BASE[0], SV_BASE[1]), alpha=0.0)
+    gvl.add_robot_dh("ur10", ["base"] + chain.link_names, [base] + [chain.dh[n] for n in chain.link_names],
+                     chain.clouds, lower_limits=chain.get_lower_joint_limits(),
+                     upper_limits=chain.get_upper_joint_limits())
+    gvl.set_robot_configuration("ur10", dict(zip(chain.link_names, SV_TRAJ[32].tolist())))
+    gvl.insert_robot_into_map("ur10", "arm", BitVoxelMeaning.eBVM_OCCUPIED)
+    out["facade_inserted"] = gvl.get_map("arm")
+    gvl.insert_robot_into_map("ur10", "arm", BitVoxelMeaning.eBVM_COLLISION)
+    out["facade_marked"] = gvl.get_map("arm")
+    gvl.clear_map("arm", BitVoxelMeaning.eBVM_COLLISION)
+    out["facade_cleared"] = gvl.get_map("arm")
+
+    # (f) the 64-step UR10 swept volume into a fresh 256^3 bit map, and an
+    # environment whose obstacles sit where the wrist is at a few steps
+    placed = PlacedArm(chain, dev)
+    cfgs = to_device(SV_TRAJ, torch.float32, dev)
+    sweep = insert_swept_volume_batched(BitVectorVoxelMap.create(SV_DIMS, SV_SIDE, device=dev), placed, cfgs)
+    steps = placed.transformed_clouds_for(cfgs).points  # [64, P, 3]: the sweep's own FK
+    wrist = chain.clouds.offsets[-3]  # the wrist_3 and tool0 clouds
+    env = BitVectorVoxelMap.create(SV_DIMS, SV_SIDE, device=dev)
+    for k in OBSTACLE_STEPS:
+        env = env.insert_point_cloud(steps[k, wrist::5], SV_START + k)
+    out.update(placed=placed, cfgs=cfgs, sweep=sweep, env=env)
+
+    # (g) the collides: K4 with marking, K4 count only, bit x prob (plain),
+    # after a time shift, and the collision flags cleared again
+    out["types"] = [sweep.collide_with_types(env, 1.0, w) for w in (0, 2, 5)]
+    out["bitcheck"] = [sweep.collide_with_bitcheck(env, m) for m in (0, 8)]
+    out["types_prob"] = sweep.collide_with_types(fused_env, 0.55)
+    out["types_shifted"] = sweep.shift_left_swept_volume_ids(1).collide_with_types(env, 1.0, 2)
+    out["cleared"] = out["types"][0][2].clear_collision_flags()
+    return out
+
+
+def drive(path, kernel_names, *args) -> tuple[dict, dict]:
+    """Run one path with every launch count at 0 and the sync debug mode
+    raising (counts stay device tensors: the path must never make the host
+    wait for the device); return its outputs and its kernels' launches."""
     for name, module, *_ in KERNELS:
         module.launches[name] = 0
-    # counts stay device tensors: the main path must never make the host
-    # wait for the device (a synchronising call raises in this mode)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = main_path(dev)
+        out = path(*args)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    launches = {name: module.launches[name] for name, module, *_ in KERNELS}
-    log(f"  launches on the main path: {launches}")
+    launches = {name: module.launches[name] for name, module, *_ in KERNELS if name in kernel_names}
+    log(f"  launches on the path: {launches}")
     for name, count in launches.items():
-        assert count > 0, f"kernel {name} was not launched on the main path"
+        assert count > 0, f"kernel {name} was not launched on its path"
+    return out, launches
+
+
+def same_map(x, y) -> bool:
+    return torch.equal(x.data, y.data) and torch.equal(x.occ, y.occ)
+
+
+def same_types(x, y) -> bool:
+    """Two (count, meanings, marked map) results are equal."""
+    return int(x[0]) == int(y[0]) and torch.equal(x[1], y[1]) and same_map(x[2], y[2])
+
+
+def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict]:
+    log("  sense -> insert -> collide (K1, K2, K3)")
+    out, launches = drive(main_path, {"count_prob_prob", "count_and_mark_prob", "projective_free_space_exact"}, dev)
 
     assert int(out["linkage"]) == 8000, int(out["linkage"])
     log(f"  (a) facade linkage scene: count {int(out['linkage'])} == 8000")
@@ -242,9 +399,15 @@ def drive_main_path(dev: torch.device) -> dict:
     assert int(out["cycle"]) == 0  # two interleaved checkerboards never share a voxel
     assert int(out["cycle_overlap"]) > 0 and int(cnt) > 0
 
-    # the same scene through the plain route on the card
+    log("  robot -> swept volume -> types collide (K4)")
+    robot, robot_launches = drive(robot_path, {"collide_types_bit_bit"}, dev, out["env"])
+    launches.update(robot_launches)
+    check_robot_path(robot)
+
+    # the same scenes through the plain route on the card
     with plain_route():
         plain = main_path(dev)
+        plain_robot = robot_path(dev, plain["env"])
     assert torch.equal(plain["env"].data, data), "fused map differs from the plain route"
     plain_counts = [int(c) for c in plain["robot_counts"]]
     assert counts == plain_counts, (counts, plain_counts)
@@ -254,7 +417,38 @@ def drive_main_path(dev: torch.device) -> dict:
     assert int(p_cnt) == int(cnt) and torch.equal(p_marked.data, marked.data)
     log(f"  (d) 512^3 cycle: checkerboards collide 0, shifted overlap {int(out['cycle_overlap'])}, "
         f"marking count {int(cnt)} == plain, marked map equal")
-    return out
+    for key in ("facade_inserted", "facade_cleared", "sweep", "env", "cleared"):
+        assert same_map(robot[key], plain_robot[key]), key
+    for key in ("types", "bitcheck"):
+        for i, (x, y) in enumerate(zip(robot[key], plain_robot[key])):
+            assert same_types(x, y) if key == "types" else int(x) == int(y), (key, i)
+    for key in ("types_prob", "types_shifted"):
+        assert same_types(robot[key], plain_robot[key]), key
+    log("  (e-g) every robot-path map, count, meanings vector and marked map == plain route")
+    return out, robot, launches
+
+
+def check_robot_path(robot: dict) -> None:
+    inserted, marked, cleared = robot["facade_inserted"], robot["facade_marked"], robot["facade_cleared"]
+    n_arm = int(inserted.occ.sum())
+    assert n_arm > 0 and bool(marked.get_bit_mask(BitVoxelMeaning.eBVM_COLLISION).any())
+    assert same_map(cleared, inserted), "clear_map(eBVM_COLLISION) must undo the eBVM_COLLISION insert"
+    log(f"  (e) facade UR10 at step 32: {n_arm} voxels; eBVM_COLLISION inserted and cleared again")
+    sweep, env = robot["sweep"], robot["env"]
+    n_sweep = int(sweep.occ.sum())
+    assert n_sweep > n_arm and not bool(sweep.data[3:].any()), "64 steps set SV bits 4..67 (planes 0-2)"
+    log(f"  (f) 64-step UR10 swept volume at 256^3: {n_sweep} voxels; environment {int(env.occ.sum())} voxels")
+    for w, (cnt, meanings, marked) in zip((0, 2, 5), robot["types"]):
+        assert int(cnt) > 0, w
+        named = [SV_START + k for k in OBSTACLE_STEPS]
+        assert all(bool(bitops.get_bit(meanings, m)) for m in named), (w, named)
+        assert int(marked.get_bit_mask(BitVoxelMeaning.eBVM_COLLISION).sum()) == int(cnt)
+        log(f"  (g) types collide window {w}: count {int(cnt)}, meanings name SV bits {named}")
+    assert all(int(c) > 0 for c in robot["bitcheck"])
+    assert int(robot["types_shifted"][0]) > 0
+    assert same_map(robot["cleared"], sweep), "clear_collision_flags must undo the marking"
+    log(f"  (g) bit checks margin 0/8: {[int(c) for c in robot['bitcheck']]}; vs fused prob map: "
+        f"{int(robot['types_prob'][0])}; shifted by 1 step, window 2: {int(robot['types_shifted'][0])}")
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -280,26 +474,69 @@ def in_turns(kernel, plain, iters: int) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def timings(dev: torch.device, smi: str, out: dict) -> dict:
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what bounds it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def window_rounds(margin: int) -> int:
+    """Doubling rounds of K4's window (csrc/collide_types.cu)."""
+    rounds, covered = 0, 1
+    while covered < margin + 1:
+        covered += min(covered, margin + 1 - covered)
+        rounds += 1
+    return rounds
+
+
+def timings(dev: torch.device, smi: str, out: dict, robot: dict) -> tuple[dict, dict]:
     g = torch.Generator(device=dev).manual_seed(99)
     n = CYCLE_DIMS[0] * CYCLE_DIMS[1] * CYCLE_DIMS[2]
     a = torch.randint(-128, 128, (n,), dtype=torch.int8, device=dev, generator=g)
     b = torch.randint(-128, 128, (n,), dtype=torch.int8, device=dev, generator=g)
-    t = {}
+    t, bounds = {}, {}
     t["count_prob_prob"] = in_turns(
         lambda: collide_cuda.count_prob_prob(a, b, -120, 0),
         lambda: collide_cuda.count_prob_prob_plain(a, b, -120, 0), 50)
+    # reads a and b once; per voxel 2 compares, an AND and an add
+    bounds["count_prob_prob"] = bound(2 * n + 8, 4 * n)
     t["count_and_mark_prob"] = in_turns(
         lambda: collide_cuda.count_and_mark_prob(a, b, -120, 0),
         lambda: collide_cuda.count_and_mark_prob_plain(a, b, -120, 0), 30)
+    # also writes the marked map; one select more per voxel
+    bounds["count_and_mark_prob"] = bound(3 * n + 8, 5 * n)
     del a, b
     depth = torch.as_tensor(bench_frame(), device=dev)
     pose = torch.as_tensor(carve_poses()["bench"], device=dev)
     t["projective_free_space_exact"] = in_turns(
         lambda: raycast_cuda.projective_free_space_exact(depth, pose, *INTR, FUSION_SIDE, FUSION_DIMS),
         lambda: raycast_cuda.projective_free_space_plain(depth, pose, *INTR, FUSION_SIDE, FUSION_DIMS), 30)
+    nf = FUSION_DIMS[0] * FUSION_DIMS[1] * FUSION_DIMS[2]
+    # writes the mask, reads the frame and the pose; per voxel 33 f32 ops
+    # (centre, rotation, projection with two IEEE divisions, counted as one
+    # op each, two floors, the depth test)
+    bounds["projective_free_space_exact"] = bound(nf + depth.numel() * 4 + 64, 33 * nf)
+
+    ns = SV_DIMS[0] * SV_DIMS[1] * SV_DIMS[2]
+    ga, gb = dense_bits(dev, ns, g), dense_bits(dev, ns, g)
+    t["collide_types_bit_bit"] = in_turns(
+        lambda: collide_cuda.collide_types_bit_bit(ga, gb, 5, True),
+        lambda: collide_cuda.collide_types_bit_bit_plain(ga, gb, 5, True), 10)
+    # reads 64 B and writes 32 B per voxel; per voxel 16 shifts and ORs per
+    # window round and direction, plus 35 for the mask, the window's halves,
+    # the record, the hit, the count and the meanings
+    k4_ops = ns * (32 * window_rounds(5) + 35)
+    bounds["collide_types_bit_bit"] = bound(96 * ns + 40, k4_ops)
+    k4_nomark = in_turns(
+        lambda: collide_cuda.collide_types_bit_bit(ga, gb, 5, False),
+        lambda: collide_cuda.collide_types_bit_bit_plain(ga, gb, 5, False), 10)
+    del ga, gb
     for name, (k, p) in t.items():
-        log(f"  {name}: kernel {k:.4f} ms, plain torch {p:.4f} ms  [{smi}]")
+        log(f"  {name}: kernel {k:.4f} ms, plain torch {p:.4f} ms, bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]})  [{smi}]")
+    nomark_bound = bound(64 * ns + 40, k4_ops)[0]
+    log(f"  collide_types_bit_bit mark=False: kernel {k4_nomark[0]:.4f} ms, plain torch {k4_nomark[1]:.4f} ms, "
+        f"bound {nomark_bound:.4f} ms (bytes)  [{smi}]")
 
     pts = out["cycle_pts"]
 
@@ -317,7 +554,17 @@ def timings(dev: torch.device, smi: str, out: dict) -> dict:
     fuse_ms = time_ms(lambda: fresh.insert_depth_image(frame, sensor), 20)
     log(f"  256^3 fusion of one 640x480 frame (exact carve): {fuse_ms:.4f} ms = "
         f"{1000.0 / fuse_ms:.2f} Hz  [{smi}]")
-    return t
+
+    placed, cfgs, env = robot["placed"], robot["cfgs"], robot["env"]
+
+    def trajectory():
+        sweep = insert_swept_volume_batched(BitVectorVoxelMap.create(SV_DIMS, SV_SIDE, device=dev), placed, cfgs)
+        return sweep.collide_with_types(env, 1.0, 5)
+
+    sv_ms = time_ms(trajectory, 10)
+    log(f"  UR10 64-step swept volume at 256^3 (FK, insert, types collide window 5): {sv_ms:.4f} ms "
+        f"per trajectory  [{smi}]")
+    return t, bounds
 
 
 def main() -> int:
@@ -329,15 +576,17 @@ def main() -> int:
     log(f"  built {path.name} in {time.perf_counter() - t0:.2f} s")
     log("phase 2: kernels against their plain versions (exact)")
     err = check_kernels(dev)
-    log("phase 3: main path")
-    out = drive_main_path(dev)
-    launches = {name: module.launches[name] for name, module, *_ in KERNELS}
+    log("phase 3: the paths through the entry points")
+    out, robot, launches = drive_main_path(dev)
     log("phase 4: times (CUDA events)")
-    t = timings(dev, smi, out)
+    t, bounds = timings(dev, smi, out, robot)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],
-         "ms": t[name][0], "plain_ms": t[name][1]}
+         "ms": t[name][0], "plain_ms": t[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         # no single PyTorch call computes any of these functions: K1/K2 are
+         # a compare-and-count, K3 a projective carve, K4 a windowed bit collide
+         "library_ms": None}
         for name, _module, source, replaces in KERNELS
     ]}
     print(json.dumps(report), flush=True)

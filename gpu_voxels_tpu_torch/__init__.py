@@ -5,16 +5,22 @@ rewritten by hand in CUDA C++ for Hopper (`csrc/`). Module paths mirror the
 JAX package so each module has one counterpart there; the JAX package is the
 reference every integer contract is held against.
 
-This slice covers the engine's core loop on dense maps, sense -> insert ->
-collide: `maps.voxelmap.ProbVoxelMap` / `BitVectorVoxelMap`, point insertion,
-prob x prob counting and marking collides (CUDA kernels K1, K2), depth-camera
-fusion with the exact projective carve (CUDA kernel K3), the `GpuVoxels`
-facade and map interop with the JAX package. Every method of the reference
-that is not ported yet raises NotImplementedError naming the ROADMAP item
-that brings it.
+Two slices are ported. The engine's core loop on dense maps, sense ->
+insert -> collide: `maps.voxelmap.ProbVoxelMap` / `BitVectorVoxelMap`,
+point insertion, prob x prob counting and marking collides (CUDA kernels
+K1, K2), depth-camera fusion with the exact projective carve (CUDA kernel
+K3). And robots with swept volumes, robot -> swept volume -> types collide:
+DH kinematic chains and the UR presets (`robot/`), meta point clouds,
+swept-volume inserts with per-step meaning bits, and the windowed
+swept-volume collide (CUDA kernel K4). Around both: the `GpuVoxels` facade
+and interop with the JAX package. Every method of the reference that is
+not ported yet raises NotImplementedError naming the ROADMAP item that
+brings it.
 
-The package imports torch and numpy only. Kernels build with nvcc at first
-use (`utils/kernels.py`); CPU tensors take each kernel's plain torch version.
+The package imports torch and numpy only. Entry points run on the CUDA
+card unless the caller passes `device="cpu"`. Kernels build with nvcc at
+first use (`utils/kernels.py`); CPU tensors take each kernel's plain torch
+version.
 """
 from .constants import BitVoxelMeaning, MapType
 

@@ -1,4 +1,4 @@
-"""Geometry helpers: rigid transforms and deterministic test geometry."""
-from . import generation, transforms
+"""Geometry helpers: rigid transforms, point clouds and deterministic test geometry."""
+from . import generation, pointcloud, transforms
 
-__all__ = ["generation", "transforms"]
+__all__ = ["generation", "pointcloud", "transforms"]

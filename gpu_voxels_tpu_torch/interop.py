@@ -1,11 +1,12 @@
 """Map state carried between the JAX package and the port.
 
-The engine has no weights: its state is its maps. These functions convert a
-map's arrays, as numpy, in both directions, so a map built by
-gpu_voxels_tpu (``np.asarray(m.data)``) continues in the port and the two
-states can be compared byte for byte. Bit planes are uint32 in the
-reference and int32 here; the conversion reinterprets the same bits
-(``np.ndarray.view``), it never converts values.
+The engine has no weights: its state is its maps and its robots (a DH
+table plus link clouds). These functions convert that state, as numpy, in
+both directions, so a map or robot built by gpu_voxels_tpu
+(``np.asarray(m.data)``) continues in the port and the two states can be
+compared byte for byte. Bit planes are uint32 in the reference and int32
+here; the conversion reinterprets the same bits (``np.ndarray.view``), it
+never converts values. Everything lands on `device` (default: the card).
 """
 from __future__ import annotations
 
@@ -14,8 +15,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from .geometry.pointcloud import MetaPointCloud
 from .maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+from .robot.dh import DHJointType, DHParameters, KinematicChain
 from .sensors import Sensor, SensorModel
+from .utils import resolve_device
 
 
 def prob_map_from_numpy(data, dims, side_length: float, device=None) -> ProbVoxelMap:
@@ -24,7 +28,7 @@ def prob_map_from_numpy(data, dims, side_length: float, device=None) -> ProbVoxe
     if data.dtype != np.int8 or data.shape != (dims[0] * dims[1] * dims[2],):
         raise ValueError(f"prob map data must be int8[{dims[0] * dims[1] * dims[2]}], got {data.dtype}{data.shape}")
     return ProbVoxelMap(
-        torch.tensor(data, device=device), tuple(int(d) for d in dims), float(side_length)
+        torch.tensor(data, device=resolve_device(device)), tuple(int(d) for d in dims), float(side_length)
     )
 
 
@@ -35,6 +39,7 @@ def bit_map_from_numpy(planes, occ, dims, side_length: float, device=None) -> Bi
     n = dims[0] * dims[1] * dims[2]
     if planes.dtype != np.uint32 or planes.shape != (8, n):
         raise ValueError(f"bit planes must be uint32[8, {n}], got {planes.dtype}{planes.shape}")
+    device = resolve_device(device)
     m = BitVectorVoxelMap.from_planes(
         torch.tensor(planes.view(np.int32), device=device), dims, side_length
     )
@@ -44,6 +49,33 @@ def bit_map_from_numpy(planes, occ, dims, side_length: float, device=None) -> Bi
             raise ValueError(f"occupancy summary must be uint8[{n}], got {occ.dtype}{occ.shape}")
         m = dataclasses.replace(m, occ=torch.tensor(occ, device=device))
     return m
+
+
+def meta_point_cloud_from_numpy(points, cloud_ids, offsets, names, device=None) -> MetaPointCloud:
+    """A MetaPointCloud over copies of float32[total, 3] `points` and the
+    per-point sub-cloud ids, with the reference's host offsets and names."""
+    points = np.asarray(points)
+    cloud_ids = np.asarray(cloud_ids)
+    offsets, names = tuple(int(o) for o in offsets), tuple(names)
+    total = offsets[-1]
+    if points.dtype != np.float32 or points.shape != (total, 3):
+        raise ValueError(f"points must be float32[{total}, 3], got {points.dtype}{points.shape}")
+    if cloud_ids.shape != (total,) or len(names) != len(offsets) - 1:
+        raise ValueError(f"cloud ids must be [{total}] and names one per sub-cloud")
+    device = resolve_device(device)
+    return MetaPointCloud(torch.tensor(points, device=device),
+                          torch.tensor(cloud_ids.astype(np.int64), device=device), offsets, names)
+
+
+def kinematic_chain_from_numpy(link_names, dh_rows, joint_types, points, cloud_ids, offsets, cloud_names,
+                               lower_limits=None, upper_limits=None, device=None) -> KinematicChain:
+    """A KinematicChain from the reference chain's plain state: one
+    (d, theta, a, alpha, value) row and one joint type per link, the link
+    clouds as for meta_point_cloud_from_numpy, and the joint limits."""
+    params = [DHParameters(*(float(v) for v in row), joint_type=DHJointType(int(jt)))
+              for row, jt in zip(dh_rows, joint_types)]
+    clouds = meta_point_cloud_from_numpy(points, cloud_ids, offsets, cloud_names, device)
+    return KinematicChain(list(link_names), params, clouds, lower_limits=lower_limits, upper_limits=upper_limits)
 
 
 def to_numpy(m):

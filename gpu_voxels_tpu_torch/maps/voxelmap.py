@@ -16,25 +16,33 @@ sense -> insert -> collide cycle runs without a host sync until the caller
 reads a number.
 
 Routing: prob x prob `collide_with` runs CUDA kernel K1 and
-`collide_with_marking` K2 (ops/collide_cuda); bit x prob and bit x bit read
-the bit map's occupancy summary in plain torch, as the reference does in
-XLA. Methods of the reference that are not ported yet raise
-NotImplementedError naming the ROADMAP item that brings them.
+`collide_with_marking` K2; bit x bit `collide_with_types` and
+`collide_with_bitcheck` run K4 at sv_offset 0 and windows up to 24
+(ops/collide_cuda). Bit x prob and the plain bit x bit count read the bit
+map's occupancy summary in plain torch, as the reference does in XLA; the
+rest of the swept-volume domain (sv_offset != 0, windows 25..31) runs the
+plain full-domain check. Methods of the reference that are not ported yet
+raise NotImplementedError naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, replace
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from .. import bitops, probability
-from ..constants import UNKNOWN_PROBABILITY, BitVoxelMeaning, MapType, float_to_probability
+from ..constants import (UNKNOWN_PROBABILITY, BitVoxelMeaning, MapType, float_to_probability,
+                         meaning_to_probability)
 from ..ops import collide as collide_ops
 from ..ops import collide_cuda
 from ..ops import insert as insert_ops
 from ..ops import raycast
-from ..utils import FACADE, HIERARCHY, ROBOTS, SENSING, not_ported, to_device
+from ..utils import FACADE, HIERARCHY, SENSING, not_ported, resolve_device, to_device
+
+_log = logging.getLogger(__name__)
 
 Dims = Tuple[int, int, int]
 
@@ -96,9 +104,6 @@ class _DenseMap:
     read_from_disk = not_ported("read_from_disk", FACADE)
     init_sensor_settings = not_ported("init_sensor_settings", SENSING)
     update_sensor_pose = not_ported("update_sensor_pose", SENSING)
-    insert_meta_point_cloud = not_ported("insert_meta_point_cloud", ROBOTS)
-    insert_robot_configuration = not_ported("insert_robot_configuration", ROBOTS)
-    clear_voxel_meaning = not_ported("clear_voxel_meaning", ROBOTS)
     collide_with_resolution = not_ported("collide_with_resolution", HIERARCHY)
 
 
@@ -110,7 +115,7 @@ class ProbVoxelMap(_DenseMap):
 
     @staticmethod
     def create(dims: Dims, side_length: float = 1.0, device=None) -> "ProbVoxelMap":
-        data = torch.full((_n(dims),), UNKNOWN_PROBABILITY, dtype=torch.int8, device=device)
+        data = torch.full((_n(dims),), UNKNOWN_PROBABILITY, dtype=torch.int8, device=resolve_device(device))
         return ProbVoxelMap(data, tuple(int(d) for d in dims), float(side_length))
 
     def clear_map(self) -> "ProbVoxelMap":
@@ -141,9 +146,54 @@ class ProbVoxelMap(_DenseMap):
         )
         return replace(self, data=new)
 
-    insert_meta_point_cloud_with_self_collision_check = not_ported(
-        "insert_meta_point_cloud_with_self_collision_check", ROBOTS
-    )
+    def insert_meta_point_cloud(self, meta, meanings=None) -> "ProbVoxelMap":
+        """Uniform or per-subcloud meanings (TemplateVoxelMap.hpp:609-663).
+
+        Per subcloud, each point SETS its meaning's probability in one
+        scatter; on voxels shared between subclouds the LATER point wins:
+        the deterministic reading of the reference's racy last-writer-wins
+        kernel, equal to inserting the subclouds one by one. An int64
+        scatter-max of (rank + 1) * 256 + (value + 128) picks the winner
+        (uint32 amax does not exist in torch, H1); int64 never overflows,
+        so the reference's per-cloud loop for large clouds has no
+        counterpart."""
+        if meanings is None:
+            return self.insert_point_cloud(meta.points)
+        values = to_device([meaning_to_probability(m) for m in meanings], torch.int64, self.device)
+        rank = torch.arange(1, meta.accumulated_size + 1, dtype=torch.int64, device=self.device)
+        enc = rank * 256 + (values[to_device(meta.cloud_ids, torch.int64, self.device)] + 128)
+        idx, _ = insert_ops.voxelize(self._points(meta.points), self.side_length, self.dims)
+        won = torch.zeros(self.voxelmap_size + 1, dtype=torch.int64, device=self.device)
+        won = won.scatter_reduce_(0, idx, enc, "amax")[:-1]
+        new_val = ((won & 255) - 128).to(torch.int8)
+        return replace(self, data=torch.where(won > 0, new_val, self.data))
+
+    def insert_meta_point_cloud_with_self_collision_check(self, meta, meaning=BitVoxelMeaning.eBVM_OCCUPIED):
+        """insertMetaPointCloudWithSelfcollisionCheck (ProbVoxelMap.h): insert
+        all sub-clouds; report whether two different sub-clouds hit the same
+        voxel. Returns (map, self_collision device bool)."""
+        clash = insert_ops.self_collision_clash(meta, self.side_length, self.dims)
+        return self.insert_point_cloud(meta.points, meaning), clash
+
+    def clear_voxel_meaning(self, meaning) -> "ProbVoxelMap":
+        """clearBitVoxelMeaning (ProbVoxelMap.hpp:110-117): probabilistic maps
+        only support clearing eBVM_OCCUPIED, which resets the map."""
+        if int(meaning) != int(BitVoxelMeaning.eBVM_OCCUPIED):
+            _log.error("ProbVoxelMap only supports clearing eBVM_OCCUPIED")
+            return self
+        return self.clear_map()
+
+    def insert_robot_configuration(self, robot_links, with_self_collision_test: bool = False):
+        """insertRobotConfiguration (GpuVoxelsMap contract; the reference stubs
+        it NOT_SUPPORTED, ProbVoxelMap.hpp:104-108): insert the robot
+        MetaPointCloud, optionally with the self-collision check. Returns
+        (new_map, ok device bool); ok is False on a self-collision, and the
+        insert is applied all the same."""
+        if with_self_collision_test:
+            new, clash = self.insert_meta_point_cloud_with_self_collision_check(robot_links)
+            return new, ~clash
+        return self.insert_meta_point_cloud(robot_links), torch.ones((), dtype=torch.bool, device=self.device)
+
     insert_sensor_data = not_ported("insert_sensor_data", SENSING)
 
     # -- collision ----------------------------------------------------------
@@ -204,7 +254,7 @@ class BitVectorVoxelMap(_DenseMap):
     def create(dims: Dims, side_length: float = 1.0, device=None) -> "BitVectorVoxelMap":
         n = _n(dims)
         data = bitops.zeros((n,), device=device)
-        occ = torch.zeros((n,), dtype=torch.uint8, device=device)
+        occ = torch.zeros((n,), dtype=torch.uint8, device=data.device)
         return BitVectorVoxelMap(data, tuple(int(d) for d in dims), float(side_length), occ=occ)
 
     @staticmethod
@@ -225,13 +275,54 @@ class BitVectorVoxelMap(_DenseMap):
         )
         return replace(self, data=new, occ=self.occ | occ_d)
 
-    clear_bit = not_ported("clear_bit", ROBOTS)
-    clear_bits = not_ported("clear_bits", ROBOTS)
-    clear_collision_flags = not_ported("clear_collision_flags", ROBOTS)
-    shift_left_swept_volume_ids = not_ported("shift_left_swept_volume_ids", ROBOTS)
-    collide_with_types = not_ported("collide_with_types", ROBOTS)
-    collide_with_bitcheck = not_ported("collide_with_bitcheck", ROBOTS)
-    get_bit_mask = not_ported("get_bit_mask", ROBOTS)
+    def insert_meta_point_cloud(self, meta, meanings=None) -> "BitVectorVoxelMap":
+        """Meta insert, uniform or per-subcloud meanings; the per-subcloud
+        path is the one-pass kernelInsertMetaPointCloud analogue
+        (ops/insert.scatter_bits_multi)."""
+        if meanings is None:
+            return self.insert_point_cloud(meta.points)
+        sizes = [meta.cloud_size(i) for i in range(meta.num_clouds)]
+        meanings_np = np.repeat(np.asarray([int(m) for m in meanings], np.int64), sizes)
+        idx, _ = insert_ops.voxelize(self._points(meta.points), self.side_length, self.dims)
+        data, occ = insert_ops.scatter_bits_multi(self.data, self.occ, idx, meanings_np)
+        return replace(self, data=data, occ=occ)
+
+    def insert_robot_configuration(self, robot_links, with_self_collision_test: bool = False):
+        """insertRobotConfiguration (the reference stubs it NOT_SUPPORTED on
+        BitVoxelMap, BitVoxelMap.hpp:221-227): insert the robot
+        MetaPointCloud, optionally with the pairwise sub-cloud
+        self-collision check. Returns (new_map, ok device bool)."""
+        clash = torch.zeros((), dtype=torch.bool, device=self.device)
+        if with_self_collision_test:
+            clash = insert_ops.self_collision_clash(robot_links, self.side_length, self.dims)
+        return self.insert_meta_point_cloud(robot_links), ~clash
+
+    # -- bit maintenance ----------------------------------------------------
+    def _with_planes(self, data) -> "BitVectorVoxelMap":
+        """New planes that may have cleared bits: the summary is refolded."""
+        return replace(self, data=data, occ=bitops.occupied(data).to(torch.uint8))
+
+    def clear_bit(self, bit_index: int) -> "BitVectorVoxelMap":
+        """clearBit: clear one meaning in every voxel (BitVoxelMap.hpp:58-72)."""
+        return self._with_planes(bitops.clear_bit(self.data, bit_index))
+
+    def clear_bits(self, bit_indices) -> "BitVectorVoxelMap":
+        d = self.data
+        for b in bit_indices:
+            d = bitops.clear_bit(d, b)
+        return self._with_planes(d)
+
+    def clear_voxel_meaning(self, meaning) -> "BitVectorVoxelMap":
+        return self.clear_bit(int(meaning))
+
+    def clear_collision_flags(self) -> "BitVectorVoxelMap":
+        """Reset the eBVM_COLLISION marks of the marking collides
+        (NTree::clearCollisionFlags analogue, NTree.h:301)."""
+        return self.clear_bit(int(BitVoxelMeaning.eBVM_COLLISION))
+
+    def shift_left_swept_volume_ids(self, shift_size: int) -> "BitVectorVoxelMap":
+        """shiftLeftSweptVolumeIDs (BitVoxelMap.hpp:226-240)."""
+        return self._with_planes(bitops.perform_left_shift(self.data, shift_size))
 
     # -- collision ----------------------------------------------------------
     def collide_with(self, other, coll_threshold: float = 1.0, offset=(0, 0, 0)) -> torch.Tensor:
@@ -250,9 +341,47 @@ class BitVectorVoxelMap(_DenseMap):
         """Boolean collisionCheck (TemplateVoxelMap.hpp:329-414), a device bool."""
         return collide_ops.any_collision(self.collide_with(other, coll_threshold, offset))
 
+    def collide_with_types(self, other, coll_threshold: float = 1.0, sv_window: int = 0, sv_offset: int = 0):
+        """collideWithTypes (BitVoxelMap.hpp:195-210): SVCollider collision
+        collecting the colliding meanings. Returns (count, meanings int32[8],
+        map with eBVM_COLLISION marked). Bit x bit runs K4 at sv_offset 0 and
+        windows up to 24, the plain full-domain check otherwise."""
+        if isinstance(other, BitVectorVoxelMap):
+            if sv_offset == 0 and sv_window <= 24:
+                cnt, meanings, new = collide_cuda.collide_types_bit_bit(self.data, other.data, sv_window, True)
+            else:
+                cnt, meanings, new = collide_ops.collide_with_types_bit_bit(
+                    self.data, other.data, sv_window, sv_offset, True
+                )
+        elif isinstance(other, ProbVoxelMap):
+            t = float_to_probability(coll_threshold)
+            cnt, meanings, new = collide_ops.collide_with_types_bit_prob(self.data, other.data, t)
+        else:
+            raise TypeError(f"cannot collide BitVectorVoxelMap with {type(other)}")
+        # marking only ever adds eBVM_COLLISION, and a voxel holding it is occupied
+        occ = self.occ | ((new[0] >> 2) & 1).to(torch.uint8)
+        return cnt, meanings, replace(self, data=new, occ=occ)
+
+    def collide_with_bitcheck(self, other: "BitVectorVoxelMap", margin: int = 0, sv_offset: int = 0) -> torch.Tensor:
+        """Same-bit collision with a +-margin window, count only: K4 without
+        marking at sv_offset 0 and margins up to 24, the plain check otherwise."""
+        if sv_offset == 0 and margin <= 24:
+            cnt, _, _ = collide_cuda.collide_types_bit_bit(self.data, other.data, margin, False)
+            return cnt
+        if sv_offset == 0:
+            hit, _ = bitops.bit_margin_collision_check_packed(self.data, other.data, margin)
+        else:
+            hit, _ = bitops.bit_margin_collision_check_packed_full(
+                self.data, other.data, torch.zeros_like(self.data), margin, sv_offset
+            )
+        return hit.sum(dtype=torch.int64)
+
     # -- queries ------------------------------------------------------------
     def occupied_mask(self) -> torch.Tensor:
         return self.occ != 0
+
+    def get_bit_mask(self, meaning) -> torch.Tensor:
+        return bitops.get_bit(self.data, int(meaning))
 
     def merge(self, other: "BitVectorVoxelMap", new_meaning=None) -> "BitVectorVoxelMap":
         """Voxel::reduce = bitwise OR; optionally re-mean the merged voxels."""

@@ -3,8 +3,9 @@
 Counterpart of gpu_voxels_tpu/ops/collide.py (kernelCollideVoxelMaps /
 ...Debug / ...Bitvector, VoxelMapOperations.hpp:78-239). These forms are the
 semantics spec: `ops/collide_cuda` holds the CUDA kernels K1 and K2 for
-count_prob_prob and count_and_mark_prob, and takes these functions for CPU
-tensors.
+count_prob_prob and count_and_mark_prob and K4 for
+collide_with_types_bit_bit (sv_offset 0, margin <= 24), and takes these
+functions for CPU tensors.
 
 Offset semantics replicate collisionCheckWithCounterRelativeTransform
 (TemplateVoxelMap.hpp:486-519): the *left* map's base pointer is shifted by
@@ -20,7 +21,7 @@ import torch
 
 from .. import bitops
 from ..constants import MAX_PROBABILITY
-from ..utils import HIERARCHY, ROBOTS, not_ported
+from ..utils import HIERARCHY, not_ported
 from .insert import linear_offset
 
 
@@ -101,6 +102,47 @@ def any_collision(hit_count: torch.Tensor) -> torch.Tensor:
     return hit_count > 0
 
 
-collide_with_types_bit_bit = not_ported("collide_with_types_bit_bit", ROBOTS)
-collide_with_types_bit_prob = not_ported("collide_with_types_bit_prob", ROBOTS)
+def _mark_hits(planes: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
+    """A copy of `planes` with eBVM_COLLISION (bit 2 of plane 0) set at hits."""
+    out = planes.clone()
+    out[0] = torch.where(hit, planes[0] | (1 << 2), planes[0])
+    return out
+
+
+def collide_with_types_bit_bit(a_planes, b_planes, margin: int = 0, sv_offset: int = 0, mark_collisions: bool = True):
+    """kernelCollideVoxelMapsBitvector with SVCollider (BitVoxelMap.hpp:85-135).
+
+    Per voxel: the windowed swept-volume check bitMarginCollisionCheck(a, b,
+    margin, sv_offset); colliding voxels get eBVM_COLLISION set in the left
+    map; the per-voxel colliding-bit records are OR-reduced into one bit
+    vector. Returns (count, meanings int32[8], new_left); without marking
+    new_left is `a_planes` itself.
+
+    Deviation from CUDA, kept from the reference: the reference reuses one
+    uninitialised per-thread temp vector across its grid-stride loop, so a
+    voxel's record can leak stale bytes of an earlier voxel; here every
+    voxel starts from a fresh zero record.
+    """
+    if sv_offset == 0 and margin <= 24:
+        hit, records = bitops.bit_margin_collision_check_packed(a_planes, b_planes, margin)
+    else:
+        # full-domain packed path: stays in int32 planes (never unpacks to
+        # bool[..., 256]), so dense swept-volume collides work at 512^3
+        hit, records = bitops.bit_margin_collision_check_packed_full(
+            a_planes, b_planes, torch.zeros_like(a_planes), margin, sv_offset
+        )
+    records = torch.where(hit[None, :], records, 0)
+    meanings = bitops.or_reduce_words(records)
+    new_a = _mark_hits(a_planes, hit) if mark_collisions else a_planes
+    return _count(hit), meanings, new_a
+
+
+def collide_with_types_bit_prob(bit_planes, prob, t, mark_collisions: bool = True):
+    """SVCollider bit x prob (SVCollider.hpp:98-118): a collision where the
+    prob voxel passes the threshold and the bit voxel is !noneButEmpty; the
+    bit voxel's whole vector is OR'd into the colliding-meanings record."""
+    hit = prob_occupied(prob, t) & bitops.occupied(bit_planes)
+    meanings = bitops.or_reduce_words(torch.where(hit[None, :], bit_planes, 0))
+    new = _mark_hits(bit_planes, hit) if mark_collisions else bit_planes
+    return _count(hit), meanings, new
 count_with_resolution = not_ported("count_with_resolution", HIERARCHY)

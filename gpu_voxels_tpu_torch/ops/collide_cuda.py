@@ -1,9 +1,11 @@
-"""CUDA kernels K1 and K2: prob x prob counting and marking collides.
+"""CUDA kernels K1, K2 (prob x prob counting and marking collides) and K4
+(the one-pass swept-volume types collide).
 
 Counterpart of gpu_voxels_tpu/ops/collide_pallas.py (`count_prob_prob`,
-`count_and_mark_prob`); the kernels are csrc/collide_prob.cu. Each wrapper
-takes the reference's full-map signature with its offset semantics
-(ops/collide._offset_slices) and
+`count_and_mark_prob`, `collide_types_bit_bit`); the kernels are
+csrc/collide_prob.cu and csrc/collide_types.cu. K1 and K2 take the
+reference's full-map signature with its offset semantics
+(ops/collide._offset_slices). Each wrapper
 
 * on CPU tensors returns the plain torch version (`*_plain`, the spec in
   ops/collide.py);
@@ -24,7 +26,7 @@ count_prob_prob_plain = collide.count_prob_prob
 count_and_mark_prob_plain = collide.count_and_mark_prob
 
 # kernel launches since the last reset, by wrapper name
-launches = {"count_prob_prob": 0, "count_and_mark_prob": 0}
+launches = {"count_prob_prob": 0, "count_and_mark_prob": 0, "collide_types_bit_bit": 0}
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -82,3 +84,42 @@ def count_and_mark_prob(a, b, t1, t2, dims=None, offset=(0, 0, 0)):
     kernels.check(err, "count_and_mark_prob")
     launches["count_and_mark_prob"] += 1
     return count, out
+
+
+def collide_types_bit_bit_plain(a, b, margin: int = 0, mark: bool = True):
+    """K4's spec: ops/collide.collide_with_types_bit_bit at sv_offset 0."""
+    return collide.collide_with_types_bit_bit(a, b, margin, 0, mark)
+
+
+def _check_bits(a: torch.Tensor, b: torch.Tensor) -> None:
+    if not (a.is_cuda and b.is_cuda and a.device == b.device):
+        raise ValueError(f"the types collide kernel needs both maps on one CUDA device, got {a.device}, {b.device}")
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise TypeError(f"bit planes are int32 views of uint32 words, got {a.dtype}, {b.dtype}")
+    if a.ndim != 2 or a.shape[0] != 8 or a.shape != b.shape:
+        raise ValueError(f"bit maps must be [8, N] and of one size, got {tuple(a.shape)}, {tuple(b.shape)}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("bit maps must be contiguous")
+
+
+def collide_types_bit_bit(a, b, margin: int = 0, mark: bool = True):
+    """Windowed swept-volume collide at sv_offset 0, 0 <= margin <= 24 (K4):
+    (count, meanings int32[8], new_a). With `mark`, new_a is a new map with
+    eBVM_COLLISION set at hits; without, it is `a` itself."""
+    if _on_cpu(a, b):
+        return collide_types_bit_bit_plain(a, b, margin, mark)
+    _check_bits(a, b)
+    if not 0 <= int(margin) <= 24:
+        raise ValueError(f"the types collide kernel covers margins 0..24, got {margin}")
+    count = torch.empty((), dtype=torch.int64, device=a.device)
+    meanings = torch.empty(8, dtype=torch.int32, device=a.device)
+    out = torch.empty_like(a) if mark else None
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        err = kernels.library().gv_collide_types_bit_bit(
+            a.data_ptr(), b.data_ptr(), out.data_ptr() if mark else None, a.shape[1], int(margin),
+            count.data_ptr(), meanings.data_ptr(), stream,
+        )
+    kernels.check(err, "collide_types_bit_bit")
+    launches["collide_types_bit_bit"] += 1
+    return count, meanings, out if mark else a

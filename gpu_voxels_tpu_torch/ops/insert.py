@@ -22,7 +22,7 @@ import torch
 
 from ..bitops import as_int32, bit_plane, bit_word
 from ..constants import meaning_to_probability
-from ..utils import ROBOTS, SENSING, not_ported
+from ..utils import SENSING, not_ported, to_device
 
 Dims = Tuple[int, int, int]
 
@@ -111,6 +111,67 @@ def insert_bit(planes: torch.Tensor, points: torch.Tensor, side_length: float, d
     return out, outside, (occ_word != 0).to(torch.uint8)
 
 
-scatter_bits_multi = not_ported("scatter_bits_multi", ROBOTS)
-self_collision_clash = not_ported("self_collision_clash", ROBOTS)
+def scatter_bits_multi(planes: torch.Tensor, occ: torch.Tensor, idx: torch.Tensor, meanings_np):
+    """Fused multi-meaning bit scatter: set bit ``meanings_np[i]`` (a host
+    numpy array, one per point) at voxel ``idx[i]`` (N for out-of-map
+    points), in one pass: the kernelInsertMetaPointCloud analogue behind the
+    batched swept-volume insert and the per-subcloud meta insert.
+
+    Only the planes the meanings touch (K of 8, known on the host) take
+    scatter traffic. One int64 key ``(idx*K + slot)*32 + bit`` names each
+    (voxel, bit) pair; a sort puts duplicates side by side and only the
+    first of each run carries its one-hot word, so an ``index_add_`` of
+    distinct powers of two is an OR. Duplicate points therefore cannot
+    race (H7), and int64 cannot overflow here, so the reference's two-pass
+    branch for large maps has no counterpart. Out-of-map pairs go to a
+    spare slot K*N (F2). Nothing syncs with the host.
+
+    Returns (new_planes, new_occ): new_occ is the maintained !noneButEmpty
+    summary, with bit 0 (eBVM_FREE) masked out of plane 0 (BitVector.h:184-198).
+    """
+    meanings_np = np.asarray(meanings_np, np.int64)
+    if meanings_np.size == 0:
+        return planes, occ
+    touched = np.flatnonzero(np.bincount(meanings_np >> 5, minlength=planes.shape[0])).tolist()
+    slot_of_plane = np.full(planes.shape[0], -1, np.int64)
+    slot_of_plane[touched] = np.arange(len(touched))
+    k = len(touched)
+    n = planes.shape[1]
+    # per point: slot * 32 + bit, made on the host and uploaded once
+    slot_bit = to_device(slot_of_plane[meanings_np >> 5] * 32 + (meanings_np & 31), torch.int64, planes.device)
+    key, _ = torch.sort(idx.reshape(-1).to(torch.int64) * (k * 32) + slot_bit)
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    vox, slot, bit = key // (k * 32), (key // 32) % k, key % 32
+    # the one-hot uint32 word as the int32 holding its bits (bit 31 is -2^31)
+    one_hot = torch.where(bit == 31, -(2**31), torch.ones_like(bit) << bit)
+    word = torch.where(first, one_hot, 0).to(torch.int32)
+    tgt = torch.where(first & (vox < n), slot * n + vox, k * n)
+    delta = torch.zeros(k * n + 1, dtype=torch.int32, device=planes.device)
+    delta = delta.index_add_(0, tgt, word)[: k * n].reshape(k, n)
+
+    out = planes.clone()
+    for p in touched:
+        out[p] |= delta[slot_of_plane[p]]
+    occ_words = delta.clone()
+    if slot_of_plane[0] >= 0:
+        occ_words[slot_of_plane[0]] &= as_int32(0xFFFFFFFE)
+    return out, occ | torch.any(occ_words != 0, dim=0).to(torch.uint8)
+
+
+def self_collision_clash(robot_links, side_length: float, dims: Dims) -> torch.Tensor:
+    """Pairwise sub-cloud self-collision predicate of every map's
+    insert_robot_configuration: True iff two DIFFERENT sub-clouds of the
+    MetaPointCloud voxelize into the same cell (the clash test of
+    insertMetaPointCloudWithSelfcollisionCheck, ProbVoxelMap.h:61-77).
+    Duplicate points within one sub-cloud do not clash. A device bool."""
+    n = dims[0] * dims[1] * dims[2]
+    union = torch.zeros(n, dtype=torch.int8, device=robot_links.device)
+    clash = torch.zeros((), dtype=torch.bool, device=robot_links.device)
+    for i in range(robot_links.num_clouds):
+        idx, _ = voxelize(robot_links.get_cloud(i), side_length, dims)
+        hits = occupancy_mask(idx, n)
+        clash = clash | torch.any((hits > 0) & (union > 0))
+        union = torch.maximum(union, hits)
+    return clash
 insert_count = not_ported("insert_count", SENSING)

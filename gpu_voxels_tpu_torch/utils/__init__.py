@@ -4,8 +4,8 @@ from __future__ import annotations
 import torch
 
 # ROADMAP Queue 1 items that bring what this slice leaves out
-ROBOTS = "ROADMAP Queue 1 item 6: robots and swept volumes"
-SENSING = "ROADMAP Queue 1 item 6b: K6, DDA sensor insert, counting maps, point clouds"
+URDF = "ROADMAP Queue 1 item 12: URDF robots, with the binvox reader of geometry/files.py"
+SENSING = "ROADMAP Queue 1 item 6b: K6, DDA sensor insert, counting maps, providers"
 HIERARCHY = "ROADMAP Queue 1 item 10: hierarchical tier"
 FACADE = "ROADMAP Queue 1 item 12: IO, visualization and the facade"
 
@@ -20,10 +20,22 @@ def not_ported(name: str, item: str):
     return fn
 
 
+def default_device() -> torch.device:
+    """The device of every entry point that is given none: the CUDA card.
+    Callers that want the CPU say so (`device="cpu"`); on a machine without
+    CUDA, an allocation on this device raises torch's own error."""
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device, `default_device()` when None."""
+    return torch.device(device) if device is not None else default_device()
+
+
 def to_device(x, dtype: torch.dtype, device=None) -> torch.Tensor:
     """`x` (numpy array, sequence, scalar or tensor) as a `dtype` tensor on
-    `device` (default: a tensor's own device, torch's default device for
-    host data).
+    `device` (default: a tensor's own device, `default_device()` for host
+    data).
 
     Host data bound for a CUDA device goes through pinned memory with a
     non-blocking copy, so an upload (a depth frame, a point cloud, a pose)
@@ -34,9 +46,9 @@ def to_device(x, dtype: torch.dtype, device=None) -> torch.Tensor:
         t = x.to(dtype)
     else:
         t = torch.as_tensor(x, dtype=dtype, device="cpu")
-    device = torch.device(device) if device is not None else (
-        t.device if isinstance(x, torch.Tensor) else torch.get_default_device()
-    )
+    if device is None and isinstance(x, torch.Tensor):
+        device = t.device
+    device = resolve_device(device)
     if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)

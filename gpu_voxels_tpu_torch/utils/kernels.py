@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (`csrc/*.cu`).
 
-nvcc compiles every source under csrc/ into one shared library with a plain
-C interface, loaded with ctypes. The build runs at first use, from the
+nvcc compiles every source under csrc/ (one nvcc process per source, all
+started together) and links the objects into one shared library with a
+plain C interface, loaded with ctypes. The build runs at first use, from the
 package's own sources only, into `_build/` beside this package (listed in
 .gitignore), keyed by a hash of the sources and the flags, so a changed
 source rebuilds and an unchanged one loads at once. The library is written
@@ -33,7 +34,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -47,6 +48,8 @@ SIGNATURES = {
     "gv_count_prob_prob": (_P, _P, _I64, _I32, _I32, _P, _P),
     # (a, b, out, n_total, a_start, len, t1, t2, count, stream)
     "gv_count_and_mark_prob": (_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P, _P),
+    # (a, b, out or NULL, n, margin, count, meanings, stream)
+    "gv_collide_types_bit_bit": (_P, _P, _P, _I64, _I32, _P, _P, _P),
     # (depth, h, w, pose, fx, fy, cx, cy, side, eps, invalid, dx, dy, dz, out, stream)
     "gv_carve_exact": (
         _P, _I32, _I32, _P, _F32, _F32, _F32, _F32, _F32, _F32, _F32,
@@ -79,25 +82,33 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgvtorch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; wait for all, then raise on the first failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
+    results = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, results):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+
+
 def build() -> Path:
     """Compile csrc/*.cu unless the library for these sources exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = []
+        compiles = []
+        for src in _sources():
+            if src.suffix == ".cu":
+                objs.append(str(Path(tmp) / f"{src.stem}.o"))
+                compiles.append([nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)])
+        _run_all(compiles)
+        lib = str(Path(tmp) / out.name)
+        _run_all([[nvcc, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 

@@ -91,16 +91,16 @@ def test_offset_oracle_8_18_18():
     p1 = tgen.create_box_of_points((2.1, 2.1, 2.1), (4.1, 4.1, 4.1), 0.5)
     p2 = tgen.create_box_of_points((3.1, 3.1, 3.1), (5.1, 5.1, 5.1), 0.5)
     np.testing.assert_array_equal(p1, jgen.create_box_of_points((2.1, 2.1, 2.1), (4.1, 4.1, 4.1), 0.5))
-    m1 = TProb.create(dims).insert_point_cloud(p1)
-    m2 = TProb.create(dims).insert_point_cloud(p2)
+    m1 = TProb.create(dims, device="cpu").insert_point_cloud(p1)
+    m2 = TProb.create(dims, device="cpu").insert_point_cloud(p2)
     assert int(m1.collide_with(m2, 0.1)) == 8
     assert int(m1.collide_with(m2, 0.1, (-1, 0, -1))) == 18
     assert int(m2.collide_with(m1, 0.1, (1, 0, 1))) == 18
-    assert bool(m1.collides_with(m2, 0.1)) and not bool(m1.collides_with(TProb.create(dims), 0.1))
+    assert bool(m1.collides_with(m2, 0.1)) and not bool(m1.collides_with(TProb.create(dims, device="cpu"), 0.1))
     cnt, marked = m1.collide_with_marking(m2, 0.1, (-1, 0, -1))
     assert int(cnt) == 18 and torch.equal(marked.data, m1.data)  # hits already hold 127
-    b1 = TBit.create(dims).insert_point_cloud(p1)
-    b2 = TBit.create(dims).insert_point_cloud(p2)
+    b1 = TBit.create(dims, device="cpu").insert_point_cloud(p1)
+    b2 = TBit.create(dims, device="cpu").insert_point_cloud(p2)
     assert int(b1.collide_with(b2)) == 8
     assert int(b1.collide_with(b2, 1.0, (-1, 0, -1))) == 18
     assert int(b1.collide_with(m2, 0.1, (-1, 0, -1))) == 18  # bit x prob
@@ -114,11 +114,11 @@ def test_map_collides_match_reference(offset):
     ext = np.asarray(DIMS, np.float32)
     clouds = [r.uniform(0, 1, (3000, 3)).astype(np.float32) * ext for _ in range(3)]
     j1 = JProb.create(DIMS).insert_point_cloud(clouds[0]).update_occupancy(clouds[2], -200)
-    t1 = TProb.create(DIMS).insert_point_cloud(clouds[0]).update_occupancy(clouds[2], -200)
+    t1 = TProb.create(DIMS, device="cpu").insert_point_cloud(clouds[0]).update_occupancy(clouds[2], -200)
     j2 = JProb.create(DIMS).insert_point_cloud(clouds[1])
-    t2 = TProb.create(DIMS).insert_point_cloud(clouds[1])
+    t2 = TProb.create(DIMS, device="cpu").insert_point_cloud(clouds[1])
     jb = JBit.create(DIMS).insert_point_cloud(clouds[1], 7).insert_point_cloud(clouds[2], 0)
-    tb = TBit.create(DIMS).insert_point_cloud(clouds[1], 7).insert_point_cloud(clouds[2], 0)
+    tb = TBit.create(DIMS, device="cpu").insert_point_cloud(clouds[1], 7).insert_point_cloud(clouds[2], 0)
     for thr in (0.1, 0.5, 1.0):
         assert int(t1.collide_with(t2, thr, offset)) == int(j1.collide_with(j2, thr, offset))
         assert int(t1.collide_with(tb, thr, offset)) == int(j1.collide_with(jb, thr, offset))
@@ -138,4 +138,4 @@ def test_kernel_wrappers_refuse_what_they_cannot_take():
     a = torch.zeros(10, dtype=torch.int8)
     with pytest.raises(ValueError):  # a CPU map never meets a kernel
         collide_cuda._check(a, a)
-    assert collide_cuda.launches == {"count_prob_prob": 0, "count_and_mark_prob": 0}
+    assert collide_cuda.launches == {"count_prob_prob": 0, "count_and_mark_prob": 0, "collide_types_bit_bit": 0}

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1, K2 and K3 against their plain torch versions.
+"""The port's CUDA kernels K1, K2, K3 and K4 against their plain torch versions.
 
 This file imports torch and the port only (no JAX), so it also runs on a
 machine with a card and no JAX:
@@ -113,3 +113,50 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda_device):
     depth = torch.ones((4, 4), dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError):
         raycast_cuda.projective_free_space_exact(depth, torch.eye(4), 1.0, 1.0, 2.0, 2.0, 1.0, (4, 4, 4))
+
+
+def _bit_fixture(n, seed, device):
+    """Dense-random words zeroed per voxel with p = 0.7, bit 31 set in some
+    words, plus the bit-0-only hazard voxel of a against an SV bit of b."""
+    rng = np.random.default_rng(seed)
+    words = []
+    for _ in range(2):
+        w = rng.integers(0, 2**32, (8, n), dtype=np.uint64).astype(np.uint32)
+        w *= (rng.random(n) < 0.3).astype(np.uint32)
+        words.append(w)
+    a, b = words
+    a[:, 5], b[:, 5] = 0, 0
+    a[0, 5] = 1  # occupancy 0: eBVM_FREE only
+    b[0, 5] = 1 << 6
+    return (torch.tensor(a.view(np.int32), device=device), torch.tensor(b.view(np.int32), device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("margin", [0, 1, 4, 8, 24])
+def test_k4_matches_plain_on_card(cuda_device, margin):
+    """K4 equals its plain version exactly on count, meanings and marked map,
+    at a length that is not a multiple of the block size."""
+    a, b = _bit_fixture(100_003, margin, cuda_device)
+    before = collide_cuda.launches["collide_types_bit_bit"]
+    for mark in (True, False):
+        cnt, meanings, new = collide_cuda.collide_types_bit_bit(a, b, margin, mark)
+        ref_c, ref_m, ref_new = collide_cuda.collide_types_bit_bit_plain(a, b, margin, mark)
+        assert cnt.dtype == torch.int64 and meanings.dtype == torch.int32
+        assert int(cnt) == int(ref_c) > 0
+        assert torch.equal(meanings, ref_m) and torch.equal(new, ref_new)
+        assert (new.data_ptr() != a.data_ptr()) == mark
+    torch.cuda.synchronize()
+    assert collide_cuda.launches["collide_types_bit_bit"] == before + 2
+
+
+@pytest.mark.cuda
+def test_k4_raises_on_inputs_it_does_not_take(cuda_device):
+    a = torch.zeros((8, 100), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        collide_cuda.collide_types_bit_bit(a, a.to(torch.int64), 0)
+    with pytest.raises(ValueError):
+        collide_cuda.collide_types_bit_bit(a, a.cpu(), 0)
+    with pytest.raises(ValueError):
+        collide_cuda.collide_types_bit_bit(a, a, 25)
+    with pytest.raises(ValueError):
+        collide_cuda.collide_types_bit_bit(a[:, ::2], a[:, ::2], 0)

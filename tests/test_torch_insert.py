@@ -81,7 +81,7 @@ def test_boundary_points_voxelize_like_reference(side):
 def test_insert_prob_matches_reference(meaning):
     pts = _cloud(meaning + 1)
     ref = JProb.create(DIMS, 0.1).insert_point_cloud(pts, meaning)
-    got = TProb.create(DIMS, 0.1).insert_point_cloud(pts, meaning)
+    got = TProb.create(DIMS, 0.1, device="cpu").insert_point_cloud(pts, meaning)
     np.testing.assert_array_equal(got.data.numpy(), np.asarray(ref.data))
     # an update on top: +72 on every hit voxel, clamped
     ref2 = ref.update_occupancy(pts[:500], 72)
@@ -93,7 +93,7 @@ def test_insert_bit_and_occupancy_summary_match_reference():
     """Bits across planes, incl. eBVM_FREE (bit 0, not occupied) and a plane's
     sign bit; the occ summary stays coherent with the planes."""
     ref = JBit.create(DIMS, 0.1)
-    got = TBit.create(DIMS, 0.1)
+    got = TBit.create(DIMS, 0.1, device="cpu")
     for i, meaning in enumerate([0, 1, 31, 32, 63, 200, 2]):
         pts = _cloud(20 + i, n=600)
         ref = ref.insert_point_cloud(pts, meaning)
@@ -103,7 +103,7 @@ def test_insert_bit_and_occupancy_summary_match_reference():
         np.testing.assert_array_equal(got.occ.numpy() != 0, tbit.occupied(got.data).numpy())
     # the bit-0-only voxels are not occupied
     free_only = JBit.create(DIMS, 0.1).insert_point_cloud(_cloud(40), BitVoxelMeaning.eBVM_FREE)
-    t_free = TBit.create(DIMS, 0.1).insert_point_cloud(_cloud(40), BitVoxelMeaning.eBVM_FREE)
+    t_free = TBit.create(DIMS, 0.1, device="cpu").insert_point_cloud(_cloud(40), BitVoxelMeaning.eBVM_FREE)
     assert int(t_free.occ.sum()) == int(np.asarray(free_only.occ).sum()) == 0
     # merge keeps the summary coherent too
     m_ref = ref.merge(free_only, new_meaning=5)
@@ -129,10 +129,10 @@ def test_transforms_match_reference():
     )
     for name, ang in (("rot_x", 0.4), ("rot_y", -1.1), ("rot_z", 2.5)):
         np.testing.assert_allclose(
-            getattr(ttf, name)(ang).numpy(), np.asarray(getattr(jtf, name)(jnp.float32(ang))), rtol=1e-6, atol=1e-7
+            getattr(ttf, name)(ang, device="cpu").numpy(), np.asarray(getattr(jtf, name)(jnp.float32(ang))), rtol=1e-6, atol=1e-7
         )
-    np.testing.assert_array_equal(ttf.identity().numpy(), np.asarray(jtf.identity()))
-    np.testing.assert_array_equal(ttf.from_translation(t).numpy(), np.asarray(jtf.from_translation(t)))
+    np.testing.assert_array_equal(ttf.identity("cpu").numpy(), np.asarray(jtf.identity()))
+    np.testing.assert_array_equal(ttf.from_translation(t, device="cpu").numpy(), np.asarray(jtf.from_translation(t)))
     pts = rng.uniform(-3, 3, (500, 3)).astype(np.float32)
     np.testing.assert_allclose(
         ttf.transform_points(torch.tensor(m_ref), torch.tensor(pts)).numpy(),

@@ -101,7 +101,7 @@ def test_bit_folds_and_predicates_match_reference():
         np.testing.assert_array_equal(getattr(tbit, name)(ta).numpy(), np.asarray(getattr(jbit, name)(ja)), name)
     np.testing.assert_array_equal(_u32(tbit.bv_or(ta, tb)), np.asarray(jbit.bv_or(ja, jb)))
     np.testing.assert_array_equal(_u32(tbit.bv_and(ta, tb)), np.asarray(jbit.bv_and(ja, jb)))
-    z = tbit.zeros((5,))
+    z = tbit.zeros((5,), device="cpu")
     assert z.shape == (8, 5) and z.dtype == torch.int32 and not z.any()
     # the sign bit (bit 31 of a plane) is an ordinary bit in the int32 view
     top = np.zeros((8, 2), np.uint32)

@@ -113,7 +113,7 @@ def test_insert_depth_image_matches_reference_maps():
     jsensor, tsensor = jsens.Sensor(**sensor_kw), tsens.Sensor(**sensor_kw)
     np.testing.assert_array_equal(tsensor.pose(), jsensor.pose())
     rng = np.random.default_rng(11)
-    jdata, tmap = JProb.create(DIMS, side).data, TProb.create(DIMS, side)
+    jdata, tmap = JProb.create(DIMS, side).data, TProb.create(DIMS, side, device="cpu")
     for frame in range(3):
         depth = np.full((48, 64), 2.4 + 0.05 * frame, np.float32)
         depth[10:30, 20:44] = 1.3  # a box in front of the wall
@@ -122,7 +122,7 @@ def test_insert_depth_image_matches_reference_maps():
         depth = _boundary_safe(depth, tsensor.pose(), side, INTR)
         pts = np.asarray(jsensor.process_depth_image(depth))
         assert _min_boundary_distance(pts, side) >= 1e-3
-        assert _min_boundary_distance(tsensor.process_depth_image(depth).numpy(), side) >= 1e-3
+        assert _min_boundary_distance(tsensor.process_depth_image(depth, device="cpu").numpy(), side) >= 1e-3
         jdata = jrc.insert_depth_image(
             jdata, jnp.asarray(depth), jnp.asarray(jsensor.pose()), *INTR, side, DIMS
         )
@@ -152,4 +152,4 @@ def test_point_cloud_and_ops_insert_depth_image():
     with pytest.raises(NotImplementedError, match="K6"):
         trc.insert_depth_image(torch.tensor(data), safe, pose, *INTR, 1.0, DIMS, carve_pool=8)
     with pytest.raises(NotImplementedError, match="K6"):
-        TProb.create(DIMS).insert_depth_image(safe, tsens.Sensor(), carve_pool=4)
+        TProb.create(DIMS, device="cpu").insert_depth_image(safe, tsens.Sensor(), carve_pool=4)
