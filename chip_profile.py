@@ -6,7 +6,8 @@ torch.profiler.
 
 For each path of chip_smoke.py's phase 4 (the 512^3 insert -> collide cycle,
 the 256^3 fusion of one 640x480 frame, the UR10 64-step swept volume with
-its types collide) it prints the time per iteration from CUDA events
+its types collide, BASELINE #4's exact EDT at 512^3 and the 256^3 camera ->
+distance field frame) it prints the time per iteration from CUDA events
 (unprofiled), the device-busy time per iteration (the sum of the device
 rows of `key_averages()`: kernels, memsets and copies), the device's idle
 share, and the device rows that take the most time. Needs one CUDA card and
@@ -22,6 +23,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 from gpu_voxels_tpu_torch.geometry import generation
+from gpu_voxels_tpu_torch.maps.distance_map import DistanceVoxelMap
 from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
 from gpu_voxels_tpu_torch.robot.swept_volume import insert_swept_volume_batched
 from gpu_voxels_tpu_torch.sensors import SyntheticDepthSource
@@ -72,6 +74,17 @@ def main() -> int:
     breakdown("512^3 insert->insert->collide cycle", cycle, smi)
     breakdown("256^3 fusion of one 640x480 frame", lambda: fresh.insert_depth_image(frame, sensor), smi)
     breakdown("UR10 64-step swept volume + types collide at 256^3", trajectory, smi)
+    del robot, placed, cfgs, env
+
+    obstacles = DistanceVoxelMap.create(cs.EDT_DIMS, 1.0, device=dev).insert_point_cloud(
+        (cs.edt_obstacles() + 0.5).astype("float32"))
+
+    def camera_frame():
+        pooled = fresh.insert_depth_image(frame, sensor, carve_pool=cs.POOL)
+        return DistanceVoxelMap.create(cs.FUSION_DIMS, cs.FUSION_SIDE, device=dev).merge_occupied(pooled).jump_flood()
+
+    breakdown("BASELINE #4 exact EDT at 512^3 (20,000 obstacles)", obstacles.parallel_banding, smi)
+    breakdown("256^3 camera -> distance field frame (pooled carve, merge, EDT)", camera_frame, smi)
     return 0
 
 

@@ -15,7 +15,11 @@ non-zero and prints no result. Phases, each an assert or an exception:
    K4 (swept-volume types collide) on 256^3 bit maps over margins
    {0, 1, 4, 8, 24} x mark, dense-random and sparse (with the bit-0-only
    hazard voxel) fixtures and a length that is not a multiple of the block;
-3. two paths through the public entry points, on the card, with torch's
+   K5 (the EDT's min-plus envelope) at 256^3 along Y and X on random, empty,
+   single-site, 50 %-dense, ragged (250x200x130) and tie fixtures, on
+   distances and payloads; K6 (pooled carve) at 256^3 under the 3 poses at
+   P in {4, 8}, and its mask inside K3's;
+3. three paths through the public entry points, on the card, with torch's
    sync debug mode set to raise (the paths never wait for the device), each
    driven with every launch count set to 0 just before it and read just
    after; each kernel of a path must have launched in it:
@@ -28,11 +32,20 @@ non-zero and prints no result. Phases, each an assert or an exception:
      the facade, the BASELINE #3 64-step UR10 swept volume into a 256^3
      bit map, and its types collides and bit checks against an environment
      whose obstacles carry the SV bits of a few steps;
-   every count, meanings vector and map must equal the same scene run
-   through the plain route;
+   - the camera -> distance field path (K5, K6): BASELINE #4 through the
+     facade (a 512^3 DistanceVoxelMap, 20,000 random obstacles, the exact
+     EDT, proximity queries, byte distances), and five Kinect frames fused
+     into 256^3 with the pooled carve (carve_pool = 8), merged into a
+     DistanceVoxelMap, its EDT (jump_flood's card route), the UR10's
+     clearance and a clearance bit map;
+   every count, meanings vector, map, distance and payload grid must equal
+   the same scene run through the plain route, and the 512^3 EDT must equal
+   a brute-force minimum over the obstacles at 4,096 sampled voxels;
 4. times with CUDA events (printed, never asserted): each kernel beside its
-   plain version, the 512^3 cycle rate, the 256^3 fusion rate and the
-   64-step swept insert + types collide per trajectory.
+   plain version (K5 per pass at 512^3 and 256^3, with the share of
+   positions that hold a site), the 512^3 cycle rate, the 256^3 fusion rate, the 64-step swept
+   insert + types collide per trajectory, the 512^3 EDT and the 256^3
+   camera -> distance field frame.
 
 Output: progress lines, the card's `name, power.limit` line, one JSON line
 {"kernels": [...]} (each kernel with its launches on its path, its largest
@@ -54,12 +67,13 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from gpu_voxels_tpu_torch import bitops
+from gpu_voxels_tpu_torch import bitops, converters
 from gpu_voxels_tpu_torch.api import GpuVoxels
 from gpu_voxels_tpu_torch.constants import SV_START, BitVoxelMeaning, MapType
 from gpu_voxels_tpu_torch.geometry import generation, transforms
+from gpu_voxels_tpu_torch.maps.distance_map import DistanceVoxelMap
 from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
-from gpu_voxels_tpu_torch.ops import collide_cuda, raycast_cuda
+from gpu_voxels_tpu_torch.ops import collide_cuda, edt, edt_cuda, edt_envelope, raycast_cuda
 from gpu_voxels_tpu_torch.robot.dh import DHParameters
 from gpu_voxels_tpu_torch.robot.presets import ur_robot
 from gpu_voxels_tpu_torch.robot.swept_volume import insert_swept_volume_batched
@@ -77,6 +91,12 @@ SV_DIMS, SV_SIDE, SV_BASE = (256, 256, 256), 0.02, (2.56, 2.56, 0.5)
 SV_TRAJ = np.linspace([0.3, -0.5, 0.5, 0, 0, 0], [-1.2, -0.2, 1.0, 0.4, 0.3, 0], 64).astype(np.float32)
 OBSTACLE_STEPS = (12, 31, 50)  # env obstacles carry these steps' SV bits
 K4_MARGINS = (0, 1, 4, 8, 24)
+# BASELINE config #4 (bench.py:364-394): 20,000 random obstacle voxels in a
+# 512^3 DistanceVoxelMap at 1.0 m, the exact EDT and proximity queries
+EDT_DIMS, EDT_OBSTACLES = (512, 512, 512), 20000
+BRUTE_SAMPLES = 4096
+K5_RAGGED = (250, 200, 130)  # (dx, dy, dz): no dim a multiple of 8 or 32
+POOL = 8  # the reference's fast camera configuration (gpu_voxels_tpu/ops/raycast.py:202-208)
 # H100 SXM data sheet: HBM rate and the f32 rate
 # outside the tensor cores, which the integer and f32 ops here are held to
 HBM_BYTES_PER_S = 3.35e12
@@ -92,6 +112,10 @@ KERNELS = [
      "gpu_voxels_tpu/ops/raycast_pallas.py:189"),
     ("collide_types_bit_bit", collide_cuda, "gpu_voxels_tpu_torch/csrc/collide_types.cu",
      "gpu_voxels_tpu/ops/collide_pallas.py:189"),
+    ("envelope_pass", edt_cuda, "gpu_voxels_tpu_torch/csrc/edt_envelope.cu",
+     "gpu_voxels_tpu/ops/edt_envelope.py:130"),
+    ("projective_free_space_pooled", raycast_cuda, "gpu_voxels_tpu_torch/csrc/carve_pooled.cu",
+     "gpu_voxels_tpu/ops/raycast_pallas.py:435"),
 ]
 
 
@@ -189,8 +213,81 @@ def check_kernels(dev: torch.device) -> dict:
             assert mark == (new.data_ptr() != a.data_ptr()), "the marked map must be new, the unmarked one a"
         log(f"  K4 {name} N={a.shape[1]} margin={margin:2d}: count {int(cnt)} == plain, meanings and "
             f"marked map equal (mark True/False)")
+    del dense, k4_cases, ragged, a, b, new, ref_new
+    check_k5(dev, g, err)
+    check_k6(dev, err)
     torch.cuda.synchronize()
     return err
+
+
+def random_obstacles(dev: torch.device, dims, count: int, g: torch.Generator) -> torch.Tensor:
+    """Packed int32[N] with `count` random obstacle voxels (duplicates merge)."""
+    n = dims[0] * dims[1] * dims[2]
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    mask[torch.randint(0, n, (count,), device=dev, generator=g)] = True
+    return edt.init_from_obstacle_mask(mask, dims)
+
+
+def k5_fixtures(dev: torch.device, g: torch.Generator):
+    """(name, g, payload, axis) inputs of the EDT's passes at 256^3: the Y
+    pass on PBA phase 1's output, the X pass on the plain Y pass's output,
+    and a synthetic tie grid for both."""
+    dims = FUSION_DIMS
+    dx, dy, dz = dims
+    n = dx * dy * dz
+    centre = (dz // 2 * dy + dy // 2) * dx + dx // 2
+    grids = {
+        "random": (random_obstacles(dev, dims, EDT_OBSTACLES // 8, g), dims),  # BASELINE #4's density
+        "empty": (edt.init_from_obstacle_mask(torch.zeros(n, dtype=torch.bool, device=dev), dims), dims),
+        "single": (edt.init_from_obstacle_mask(torch.arange(n, device=dev) == centre, dims), dims),
+        "dense50": (edt.init_from_obstacle_mask(torch.rand(n, device=dev, generator=g) < 0.5, dims), dims),
+        "ragged": (random_obstacles(dev, K5_RAGGED, 1500, g), K5_RAGGED),
+    }
+    for name, (packed, gdims) in grids.items():
+        g1, pay1 = edt_envelope.flood_z(packed, gdims)
+        yield name, g1, pay1, 1
+        d2, pay2 = edt_cuda.envelope_pass_plain(g1, pay1, 1)
+        yield name, d2, pay2, 2
+    # equidistant ties: sites at offset 0 on every 4th row and column, small
+    # random offsets elsewhere
+    shape = (dims[2], dims[1], dims[0])
+    small = torch.randint(0, 6, shape, dtype=torch.int32, device=dev, generator=g)
+    tie = torch.where(torch.rand(shape, device=dev, generator=g) < 0.8, edt_envelope.MISS, small)
+    tie[:, ::4, :] = 0
+    tie[:, :, ::4] = 0
+    pay = torch.randint(0, 2**30, shape, dtype=torch.int32, device=dev, generator=g)
+    for axis in (1, 2):
+        yield "ties", tie, pay, axis
+
+
+def check_k5(dev: torch.device, g: torch.Generator, err: dict) -> None:
+    for name, g2, pay, axis in k5_fixtures(dev, g):
+        d, p = edt_cuda.envelope_pass(g2, pay, axis)
+        ref_d, ref_p = edt_cuda.envelope_pass_plain(g2, pay, axis)
+        d_err = int((d.to(torch.int64) - ref_d.to(torch.int64)).abs().max())
+        p_diff = int((p != ref_p).sum())
+        err["envelope_pass"] = max(err["envelope_pass"], d_err, int(p_diff > 0))
+        assert d_err == 0 and p_diff == 0, (name, axis, d_err, p_diff)
+        found = int((d < edt_envelope.MISS).sum())
+        log(f"  K5 {name} {tuple(g2.shape)} axis={axis}: distances and payloads equal to plain "
+            f"({found} of {d.numel()} voxels reach a site)")
+
+
+def check_k6(dev: torch.device, err: dict) -> None:
+    depth = torch.as_tensor(bench_frame(), device=dev)
+    for name, pose in carve_poses().items():
+        p = torch.as_tensor(pose, device=dev)
+        args = (depth, p, *INTR, FUSION_SIDE, FUSION_DIMS)
+        exact = raycast_cuda.projective_free_space_exact(*args)
+        for pool in (4, POOL):
+            got = raycast_cuda.projective_free_space_pooled(*args, pool=pool)
+            ref = raycast_cuda.projective_free_space_pooled_plain(*args, pool=pool)
+            diff = int((got != ref).sum())
+            err["projective_free_space_pooled"] = max(err["projective_free_space_pooled"], int(diff > 0))
+            outside = int((got & ~exact).sum())
+            assert diff == 0 and outside == 0 and int(got.sum()) > 0, (name, pool, diff, outside)
+            log(f"  K6 pose={name} P={pool}: {int(got.sum())} free voxels (exact carve {int(exact.sum())}), "
+                f"mask equal to plain bit for bit and inside K3's")
 
 
 def dense_bits(dev: torch.device, n: int, g: torch.Generator) -> torch.Tensor:
@@ -226,17 +323,23 @@ def sparse_bits(dev: torch.device, n: int, g: torch.Generator):
 def plain_route():
     """Route the map methods through the plain torch versions (the reference
     run of the main path on the same card)."""
-    saved = (collide_cuda.count_prob_prob, collide_cuda.count_and_mark_prob,
-             raycast_cuda.projective_free_space_exact, collide_cuda.collide_types_bit_bit)
-    collide_cuda.count_prob_prob = collide_cuda.count_prob_prob_plain
-    collide_cuda.count_and_mark_prob = collide_cuda.count_and_mark_prob_plain
-    raycast_cuda.projective_free_space_exact = raycast_cuda.projective_free_space_plain
-    collide_cuda.collide_types_bit_bit = collide_cuda.collide_types_bit_bit_plain
+    plain = {
+        (collide_cuda, "count_prob_prob"): collide_cuda.count_prob_prob_plain,
+        (collide_cuda, "count_and_mark_prob"): collide_cuda.count_and_mark_prob_plain,
+        (raycast_cuda, "projective_free_space_exact"): raycast_cuda.projective_free_space_plain,
+        (collide_cuda, "collide_types_bit_bit"): collide_cuda.collide_types_bit_bit_plain,
+        (edt_cuda, "envelope_pass"): edt_cuda.envelope_pass_plain,
+        (raycast_cuda, "projective_free_space_pooled"): raycast_cuda.projective_free_space_pooled_plain,
+    }
+    assert {(m, n) for n, m, *_ in KERNELS} == set(plain)
+    saved = {key: getattr(*key) for key in plain}
+    for (module, name), fn in plain.items():
+        setattr(module, name, fn)
     try:
         yield
     finally:
-        (collide_cuda.count_prob_prob, collide_cuda.count_and_mark_prob,
-         raycast_cuda.projective_free_space_exact, collide_cuda.collide_types_bit_bit) = saved
+        for (module, name), fn in saved.items():
+            setattr(module, name, fn)
 
 
 def kinect_sensor() -> Sensor:
@@ -354,6 +457,93 @@ def robot_path(dev: torch.device, fused_env: ProbVoxelMap) -> dict:
     return out
 
 
+def edt_obstacles() -> np.ndarray:
+    """BASELINE #4's 20,000 random obstacle voxels (int64 [M, 3] x, y, z),
+    from a numpy seed; duplicates merge on insert."""
+    n = EDT_DIMS[0] * EDT_DIMS[1] * EDT_DIMS[2]
+    idx = np.random.default_rng(4).integers(0, n, EDT_OBSTACLES)
+    dx, dy, _ = EDT_DIMS
+    return np.stack([idx % dx, (idx // dx) % dy, idx // (dx * dy)], axis=1)
+
+
+def distance_path(dev: torch.device, frames, placed: "PlacedArm", cfgs: torch.Tensor) -> dict:
+    """The camera -> distance field path through the public entry points."""
+    out = {}
+    # (h) BASELINE #4 through the facade: 512^3 at 1.0 m, 20,000 obstacles,
+    # the exact EDT, then proximity queries and byte distances
+    GpuVoxels._instance = None
+    gvl = GpuVoxels.get_instance()
+    gvl.initialize(*EDT_DIMS, 1.0, device=dev)
+    gvl.add_map(MapType.MT_DISTANCE_VOXELMAP, "edt")
+    gvl.insert_point_cloud_into_map((edt_obstacles() + 0.5).astype(np.float32), "edt")
+    dm = gvl.update_map("edt", lambda m: m.parallel_banding())
+    out["edt"] = dm
+    queries = np.random.default_rng(5).uniform(0.0, 512.0, (4096, 3)).astype(np.float32)
+    out["edt_min"] = dm.min_distance_to(queries)
+    out["edt_bytes"] = dm.extract_distances()
+    dx, dy, dz = EDT_DIMS
+    out["edt_at"] = [dm.get_squared_obstacle_distance(*v) for v in ((0, 0, 0), (dx // 2, dy // 2, dz // 2),
+                                                                     (dx - 1, 3, dz // 7))]
+
+    # (i) Kinect frames fused with the pooled carve (K6), merged into a
+    # distance map, its EDT (jump_flood's card route: K5), the UR10's
+    # clearance at step 32 and the 0.1 m clearance bit map
+    sensor = kinect_sensor()
+    env = ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev)
+    for frame in frames:
+        env = env.insert_depth_image(frame, sensor, carve_pool=POOL)
+    out["pooled_env"] = env
+    merged = DistanceVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev).merge_occupied(env)
+    out["merged"] = merged
+    field = merged.jump_flood()
+    out["field"] = field
+    out["arm_clearance"] = field.min_distance_to(placed.transformed_clouds_for(cfgs[32:33]).points[0])
+    out["clearance_bits"] = converters.distance_map_to_bit_map(field, clearance=0.1)
+    return out
+
+
+def brute_check(dm: DistanceVoxelMap, dev: torch.device) -> int:
+    """The EDT's squared distances at BRUTE_SAMPLES sampled voxels against
+    the brute minimum over all obstacles, on the card in chunks: an
+    oracle independent of the port's own plain version. Returns the
+    number of sampled voxels that differ."""
+    n = dm.voxelmap_size
+    dx, dy, _ = dm.dims
+    samp = torch.randint(0, n, (BRUTE_SAMPLES,), device=dev, generator=torch.Generator(device=dev).manual_seed(7))
+    got = edt.squared_distance_at(dm.data, samp, dm.dims)
+    pos = torch.stack([samp % dx, (samp // dx) % dy, samp // (dx * dy)], dim=1)
+    obs = torch.as_tensor(edt_obstacles(), device=dev)
+    brute = torch.cat([((p[:, None, :] - obs[None]) ** 2).sum(-1).amin(1) for p in pos.split(256)])
+    return int((brute != got.to(torch.int64)).sum())
+
+
+def check_distance_path(dist: dict, plain: dict, dev: torch.device) -> None:
+    dm = dist["edt"]
+    d2 = dm.squared_distances()
+    n_obs = int((d2 == 0).sum())
+    assert n_obs > 0 and not bool((d2 >= 2**31 - 1).any()), "every voxel of a map with obstacles reaches one"
+    bad = brute_check(dm, dev)
+    assert bad == 0, f"{bad} of {BRUTE_SAMPLES} sampled voxels differ from the brute minimum"
+    log(f"  (h) BASELINE #4 512^3 EDT: {n_obs} obstacle voxels, max squared distance {int(d2.max())}; "
+        f"{BRUTE_SAMPLES} sampled voxels equal the brute minimum over {EDT_OBSTACLES} obstacles")
+    for key in ("edt", "pooled_env", "merged", "field"):
+        assert torch.equal(dist[key].data, plain[key].data), f"{key} differs from the plain route"
+    for key in ("edt_min", "edt_bytes", "arm_clearance"):
+        assert torch.equal(dist[key], plain[key]), key
+    assert [int(v) for v in dist["edt_at"]] == [int(v) for v in plain["edt_at"]]
+    assert same_map(dist["clearance_bits"], plain["clearance_bits"])
+    log(f"  (h) min distance of 4096 query points {float(dist['edt_min']):.4f} m; squared distances at 3 voxels "
+        f"{[int(v) for v in dist['edt_at']]}; payload grid, queries and bytes == plain route")
+    env, field = dist["pooled_env"].data, dist["field"]
+    n_occ = int((env >= 0).sum())
+    assert n_occ > 0 and int((field.squared_distances() == 0).sum()) == n_occ
+    clearance = float(dist["arm_clearance"])
+    assert 0.0 < clearance < 1e3, clearance
+    log(f"  (i) 5 frames pooled-carved (P={POOL}) into 256^3: {n_occ} obstacles; UR10 at step 32 clears them "
+        f"by {clearance:.4f} m; {int(dist['clearance_bits'].occ.sum())} voxels within 0.1 m; fused map, "
+        f"distance map, EDT, clearance and bit map == plain route")
+
+
 def drive(path, kernel_names, *args) -> tuple[dict, dict]:
     """Run one path with every launch count at 0 and the sync debug mode
     raising (counts stay device tensors: the path must never make the host
@@ -404,6 +594,15 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict]:
     launches.update(robot_launches)
     check_robot_path(robot)
 
+    log("  camera -> distance field (K5, K6)")
+    dist_args = (dev, out["frames"], robot["placed"], robot["cfgs"])
+    dist, dist_launches = drive(distance_path, {"envelope_pass", "projective_free_space_pooled"}, *dist_args)
+    launches.update(dist_launches)
+    with plain_route():
+        plain_dist = distance_path(*dist_args)
+    check_distance_path(dist, plain_dist, dev)
+    del plain_dist
+
     # the same scenes through the plain route on the card
     with plain_route():
         plain = main_path(dev)
@@ -425,7 +624,7 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict]:
     for key in ("types_prob", "types_shifted"):
         assert same_types(robot[key], plain_robot[key]), key
     log("  (e-g) every robot-path map, count, meanings vector and marked map == plain route")
-    return out, robot, launches
+    return out, robot, dist, launches
 
 
 def check_robot_path(robot: dict) -> None:
@@ -489,7 +688,44 @@ def window_rounds(margin: int) -> int:
     return rounds
 
 
-def timings(dev: torch.device, smi: str, out: dict, robot: dict) -> tuple[dict, dict]:
+def search_length(d: torch.Tensor, axis: int) -> float:
+    """The mean rows per voxel that a search outward from each voxel,
+    stopping once r^2 exceeds its best, reads for a pass whose output is
+    `d` (r = 0..R on both sides of its row, R = the integer root of its
+    result, or the rows left when it finds no site): the work of K5's first
+    form, which the linear envelope replaced."""
+    n = d.shape[axis]
+    shape = [1, 1, 1]
+    shape[axis] = n
+    y = torch.arange(n, device=d.device).view(shape)
+    rmax = torch.maximum(y, n - 1 - y)
+    root = torch.floor(torch.sqrt(d.to(torch.float64))).to(torch.int64)
+    r = torch.where(d >= edt_envelope.MISS, rmax, torch.minimum(root, rmax))
+    return float((torch.minimum(y, r) + torch.minimum(n - 1 - y, r) + 1).to(torch.float64).mean())
+
+
+def time_k5(smi: str, packed: torch.Tensor, dims, plain: bool) -> tuple[float, float]:
+    """K5 per pass (Y, then X on the Y pass's output) on a map's phase-1
+    grids, and the plain version once per pass; the means per pass."""
+    g1, pay1 = edt_envelope.flood_z(packed, dims)
+    d2, p2 = edt_cuda.envelope_pass(g1, pay1, 1)
+    # the linear envelope's work per line grows with its sites
+    sites_y = float((g1 < edt_envelope.MISS).to(torch.float64).mean())
+    sites_x = float((d2 < edt_envelope.MISS).to(torch.float64).mean())
+    ms_y = time_ms(lambda: edt_cuda.envelope_pass(g1, pay1, 1), 10)
+    ms_x = time_ms(lambda: edt_cuda.envelope_pass(d2, p2, 2), 10)
+    d3, _ = edt_cuda.envelope_pass(d2, p2, 2)
+    plain_y = time_ms(lambda: edt_cuda.envelope_pass_plain(g1, pay1, 1), 1, warmup=1) if plain else float("nan")
+    plain_x = time_ms(lambda: edt_cuda.envelope_pass_plain(d2, p2, 2), 1, warmup=1) if plain else float("nan")
+    n = g1.numel()
+    log(f"  envelope_pass at {dims[0]}^3: Y pass {ms_y:.4f} ms, X pass {ms_x:.4f} ms; plain torch Y {plain_y:.4f} ms, "
+        f"X {plain_x:.4f} ms; bound {bound(16 * n, 0)[0]:.4f} ms per pass (bytes); sites per position Y "
+        f"{sites_y:.4f}, X {sites_x:.4f}; an outward search would read Y {search_length(d2, 1):.2f}, "
+        f"X {search_length(d3, 2):.2f} rows per voxel  [{smi}]")
+    return (ms_y + ms_x) / 2, (plain_y + plain_x) / 2
+
+
+def timings(dev: torch.device, smi: str, out: dict, robot: dict, dist: dict) -> tuple[dict, dict]:
     g = torch.Generator(device=dev).manual_seed(99)
     n = CYCLE_DIMS[0] * CYCLE_DIMS[1] * CYCLE_DIMS[2]
     a = torch.randint(-128, 128, (n,), dtype=torch.int8, device=dev, generator=g)
@@ -564,6 +800,38 @@ def timings(dev: torch.device, smi: str, out: dict, robot: dict) -> tuple[dict, 
     sv_ms = time_ms(trajectory, 10)
     log(f"  UR10 64-step swept volume at 256^3 (FK, insert, types collide window 5): {sv_ms:.4f} ms "
         f"per trajectory  [{smi}]")
+
+    # K5: per pass at 512^3 (BASELINE #4's obstacles; the JSON line's shape)
+    # and at 256^3 (the fused camera map); reads g and the payload, writes
+    # both: 16 B per voxel and pass. A linear-time envelope exists, so no
+    # operation count sets a higher floor.
+    obstacles = DistanceVoxelMap.create(EDT_DIMS, 1.0, device=dev).insert_point_cloud(
+        (edt_obstacles() + 0.5).astype(np.float32))
+    t["envelope_pass"] = time_k5(smi, obstacles.data, EDT_DIMS, plain=True)
+    bounds["envelope_pass"] = bound(16 * obstacles.voxelmap_size, 0)
+    time_k5(smi, dist["merged"].data, FUSION_DIMS, plain=True)
+    # K6: as K3, the mask write and 33 f32 ops per voxel, plus the frame's pooling
+    t["projective_free_space_pooled"] = in_turns(
+        lambda: raycast_cuda.projective_free_space_pooled(depth, pose, *INTR, FUSION_SIDE, FUSION_DIMS, pool=POOL),
+        lambda: raycast_cuda.projective_free_space_pooled_plain(depth, pose, *INTR, FUSION_SIDE, FUSION_DIMS,
+                                                                pool=POOL), 30)
+    bounds["projective_free_space_pooled"] = bound(nf + depth.numel() * 4 + 64, 33 * nf)
+    for name in ("envelope_pass", "projective_free_space_pooled"):
+        k, p = t[name]
+        log(f"  {name}: kernel {k:.4f} ms, plain torch {p:.4f} ms, bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]})  [{smi}]")
+
+    edt_ms = time_ms(lambda: obstacles.parallel_banding(), 5)
+    log(f"  BASELINE #4 exact EDT at 512^3 (20,000 obstacles): {edt_ms:.4f} ms  [{smi}]")
+    fresh = ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev)
+
+    def camera_frame():
+        env = fresh.insert_depth_image(frame, sensor, carve_pool=POOL)
+        return DistanceVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev).merge_occupied(env).jump_flood()
+
+    cam_ms = time_ms(camera_frame, 10)
+    log(f"  256^3 camera -> distance field frame (pooled carve P={POOL}, merge_occupied, jump_flood): "
+        f"{cam_ms:.4f} ms = {1000.0 / cam_ms:.2f} Hz  [{smi}]")
     return t, bounds
 
 
@@ -577,15 +845,16 @@ def main() -> int:
     log("phase 2: kernels against their plain versions (exact)")
     err = check_kernels(dev)
     log("phase 3: the paths through the entry points")
-    out, robot, launches = drive_main_path(dev)
+    out, robot, dist, launches = drive_main_path(dev)
     log("phase 4: times (CUDA events)")
-    t, bounds = timings(dev, smi, out, robot)
+    t, bounds = timings(dev, smi, out, robot, dist)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],
          "ms": t[name][0], "plain_ms": t[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          # no single PyTorch call computes any of these functions: K1/K2 are
-         # a compare-and-count, K3 a projective carve, K4 a windowed bit collide
+         # a compare-and-count, K3 and K6 projective carves, K4 a windowed bit
+         # collide, K5 a min-plus envelope
          "library_ms": None}
         for name, _module, source, replaces in KERNELS
     ]}

@@ -5,14 +5,18 @@ rewritten by hand in CUDA C++ for Hopper (`csrc/`). Module paths mirror the
 JAX package so each module has one counterpart there; the JAX package is the
 reference every integer contract is held against.
 
-Two slices are ported. The engine's core loop on dense maps, sense ->
+Three slices are ported. The engine's core loop on dense maps, sense ->
 insert -> collide: `maps.voxelmap.ProbVoxelMap` / `BitVectorVoxelMap`,
 point insertion, prob x prob counting and marking collides (CUDA kernels
 K1, K2), depth-camera fusion with the exact projective carve (CUDA kernel
 K3). And robots with swept volumes, robot -> swept volume -> types collide:
 DH kinematic chains and the UR presets (`robot/`), meta point clouds,
 swept-volume inserts with per-step meaning bits, and the windowed
-swept-volume collide (CUDA kernel K4). Around both: the `GpuVoxels` facade
+swept-volume collide (CUDA kernel K4). And distance fields, camera ->
+distance field: `maps.distance_map.DistanceVoxelMap` with the exact EDT
+(min-plus envelope passes, CUDA kernel K5), JFA and the brute and
+separable oracles, the distance queries and `converters`, fed by the
+pooled depth carve (CUDA kernel K6). Around them: the `GpuVoxels` facade
 and interop with the JAX package. Every method of the reference that is
 not ported yet raises NotImplementedError naming the ROADMAP item that
 brings it.

@@ -7,9 +7,10 @@ rebinds it after every operation; a per-map lock guards each rebind,
 mirroring GpuVoxelsMap::m_mutex (GpuVoxelsMap.h:269).
 
 Every map and robot lives on the device given to `initialize` (the card
-when none is given). `add_map` builds MT_PROBAB_VOXELMAP and
-MT_BITVECTOR_VOXELMAP; DH robots (`add_robot_dh`) and any RobotInterface
-(`add_robot_object`) are inserted with the robot calls. Every other
+when none is given). `add_map` builds MT_PROBAB_VOXELMAP,
+MT_BITVECTOR_VOXELMAP and MT_DISTANCE_VOXELMAP; DH robots (`add_robot_dh`)
+and any RobotInterface (`add_robot_object`) are inserted with the robot
+calls. Every other
 MapType, URDF robots, and the primitive, file and visualisation surface
 raise NotImplementedError naming the ROADMAP item that brings them.
 """
@@ -24,6 +25,7 @@ import torch
 from .constants import BitVoxelMeaning, MapType
 from .geometry import generation
 from .geometry.pointcloud import MetaPointCloud, PointCloud
+from .maps.distance_map import DistanceVoxelMap
 from .maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
 from .robot.dh import KinematicChain
 from .robot.robot import JointValueMap, RobotInterface
@@ -71,9 +73,12 @@ class GpuVoxels:
             m = ProbVoxelMap.create(self._dims, self._side_length, device=self._device)
         elif mt == MapType.MT_BITVECTOR_VOXELMAP:
             m = BitVectorVoxelMap.create(self._dims, self._side_length, device=self._device)
+        elif mt == MapType.MT_DISTANCE_VOXELMAP:
+            m = DistanceVoxelMap.create(self._dims, self._side_length, device=self._device)
         else:
             raise NotImplementedError(
-                f"map type {mt.name} is not ported yet (ROADMAP Queue 1 items 6b-11)"
+                f"map type {mt.name} is not ported yet (ROADMAP Queue 1 items 6b, 9-11: "
+                "counting maps, voxel lists, the hierarchical and paged octree tiers)"
             )
         self._maps[map_name] = m
         self._locks[map_name] = threading.RLock()

@@ -4,9 +4,10 @@ The engine has no weights: its state is its maps and its robots (a DH
 table plus link clouds). These functions convert that state, as numpy, in
 both directions, so a map or robot built by gpu_voxels_tpu
 (``np.asarray(m.data)``) continues in the port and the two states can be
-compared byte for byte. Bit planes are uint32 in the reference and int32
-here; the conversion reinterprets the same bits (``np.ndarray.view``), it
-never converts values. Everything lands on `device` (default: the card).
+compared byte for byte. Bit planes and packed distance-map coordinates are
+uint32 in the reference and int32 here; the conversion reinterprets the
+same bits (``np.ndarray.view``), it never converts values. Everything
+lands on `device` (default: the card).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from .geometry.pointcloud import MetaPointCloud
+from .maps.distance_map import DistanceVoxelMap
 from .maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
 from .robot.dh import DHJointType, DHParameters, KinematicChain
 from .sensors import Sensor, SensorModel
@@ -51,6 +53,19 @@ def bit_map_from_numpy(planes, occ, dims, side_length: float, device=None) -> Bi
     return m
 
 
+def distance_map_from_numpy(data, dims, side_length: float, device=None) -> DistanceVoxelMap:
+    """A DistanceVoxelMap over a copy of uint32[N] packed obstacle
+    coordinates `data` (the reference never sets bit 31)."""
+    data = np.ascontiguousarray(data)
+    n = dims[0] * dims[1] * dims[2]
+    if data.dtype != np.uint32 or data.shape != (n,):
+        raise ValueError(f"distance map data must be uint32[{n}], got {data.dtype}{data.shape}")
+    return DistanceVoxelMap(
+        torch.tensor(data.view(np.int32), device=resolve_device(device)), tuple(int(d) for d in dims),
+        float(side_length),
+    )
+
+
 def meta_point_cloud_from_numpy(points, cloud_ids, offsets, names, device=None) -> MetaPointCloud:
     """A MetaPointCloud over copies of float32[total, 3] `points` and the
     per-point sub-cloud ids, with the reference's host offsets and names."""
@@ -80,9 +95,12 @@ def kinematic_chain_from_numpy(link_names, dh_rows, joint_types, points, cloud_i
 
 def to_numpy(m):
     """The map's arrays in the reference's dtypes: int8[N] for a ProbVoxelMap,
-    (uint32[8, N] planes, uint8[N] occ) for a BitVectorVoxelMap."""
+    (uint32[8, N] planes, uint8[N] occ) for a BitVectorVoxelMap, uint32[N]
+    for a DistanceVoxelMap."""
     if isinstance(m, ProbVoxelMap):
         return m.data.cpu().numpy()
+    if isinstance(m, DistanceVoxelMap):
+        return m.data.cpu().numpy().view(np.uint32)
     if isinstance(m, BitVectorVoxelMap):
         return m.data.cpu().numpy().view(np.uint32), m.occ.cpu().numpy()
     raise TypeError(f"no numpy form for {type(m)}")

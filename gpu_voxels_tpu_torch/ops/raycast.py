@@ -2,12 +2,15 @@
 
 Counterpart of gpu_voxels_tpu/ops/raycast.py for the dense-map slice:
 `projective_free_space` is the plain spec of the exact carve (CUDA kernel
-K3 in ops/raycast_cuda.py), `depth_image_to_point_cloud` the pinhole
-back-projection and `insert_depth_image` the full frame update
-(ProbVoxelMap::insertSensorData semantics with visibility carving).
+K3 in ops/raycast_cuda.py), `projective_free_space_pooled` with
+`min_pool_depth` the spec of the pooled carve (kernel K6; the reference
+keeps both in gpu_voxels_tpu/ops/raycast_pallas.py:79-137),
+`depth_image_to_point_cloud` the pinhole back-projection and
+`insert_depth_image` the full frame update (ProbVoxelMap::insertSensorData
+semantics with visibility carving).
 
-The per-ray DDA path (`insert_sensor_data`, `ray_crossing_counts`) and the
-pooled carve (`carve_pool > 1`, kernel K6) are not ported yet.
+The per-ray DDA path (`insert_sensor_data`, `ray_crossing_counts`) is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -24,6 +27,33 @@ from .insert import floor_to_int32, in_map, linear_index, map_to_voxels
 
 Dims = Tuple[int, int, int]
 F32 = torch.float32
+
+
+def _project(dev, pose, fx, fy, cx, cy, side_length: float, dims: Dims, h: int, w: int):
+    """Per voxel of a [Z, Y, X] grid, its centre's camera-frame depth sz,
+    its pixel (u, v) and whether it lies in front and inside the h x w
+    image: the carves' shared projection (csrc/carve_projection.cuh)."""
+    pose = to_device(pose, F32, dev)
+    rot_t = pose[:3, :3].T
+    origin = pose[:3, 3]
+
+    dx, dy, dz = dims
+    side = float(np.float32(side_length))
+    zi = torch.arange(dz, dtype=F32, device=dev).view(dz, 1, 1)
+    yi = torch.arange(dy, dtype=F32, device=dev).view(1, dy, 1)
+    xi = torch.arange(dx, dtype=F32, device=dev).view(1, 1, dx)
+    wx = (xi + 0.5) * side - origin[0]
+    wy = (yi + 0.5) * side - origin[1]
+    wz = (zi + 0.5) * side - origin[2]
+    sx = rot_t[0, 0] * wx + rot_t[0, 1] * wy + rot_t[0, 2] * wz
+    sy = rot_t[1, 0] * wx + rot_t[1, 1] * wy + rot_t[1, 2] * wz
+    sz = rot_t[2, 0] * wx + rot_t[2, 1] * wy + rot_t[2, 2] * wz
+
+    in_front = sz > 1e-6
+    safe_z = torch.where(in_front, sz, 1.0)
+    u = floor_to_int32(fx * sx / safe_z + cx)  # the kernel's floor_to_int
+    v = floor_to_int32(fy * sy / safe_z + cy)
+    return sz, u, v, in_front & (u >= 0) & (u < w) & (v >= 0) & (v < h)
 
 
 def projective_free_space(
@@ -47,28 +77,7 @@ def projective_free_space(
     the reference expression (gpu_voxels_tpu/ops/raycast.py:109-139).
     """
     h, w = depth.shape
-    dev = depth.device
-    pose = to_device(pose, F32, dev)
-    rot_t = pose[:3, :3].T
-    origin = pose[:3, 3]
-
-    dx, dy, dz = dims
-    side = float(np.float32(side_length))
-    zi = torch.arange(dz, dtype=F32, device=dev).view(dz, 1, 1)
-    yi = torch.arange(dy, dtype=F32, device=dev).view(1, dy, 1)
-    xi = torch.arange(dx, dtype=F32, device=dev).view(1, 1, dx)
-    wx = (xi + 0.5) * side - origin[0]
-    wy = (yi + 0.5) * side - origin[1]
-    wz = (zi + 0.5) * side - origin[2]
-    sx = rot_t[0, 0] * wx + rot_t[0, 1] * wy + rot_t[0, 2] * wz
-    sy = rot_t[1, 0] * wx + rot_t[1, 1] * wy + rot_t[1, 2] * wz
-    sz = rot_t[2, 0] * wx + rot_t[2, 1] * wy + rot_t[2, 2] * wz
-
-    in_front = sz > 1e-6
-    safe_z = torch.where(in_front, sz, 1.0)
-    u = floor_to_int32(fx * sx / safe_z + cx)  # the kernel's floor_to_int
-    v = floor_to_int32(fy * sy / safe_z + cy)
-    in_fov = in_front & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    sz, u, v, in_fov = _project(depth.device, pose, fx, fy, cx, cy, side_length, dims, h, w)
     ui = u.clamp(0, w - 1).to(torch.int64)
     vi = v.clamp(0, h - 1).to(torch.int64)
     d = depth.reshape(-1)[vi * w + ui]
@@ -76,6 +85,49 @@ def projective_free_space(
     eps = float(np.float32(eps_vox) * np.float32(side_length))
     free = in_fov & valid & (sz < d - eps)
     return free.reshape(-1)
+
+
+_NEG_INF = -3.0e38  # an invalid pixel's pooled depth: it carves nothing
+
+
+def min_pool_depth(depth: torch.Tensor, pool: int, invalid_value: float = 0.0) -> torch.Tensor:
+    """Conservative PxP min-pool of a depth image: invalid pixels -> -3e38
+    (carve nothing); edge tiles are padded with +3e38, min-neutral, since
+    out-of-image pixels are never indexed."""
+    h, w = depth.shape
+    d = torch.where(depth == invalid_value, _NEG_INF, depth)
+    ph, pw = -(-h // pool), -(-w // pool)
+    if ph * pool != h or pw * pool != w:
+        d = torch.nn.functional.pad(d, (0, pw * pool - w, 0, ph * pool - h), value=3.0e38)
+    return d.reshape(ph, pool, pw, pool).amin(dim=(1, 3))
+
+
+def projective_free_space_pooled(
+    depth: torch.Tensor,
+    pose: torch.Tensor,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    side_length: float,
+    dims: Dims,
+    invalid_value: float = 0.0,
+    eps_vox: float = 1.0,
+    pool: int = 4,
+) -> torch.Tensor:
+    """bool[N]: the pooled conservative carve (gpu_voxels_tpu/ops/
+    raycast_pallas.py:97-137): free iff the voxel's centre lies in front,
+    projects inside the image and sz < pooled_min[v // P, u // P] - eps.
+    Never frees a voxel the exact carve keeps; P = 1 is the exact carve.
+    The projection is `projective_free_space`'s, op for op."""
+    h, w = depth.shape
+    pm = min_pool_depth(depth, pool, invalid_value)
+    sz, u, v, in_fov = _project(depth.device, pose, fx, fy, cx, cy, side_length, dims, h, w)
+    ui = torch.div(u, pool, rounding_mode="floor").clamp(0, pm.shape[1] - 1).to(torch.int64)
+    vi = torch.div(v, pool, rounding_mode="floor").clamp(0, pm.shape[0] - 1).to(torch.int64)
+    d = pm.reshape(-1)[vi * pm.shape[1] + ui]
+    eps = float(np.float32(eps_vox) * np.float32(side_length))
+    return (in_fov & (sz < d - eps)).reshape(-1)
 
 
 def depth_image_to_point_cloud(depth: torch.Tensor, fx, fy, cx, cy, invalid_value=0.0) -> torch.Tensor:
@@ -114,12 +166,12 @@ def insert_depth_image(
     measurement adds SENSOR_MODEL_OCCUPIED (+72) to its voxel, and every voxel
     carved free (and not hit) adds SENSOR_MODEL_FREE (-10), clamped.
 
-    The carve is the exact per-pixel one: `raycast_cuda.projective_free_space_exact`,
-    kernel K3 on CUDA tensors and the plain spec on CPU tensors. The pooled
-    carve (carve_pool > 1, kernel K6) is not ported yet and raises.
+    carve_pool = 1 carves exactly per pixel (`raycast_cuda.projective_free_space_exact`,
+    kernel K3); carve_pool = P > 1 carves against the PxP min-pooled image
+    (`raycast_cuda.projective_free_space_pooled`, kernel K6): conservative,
+    it never frees a voxel the exact carve keeps. Each takes its plain spec
+    on CPU tensors.
     """
-    if carve_pool > 1:
-        raise NotImplementedError("K6 pooled carve not ported yet")
     from . import raycast_cuda
 
     depth = to_device(depth, F32, data.device)
@@ -135,9 +187,14 @@ def insert_depth_image(
     hit_counts = hit_counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))[:n]
     if cut_real_robot and robot_occupied_mask is not None:
         hit_counts = torch.where(robot_occupied_mask, 0, hit_counts)
-    free = raycast_cuda.projective_free_space_exact(
-        depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value
-    )
+    if carve_pool > 1:
+        free = raycast_cuda.projective_free_space_pooled(
+            depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, pool=carve_pool
+        )
+    else:
+        free = raycast_cuda.projective_free_space_exact(
+            depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value
+        )
     carved = (free & (hit_counts == 0)).to(torch.int32)
     delta = hit_counts * SENSOR_MODEL_OCCUPIED + carved * SENSOR_MODEL_FREE
     return torch.where(delta != 0, probability.update_occupancy(data, delta), data)

@@ -28,7 +28,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-# -fmad=false: the carve (carve_exact.cu) must round every product and sum
+# -fmad=false: the carves (carve_projection.cuh) must round every product and sum
 # on its own, as the plain torch version does, to stay bit-identical; IEEE
 # division is nvcc's default (no --use_fast_math) and is kept explicit.
 NVCC_FLAGS = (
@@ -55,6 +55,13 @@ SIGNATURES = {
         _P, _I32, _I32, _P, _F32, _F32, _F32, _F32, _F32, _F32, _F32,
         _I32, _I32, _I32, _P, _P,
     ),
+    # (pm, ph, pw, pool, h, w, pose, fx, fy, cx, cy, side, eps, dx, dy, dz, out, stream)
+    "gv_carve_pooled": (
+        _P, _I32, _I32, _I32, _I32, _I32, _P, _F32, _F32, _F32, _F32, _F32, _F32,
+        _I32, _I32, _I32, _P, _P,
+    ),
+    # (g, pay, out_d, out_pay, A, n, C, stream)
+    "gv_envelope_pass": (_P, _P, _P, _P, _I64, _I32, _I64, _P),
 }
 
 _lib: ctypes.CDLL | None = None

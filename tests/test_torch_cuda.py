@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1, K2, K3 and K4 against their plain torch versions.
+"""The port's CUDA kernels K1-K6 against their plain torch versions.
 
 This file imports torch and the port only (no JAX), so it also runs on a
 machine with a card and no JAX:
@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from gpu_voxels_tpu_torch.geometry import transforms
-from gpu_voxels_tpu_torch.ops import collide_cuda, raycast_cuda
+from gpu_voxels_tpu_torch.ops import collide_cuda, edt_cuda, edt_envelope, raycast_cuda
 from gpu_voxels_tpu_torch.utils import kernels
 
 
@@ -160,3 +160,68 @@ def test_k4_raises_on_inputs_it_does_not_take(cuda_device):
         collide_cuda.collide_types_bit_bit(a, a, 25)
     with pytest.raises(ValueError):
         collide_cuda.collide_types_bit_bit(a[:, ::2], a[:, ::2], 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [4, 8])
+def test_k6_matches_plain_on_card(cuda_device, pool):
+    """K6 bit for bit against the plain pooled carve, and inside K3's mask."""
+    before = raycast_cuda.launches["projective_free_space_pooled"]
+    for i, (depth, pose) in enumerate(_carve_scenes(cuda_device)):
+        args = (depth, pose, 52.0, 52.0, 32.0, 24.0, 1.0, (64, 64, 64))
+        got = raycast_cuda.projective_free_space_pooled(*args, pool=pool)
+        ref = raycast_cuda.projective_free_space_pooled_plain(*args, pool=pool)
+        assert got.dtype == torch.bool and torch.equal(got, ref), i
+        assert not bool((got & ~raycast_cuda.projective_free_space_exact(*args)).any()), i
+    torch.cuda.synchronize()
+    assert raycast_cuda.launches["projective_free_space_pooled"] == before + 6
+
+
+def _envelope_grids(kind, device):
+    """int32 g (MISS = no site) and payloads; small values make many ties."""
+    rng = np.random.default_rng(5)
+    shape = (7, 130, 33) if kind == "ragged" else (6, 64, 40)
+    g = rng.integers(0, 40, shape).astype(np.int32)
+    if kind == "ties":
+        g[:] = 0
+        g[:, ::4, :] = edt_envelope.MISS
+    elif kind == "empty":
+        g[:] = edt_envelope.MISS
+    else:
+        g[rng.random(shape) < 0.9] = edt_envelope.MISS
+    pay = rng.integers(0, 2**30, shape).astype(np.int32)
+    return torch.tensor(g, device=device), torch.tensor(pay, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "ties", "empty", "ragged"])
+def test_k5_matches_plain_on_card(cuda_device, kind):
+    """K5 equals the plain envelope on distances and payloads, along Y and X."""
+    g, pay = _envelope_grids(kind, cuda_device)
+    before = edt_cuda.launches["envelope_pass"]
+    for axis in (1, 2):
+        d, p = edt_cuda.envelope_pass(g, pay, axis)
+        ref_d, ref_p = edt_cuda.envelope_pass_plain(g, pay, axis)
+        assert d.dtype == torch.int32 and torch.equal(d, ref_d) and torch.equal(p, ref_p), axis
+    torch.cuda.synchronize()
+    assert edt_cuda.launches["envelope_pass"] == before + 2
+
+
+@pytest.mark.cuda
+def test_k5_k6_raise_on_inputs_they_do_not_take(cuda_device):
+    g = torch.zeros((4, 4, 4), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        edt_cuda.envelope_pass(g, g.to(torch.int64))
+    with pytest.raises(ValueError):
+        edt_cuda.envelope_pass(g, g.cpu())
+    with pytest.raises(ValueError):
+        edt_cuda.envelope_pass(g, g, 0)
+    with pytest.raises(ValueError):
+        edt_cuda.envelope_pass(g.transpose(1, 2), g)
+    with pytest.raises(ValueError):
+        edt_cuda.envelope_pass(g[0], g[0])
+    depth = torch.ones((4, 4), dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError):
+        raycast_cuda.projective_free_space_pooled(depth, torch.eye(4), 1.0, 1.0, 2.0, 2.0, 1.0, (4, 4, 4), pool=0)
+    with pytest.raises(ValueError):
+        raycast_cuda.projective_free_space_pooled(depth.double(), torch.eye(4), 1.0, 1.0, 2.0, 2.0, 1.0, (4, 4, 4))

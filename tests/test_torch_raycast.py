@@ -149,7 +149,11 @@ def test_point_cloud_and_ops_insert_depth_image():
     got = trc.insert_depth_image(torch.tensor(data), safe, pose, *INTR, 1.0, DIMS,
                                  cut_real_robot=True, robot_occupied_mask=torch.tensor(robot))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    with pytest.raises(NotImplementedError, match="K6"):
-        trc.insert_depth_image(torch.tensor(data), safe, pose, *INTR, 1.0, DIMS, carve_pool=8)
-    with pytest.raises(NotImplementedError, match="K6"):
-        TProb.create(DIMS, device="cpu").insert_depth_image(safe, tsens.Sensor(), carve_pool=4)
+    # the pooled carve (K6's spec): dx = 64 is not a multiple of 128, so the
+    # reference runs its XLA spec, projective_free_space_pooled
+    for pool in (4, 8):
+        ref = jrc.insert_depth_image(jnp.asarray(data), jnp.asarray(safe), jnp.asarray(pose), *INTR, 1.0, DIMS,
+                                     cut_real_robot=True, robot_occupied_mask=jnp.asarray(robot), carve_pool=pool)
+        got = trc.insert_depth_image(torch.tensor(data), safe, pose, *INTR, 1.0, DIMS,
+                                     cut_real_robot=True, robot_occupied_mask=torch.tensor(robot), carve_pool=pool)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref), err_msg=f"carve_pool={pool}")

@@ -57,9 +57,11 @@ def test_facade_registry():
     assert m.device.type == "cpu"
     with pytest.raises(ValueError):
         gvl.add_map(MapType.MT_BITVECTOR_VOXELMAP, "bits")
-    for mt in (MapType.MT_PROBAB_OCTREE, MapType.MT_DISTANCE_VOXELMAP, MapType.MT_BITVECTOR_VOXELLIST):
+    for mt in (MapType.MT_PROBAB_OCTREE, MapType.MT_COUNTING_VOXELLIST, MapType.MT_BITVECTOR_VOXELLIST):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             gvl.add_map(mt, "other")
+    dist = gvl.add_map(MapType.MT_DISTANCE_VOXELMAP, "dist")
+    assert dist.map_type == MapType.MT_DISTANCE_VOXELMAP and dist.device.type == "cpu"
     gvl.insert_point_cloud_into_map(np.asarray([[1.2, 1.2, 1.2]], np.float32), "bits", 9)
     assert int(gvl.get_map("bits").occ.sum()) == 1
     gvl.set_map("bits", gvl.get_map("bits").clear_map())
@@ -204,7 +206,8 @@ def test_port_never_imports_jax():
     files = sorted(p for p in root.rglob("*.py") if "_build" not in p.relative_to(root).parts)
     scanned = {str(p.relative_to(root)) for p in files}
     assert {"bitops.py", "geometry/pointcloud.py", "robot/dh.py", "robot/presets.py", "robot/robot.py",
-            "robot/swept_volume.py", "ops/collide_cuda.py", "interop.py"} <= scanned
+            "robot/swept_volume.py", "ops/collide_cuda.py", "interop.py", "ops/edt.py", "ops/edt_envelope.py",
+            "ops/edt_cuda.py", "ops/raycast_cuda.py", "maps/distance_map.py", "converters.py"} <= scanned
     files += [root.parent / "chip_smoke.py", root.parent / "chip_profile.py"]
     bad = []
     for path in files:
