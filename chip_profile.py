@@ -6,8 +6,10 @@ torch.profiler.
 
 For each path of chip_smoke.py's phase 4 (the 512^3 insert -> collide cycle,
 the 256^3 fusion of one 640x480 frame, the UR10 64-step swept volume with
-its types collide, BASELINE #4's exact EDT at 512^3 and the 256^3 camera ->
-distance field frame) it prints the time per iteration from CUDA events
+its types collide, BASELINE #4's exact EDT at 512^3, the 256^3 camera ->
+distance field frame, the schedule fitter's ordering search and one
+deconflict_slot on the two-UR10 scene at 256^3, and one DDA
+insert_sensor_data frame) it prints the time per iteration from CUDA events
 (unprofiled), the device-busy time per iteration (the sum of the device
 rows of `key_averages()`: kernels, memsets and copies), the device's idle
 share, and the device rows that take the most time. Needs one CUDA card and
@@ -25,6 +27,7 @@ import chip_smoke as cs
 from gpu_voxels_tpu_torch.geometry import generation
 from gpu_voxels_tpu_torch.maps.distance_map import DistanceVoxelMap
 from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+from gpu_voxels_tpu_torch.robot.fitter import deconflict_slot, fit_orderings
 from gpu_voxels_tpu_torch.robot.swept_volume import insert_swept_volume_batched
 from gpu_voxels_tpu_torch.sensors import SyntheticDepthSource
 from gpu_voxels_tpu_torch.utils import kernels, to_device
@@ -33,20 +36,20 @@ ITERS = 20
 TOP = 8
 
 
-def breakdown(name: str, fn, smi: str) -> None:
-    wall_ms = cs.time_ms(fn, ITERS)
+def breakdown(name: str, fn, smi: str, iters: int = ITERS) -> None:
+    wall_ms = cs.time_ms(fn, iters)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(ITERS):
+        for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / ITERS
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / iters
     print(f"{name}: {wall_ms:.4f} ms per iteration (CUDA events), device busy {busy_ms:.4f} ms, "
           f"idle share {1.0 - busy_ms / wall_ms:.3f}  [{smi}]", flush=True)
     for e in rows[:TOP]:
-        print(f"    {e.self_device_time_total / 1e3 / ITERS:9.4f} ms  x{e.count // ITERS:<3d} {e.key[:90]}", flush=True)
+        print(f"    {e.self_device_time_total / 1e3 / iters:9.4f} ms  x{e.count // iters:<4d} {e.key[:90]}", flush=True)
 
 
 def main() -> int:
@@ -74,7 +77,19 @@ def main() -> int:
     breakdown("512^3 insert->insert->collide cycle", cycle, smi)
     breakdown("256^3 fusion of one 640x480 frame", lambda: fresh.insert_depth_image(frame, sensor), smi)
     breakdown("UR10 64-step swept volume + types collide at 256^3", trajectory, smi)
-    del robot, placed, cfgs, env
+
+    fit = cs.fitter_path(dev, robot["sweep"], robot["env"])
+    centers = [fit["robots_raw"][r][1][0][1] for r in (0, 1)]
+    breakdown("fit_orderings, 2 UR10s x 2 trajectories at 256^3, raw planes (K7)",
+              lambda: fit_orderings(fit["robots_raw"], all_solutions=True), smi)
+    breakdown("fit_orderings, the same on occupancy summaries",
+              lambda: fit_orderings(fit["robots"], all_solutions=True), smi)
+    breakdown("deconflict_slot of the two centre reaches (margin 2, stride 4)",
+              lambda: deconflict_slot(centers, margin=cs.FIT_WINDOW, stride=4), smi, iters=5)
+    rays = sensor.process_depth_image(frame, device=dev)
+    breakdown("256^3 DDA insert_sensor_data of one 640x480 frame (307,200 rays)",
+              lambda: fresh.insert_sensor_data(rays, sensor_origin=sensor.position), smi, iters=3)
+    del robot, placed, cfgs, env, fit, centers, rays
 
     obstacles = DistanceVoxelMap.create(cs.EDT_DIMS, 1.0, device=dev).insert_point_cloud(
         (cs.edt_obstacles() + 0.5).astype("float32"))

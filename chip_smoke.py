@@ -18,16 +18,26 @@ non-zero and prints no result. Phases, each an assert or an exception:
    K5 (the EDT's min-plus envelope) at 256^3 along Y and X on random, empty,
    single-site, 50 %-dense, ragged (250x200x130) and tie fixtures, on
    distances and payloads; K6 (pooled carve) at 256^3 under the 3 poses at
-   P in {4, 8}, and its mask inside K3's;
-3. three paths through the public entry points, on the card, with torch's
+   P in {4, 8}, and its mask inside K3's; K7 (bit x bit plane-fold count)
+   on dense-random and sparse 256^3 plane stacks (with a voxel whose only
+   set bit is eBVM_FREE on either side, which must not count, and voxels
+   set only in plane 7's bit 31, which must) over the offsets, a length
+   that is not a multiple of 4, the all-zero map, and one pair at 512^3
+   (8.6 GB of planes);
+3. four paths through the public entry points, on the card, with torch's
    sync debug mode set to raise (the paths never wait for the device), each
    driven with every launch count set to 0 just before it and read just
    after; each kernel of a path must have launched in it:
    - the sense -> insert -> collide path (K1, K2, K3): the facade linkage
      scene (count == 8000), Kinect fusion (5 frames of 640x480 into 256^3),
      a transformed sphere robot collided with the fused and a box
-     environment, and the 512^3 insert -> collide cycle with a marking
-     collide;
+     environment, the 512^3 insert -> collide cycle with a marking
+     collide, and live sensing: two Providers (carve_pool 1 and 8) fed 3
+     frames from a StreamingDepthSource with an async collide against a
+     robot provider, the DDA insert_sensor_data of one Kinect frame's
+     307,200 rays into 256^3 and a CountingVoxelMap of its endpoints (the
+     DDA and the counting map also equal to the same calls on CPU copies
+     of the same points, at the full point count);
    - the robot -> swept volume -> types-collide path (K4): a UR10 through
      the facade, the BASELINE #3 64-step UR10 swept volume into a 256^3
      bit map, and its types collides and bit checks against an environment
@@ -38,14 +48,28 @@ non-zero and prints no result. Phases, each an assert or an exception:
      into 256^3 with the pooled carve (carve_pool = 8), merged into a
      DistanceVoxelMap, its EDT (jump_flood's card route), the UR10's
      clearance and a clearance bit map;
+   - the trajectory-scheduling path (K7, K4), the scene of
+     examples/swept_fitter.py at its documented scale (256^3 at 0.015 m,
+     two UR10s, 0.04 m link clouds, 100 intermediate poses): two .traj
+     files written to a temp directory, load_trajectories, four swept
+     maps, then on the raw-plane form of the maps (occ=None) and on the
+     summary-carrying form: the centre collide, fit_orderings (exactly 2
+     solutions), deconflict_slot (a positive second delay), fit_schedule
+     with windows in the search; and BASELINE #3 in the bench's own form,
+     the 64-step UR10 swept map's planes against the environment's through
+     count_bit_bit. The searches branch on counts, so they run with the
+     sync debug mode at its default; the inserts and single collides stay
+     under "error". Raw-plane, summary and plain-route answers must agree;
    every count, meanings vector, map, distance and payload grid must equal
    the same scene run through the plain route, and the 512^3 EDT must equal
    a brute-force minimum over the obstacles at 4,096 sampled voxels;
 4. times with CUDA events (printed, never asserted): each kernel beside its
    plain version (K5 per pass at 512^3 and 256^3, with the share of
    positions that hold a site), the 512^3 cycle rate, the 256^3 fusion rate, the 64-step swept
-   insert + types collide per trajectory, the 512^3 EDT and the 256^3
-   camera -> distance field frame.
+   insert + types collide per trajectory, the 512^3 EDT, the 256^3
+   camera -> distance field frame, K7 at 256^3 (both load widths) and
+   512^3, the fitter's ordering search and one deconflict_slot, and one DDA
+   insert_sensor_data frame.
 
 Output: progress lines, the card's `name, power.limit` line, one JSON line
 {"kernels": [...]} (each kernel with its launches on its path, its largest
@@ -59,8 +83,10 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -72,12 +98,15 @@ from gpu_voxels_tpu_torch.api import GpuVoxels
 from gpu_voxels_tpu_torch.constants import SV_START, BitVoxelMeaning, MapType
 from gpu_voxels_tpu_torch.geometry import generation, transforms
 from gpu_voxels_tpu_torch.maps.distance_map import DistanceVoxelMap
-from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
 from gpu_voxels_tpu_torch.ops import collide_cuda, edt, edt_cuda, edt_envelope, raycast_cuda
+from gpu_voxels_tpu_torch.providers import Provider
 from gpu_voxels_tpu_torch.robot.dh import DHParameters
+from gpu_voxels_tpu_torch.robot.fitter import deconflict_slot, fit_orderings, fit_schedule
 from gpu_voxels_tpu_torch.robot.presets import ur_robot
 from gpu_voxels_tpu_torch.robot.swept_volume import insert_swept_volume_batched
-from gpu_voxels_tpu_torch.sensors import Sensor, SyntheticDepthSource
+from gpu_voxels_tpu_torch.robot.trajectory import load_trajectories
+from gpu_voxels_tpu_torch.sensors import Sensor, StreamingDepthSource, SyntheticDepthSource
 from gpu_voxels_tpu_torch.utils import kernels, to_device
 
 INTR = (525.0, 525.0, 320.0, 240.0)  # Kinect 640x480 (BASELINE config #2)
@@ -96,6 +125,49 @@ K4_MARGINS = (0, 1, 4, 8, 24)
 EDT_DIMS, EDT_OBSTACLES = (512, 512, 512), 20000
 BRUTE_SAMPLES = 4096
 K5_RAGGED = (250, 200, 130)  # (dx, dy, dz): no dim a multiple of 8 or 32
+# the trajectory-scheduling scene (examples/swept_fitter.py:36-79, :127): two
+# UR10s facing each other across a shared band of workspace, per robot two
+# motions, one through the band and one on its home side
+FIT_DIMS, FIT_SIDE, FIT_STEPS, FIT_WINDOW, FIT_SPACING = (256, 256, 256), 0.015, 100, 2, 0.04
+FIT_BASES = {"UR10_A": (1.30, 1.30, 0.30), "UR10_B": (1.30, 2.50, 0.30)}
+TRAJ_FILES = {
+    "UR10_A": ("ur_a.traj", """Trajectory_Num: 2
+Joint_Num: 6
+Name: A_reach_center
+shoulder_pan_joint   0.6   -1.1
+shoulder_lift_joint  -0.55 -0.45
+elbow_joint          1.15  1.05
+wrist_1_joint        0.0   0.0
+wrist_2_joint        0.0   0.0
+wrist_3_joint        0.0   0.0
+Joint_Num: 6
+Name: A_home_side
+shoulder_pan_joint   1.2   2.2
+shoulder_lift_joint  -0.9  -0.7
+elbow_joint          1.2   1.0
+wrist_1_joint        0.0   0.0
+wrist_2_joint        0.0   0.0
+wrist_3_joint        0.0   0.0
+"""),
+    "UR10_B": ("ur_b.traj", """Trajectory_Num: 2
+Joint_Num: 6
+Name: B_reach_center
+shoulder_pan_joint   -0.6  1.1
+shoulder_lift_joint  -0.55 -0.45
+elbow_joint          1.15  1.05
+wrist_1_joint        0.0   0.0
+wrist_2_joint        0.0   0.0
+wrist_3_joint        0.0   0.0
+Joint_Num: 6
+Name: B_home_side
+shoulder_pan_joint   -1.2  -2.2
+shoulder_lift_joint  -0.9  -0.7
+elbow_joint          1.2   1.0
+wrist_1_joint        0.0   0.0
+wrist_2_joint        0.0   0.0
+wrist_3_joint        0.0   0.0
+"""),
+}
 POOL = 8  # the reference's fast camera configuration (gpu_voxels_tpu/ops/raycast.py:202-208)
 # H100 SXM data sheet: HBM rate and the f32 rate
 # outside the tensor cores, which the integer and f32 ops here are held to
@@ -116,6 +188,8 @@ KERNELS = [
      "gpu_voxels_tpu/ops/edt_envelope.py:130"),
     ("projective_free_space_pooled", raycast_cuda, "gpu_voxels_tpu_torch/csrc/carve_pooled.cu",
      "gpu_voxels_tpu/ops/raycast_pallas.py:435"),
+    ("count_bit_bit", collide_cuda, "gpu_voxels_tpu_torch/csrc/collide_bits.cu",
+     "gpu_voxels_tpu/ops/collide_pallas.py:92"),
 ]
 
 
@@ -216,8 +290,55 @@ def check_kernels(dev: torch.device) -> dict:
     del dense, k4_cases, ragged, a, b, new, ref_new
     check_k5(dev, g, err)
     check_k6(dev, err)
+    check_k7(dev, g, err)
     torch.cuda.synchronize()
     return err
+
+
+def check_k7(dev: torch.device, g: torch.Generator, err: dict) -> None:
+    n = SV_DIMS[0] * SV_DIMS[1] * SV_DIMS[2]
+
+    def check(name, a, b, dims, off):
+        got = collide_cuda.count_bit_bit(a, b, dims, off)
+        ref = collide_cuda.count_bit_bit_plain(a, b, dims, off)
+        err["count_bit_bit"] = max(err["count_bit_bit"], abs(int(got) - int(ref)))
+        assert int(got) == int(ref), (name, off, int(got), int(ref))
+        log(f"  K7 {name} N={a.shape[1]} offset={off}: count {int(got)} == plain")
+        return int(got)
+
+    dense = dense_bits(dev, n, g), dense_bits(dev, n, g)
+    sparse = sparse_bits(dev, n, g)
+    # voxel 5 of the sparse pair holds only eBVM_FREE in a; voxel 7 only
+    # eBVM_FREE on both sides; voxels 11 and 12 only bit 31 of plane 7
+    for m in sparse:
+        m[:, 7] = 0
+        m[0, 7] = 1
+        m[:, 11:13] = 0
+        m[7, 11:13] = -(2**31)
+    for off in OFFSETS:
+        assert check("dense", *dense, SV_DIMS, off) > 0
+        check("sparse", *sparse, SV_DIMS, off)
+    occ = [bitops.occupied(m) for m in sparse]
+    assert not bool(occ[0][5]) and not bool(occ[0][7] | occ[1][7]) and bool(occ[0][11] & occ[1][12])
+    lone = [torch.zeros_like(sparse[0]) for _ in range(2)]
+    for m in lone:
+        m[0, 7] = 1
+        m[7, 11:13] = -(2**31)
+    assert check("eBVM_FREE-only and bit-255-only voxels", *lone, SV_DIMS, (0, 0, 0)) == 2
+    del lone, occ
+    # a length that is no multiple of 4: the planes' starts differ mod 16
+    ragged = tuple(x[:, : n - 37].contiguous() for x in dense)
+    check("ragged", *ragged, None, (0, 0, 0))
+    zero = torch.zeros_like(dense[0])
+    assert check("all-zero", dense[0], zero, SV_DIMS, (0, 0, 0)) == 0
+    assert check("all-zero", zero, zero, SV_DIMS, OFFSETS[1]) == 0
+    del dense, sparse, ragged, zero
+    n = CYCLE_DIMS[0] * CYCLE_DIMS[1] * CYCLE_DIMS[2]
+    big = dense_bits(dev, n, g), dense_bits(dev, n, g)  # 8.6 GB of planes
+    for off in (OFFSETS[0], OFFSETS[2]):
+        assert check("dense 512^3", *big, CYCLE_DIMS, off) > 0
+    del big
+    torch.cuda.empty_cache()
 
 
 def random_obstacles(dev: torch.device, dims, count: int, g: torch.Generator) -> torch.Tensor:
@@ -330,6 +451,7 @@ def plain_route():
         (collide_cuda, "collide_types_bit_bit"): collide_cuda.collide_types_bit_bit_plain,
         (edt_cuda, "envelope_pass"): edt_cuda.envelope_pass_plain,
         (raycast_cuda, "projective_free_space_pooled"): raycast_cuda.projective_free_space_pooled_plain,
+        (collide_cuda, "count_bit_bit"): collide_cuda.count_bit_bit_plain,
     }
     assert {(m, n) for n, m, *_ in KERNELS} == set(plain)
     saved = {key: getattr(*key) for key in plain}
@@ -394,16 +516,45 @@ def main_path(dev: torch.device) -> dict:
     out["cycle"] = m1.collide_with(m2, 0.5)
     out["cycle_overlap"] = m1.collide_with(m3, 0.5, (2, 0, 0))
     out["mark"] = m1.collide_with_marking(m3, 0.5)
+    del m1, m2, m3
+
+    # (d2) live sensing through Providers: the exact and the pooled carve fed
+    # 3 frames each from a cadenced source (frames in order: a callable
+    # source hands out the next one whenever one is due), and the robot's
+    # count against each map as a device scalar
+    robot_provider = Provider("robot")
+    robot_provider.init(robot_bit)
+    out["live"] = []
+    for pool in (1, POOL):
+        env_provider = Provider(f"env_pool{pool}", carve_pool=pool)
+        env_provider.init(ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev))
+        robot_provider.set_collide_with(env_provider, coll_threshold=0.55)
+        frames = iter(out["frames"][:3])
+        stream = StreamingDepthSource(lambda: next(frames), hz=500.0)
+        for _ in range(3):
+            assert env_provider.wait_for_new_data(stream, sensor, timeout_s=5.0)
+        out["live"].append((env_provider.map, robot_provider.collide_async()))
+
+    # (d3) the per-ray DDA: one frame's 307,200 endpoints with raycasting,
+    # and a density counter of the same endpoints with its threshold mask
+    rays = sensor.process_depth_image(out["frames"][0], device=dev)
+    out["rays"] = rays
+    out["dda"] = ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev).insert_sensor_data(
+        rays, sensor_origin=sensor.position)
+    counting = CountingVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev).insert_point_cloud(rays)
+    out["counting"] = counting
+    out["dense_cells"] = counting.occupied_mask(3)
     return out
 
 
 class PlacedArm:
-    """The UR10 at the BASELINE #3 base (bench.py:328-334): FK for a batch
-    of 6-joint configurations, tool0's value pinned to 0, shifted to the base."""
+    """The UR10 with its base at a world position (default: the BASELINE #3
+    base, bench.py:328-334): FK for a batch of 6-joint configurations,
+    tool0's value pinned to 0, shifted to the base."""
 
-    def __init__(self, chain, dev: torch.device):
+    def __init__(self, chain, dev: torch.device, base=SV_BASE):
         self.chain = chain
-        self.base = to_device(SV_BASE, torch.float32, dev)
+        self.base = to_device(base, torch.float32, dev)
 
     def transformed_clouds_for(self, cfg: torch.Tensor):
         full = torch.cat([cfg, torch.zeros_like(cfg[..., :1])], dim=-1)
@@ -455,6 +606,97 @@ def robot_path(dev: torch.device, fused_env: ProbVoxelMap) -> dict:
     out["types_shifted"] = sweep.shift_left_swept_volume_ids(1).collide_with_types(env, 1.0, 2)
     out["cleared"] = out["types"][0][2].clear_collision_flags()
     return out
+
+
+@contextlib.contextmanager
+def host_reads():
+    """The fitter's searches branch on counts: within this block the sync
+    debug mode is at its default, and back to what it was afterwards."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("default")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def raw_planes(m: BitVectorVoxelMap) -> BitVectorVoxelMap:
+    """The map without its occupancy summary: the raw-plane form."""
+    return BitVectorVoxelMap(m.data, m.dims, m.side_length)
+
+
+def fitter_answers(robots) -> dict:
+    """What examples/swept_fitter.py asks of one set of swept maps: the
+    device counts first, then (host reads allowed) the searches."""
+    a_center, b_center = robots[0][1][0][1], robots[1][1][0][1]
+    assert (robots[0][1][0][0], robots[1][1][0][0]) == ("A_reach_center", "B_reach_center")
+    out = {"center": a_center.collide_with(b_center),
+           "conflicts0": a_center.collide_with_bitcheck(b_center, margin=FIT_WINDOW)}
+    with host_reads():
+        out["solutions"] = fit_orderings(robots, all_solutions=True)
+        out["delays"] = deconflict_slot([a_center, b_center], margin=FIT_WINDOW, stride=4)
+        out["schedule"] = fit_schedule(robots, margin=FIT_WINDOW, stride=4, windows_in_search=True)
+    return out
+
+
+def fitter_path(dev: torch.device, sweep: BitVectorVoxelMap, env: BitVectorVoxelMap) -> dict:
+    """The trajectory-scheduling path through the public entry points:
+    .traj files -> swept volumes -> raw-plane collides -> schedule fitter."""
+    out = {}
+    chain = ur_robot("ur10", FIT_SPACING, device=dev)
+    robots = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (fname, text) in TRAJ_FILES.items():
+            path = os.path.join(tmp, fname)
+            with open(path, "w") as f:
+                f.write(text)
+            arm = PlacedArm(chain, dev, FIT_BASES[name])
+            robots.append((name, [
+                (t.name, insert_swept_volume_batched(BitVectorVoxelMap.create(FIT_DIMS, FIT_SIDE, device=dev), arm,
+                                                     t.interpolate(FIT_STEPS)))
+                for t in load_trajectories(path)]))
+    out["robots"] = robots
+    out["robots_raw"] = [(name, [(t, raw_planes(m)) for t, m in maps]) for name, maps in robots]
+    out["summary"] = fitter_answers(robots)  # count_occ_occ
+    out["raw"] = fitter_answers(out["robots_raw"])  # K7
+    # BASELINE #3 as the bench runs it (bench.py:340-352): the swept map's
+    # planes against the environment's planes, and the same through the maps
+    out["b3_planes"] = collide_cuda.count_bit_bit(sweep.data, env.data)
+    out["b3_raw"] = raw_planes(sweep).collide_with(raw_planes(env))
+    out["b3_mixed"] = sweep.collide_with(raw_planes(env), offset=(1, 0, -1))
+    out["b3_summary"] = sweep.collide_with(env), sweep.collide_with(env, offset=(1, 0, -1))
+    return out
+
+
+def fitter_numbers(ans: dict) -> tuple:
+    return int(ans["center"]), int(ans["conflicts0"]), ans["solutions"], ans["delays"], ans["schedule"]
+
+
+def check_fitter_path(fit: dict, plain: dict) -> None:
+    for name, maps in fit["robots"]:
+        for traj, m in maps:
+            assert int(m.occ.sum()) > 0 and not bool(m.data[4:].any()), "101 steps set SV bits 4..104 (planes 0-3)"
+    for (_, maps), (_, pmaps) in zip(fit["robots"], plain["robots"]):
+        for (_, m), (_, pm) in zip(maps, pmaps):
+            assert same_map(m, pm)
+    assert all(m.occ is None for _, maps in fit["robots_raw"] for _, m in maps)
+    center, conflicts0, solutions, delays, schedule = fitter_numbers(fit["raw"])
+    assert center > 0 and conflicts0 > 0, (center, conflicts0)
+    assert len(solutions) == 2, solutions  # the two centre / home interleavings
+    assert delays is not None and delays[0] == 0 and delays[1] > 0, delays
+    assert len(schedule) == 1 and all(d is not None for d in schedule[0][1]), schedule
+    for other in (fit["summary"], plain["raw"], plain["summary"]):
+        assert fitter_numbers(other) == (center, conflicts0, solutions, delays, schedule)
+    log(f"  (j) two UR10s, {FIT_STEPS + 1} poses per trajectory at {FIT_DIMS[0]}^3: centre reaches collide in "
+        f"{center} voxels ({conflicts0} within +-{FIT_WINDOW} steps); orderings {solutions}; start delays {delays}; "
+        f"schedule {schedule}; raw planes == summaries == plain route")
+    b3 = [int(fit[k]) for k in ("b3_planes", "b3_raw")] + [int(fit["b3_summary"][0])]
+    assert b3[0] == b3[1] == b3[2] > 0, b3
+    assert int(fit["b3_mixed"]) == int(fit["b3_summary"][1])
+    for key in ("b3_planes", "b3_raw", "b3_mixed"):
+        assert int(fit[key]) == int(plain[key]), key
+    log(f"  (k) BASELINE #3 planes x planes: count {b3[0]} == maps without summaries == summaries == plain route; "
+        f"offset (1, 0, -1): {int(fit['b3_mixed'])}")
 
 
 def edt_obstacles() -> np.ndarray:
@@ -572,7 +814,7 @@ def same_types(x, y) -> bool:
     return int(x[0]) == int(y[0]) and torch.equal(x[1], y[1]) and same_map(x[2], y[2])
 
 
-def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict]:
+def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict]:
     log("  sense -> insert -> collide (K1, K2, K3)")
     out, launches = drive(main_path, {"count_prob_prob", "count_and_mark_prob", "projective_free_space_exact"}, dev)
 
@@ -588,6 +830,7 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict]:
     cnt, marked = out["mark"]
     assert int(out["cycle"]) == 0  # two interleaved checkerboards never share a voxel
     assert int(out["cycle_overlap"]) > 0 and int(cnt) > 0
+    check_live_sensing(out, dev)
 
     log("  robot -> swept volume -> types collide (K4)")
     robot, robot_launches = drive(robot_path, {"collide_types_bit_bit"}, dev, out["env"])
@@ -603,6 +846,16 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict]:
     check_distance_path(dist, plain_dist, dev)
     del plain_dist
 
+    log("  .traj files -> swept volumes -> raw-plane collides -> schedule fitter (K7, K4)")
+    fit_args = (dev, robot["sweep"], robot["env"])
+    fit, fit_launches = drive(fitter_path, {"count_bit_bit", "collide_types_bit_bit"}, *fit_args)
+    launches["count_bit_bit"] = fit_launches["count_bit_bit"]
+    log(f"  K4 launched {fit_launches['collide_types_bit_bit']} times on this path")
+    with plain_route():
+        plain_fit = fitter_path(*fit_args)
+    check_fitter_path(fit, plain_fit)
+    del plain_fit
+
     # the same scenes through the plain route on the card
     with plain_route():
         plain = main_path(dev)
@@ -616,6 +869,10 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict]:
     assert int(p_cnt) == int(cnt) and torch.equal(p_marked.data, marked.data)
     log(f"  (d) 512^3 cycle: checkerboards collide 0, shifted overlap {int(out['cycle_overlap'])}, "
         f"marking count {int(cnt)} == plain, marked map equal")
+    for (env_map, count), (p_map, p_count) in zip(out["live"], plain["live"]):
+        assert torch.equal(env_map.data, p_map.data) and int(count) == int(p_count)
+    assert torch.equal(out["dda"].data, plain["dda"].data) and torch.equal(out["counting"].data, plain["counting"].data)
+    log("  (d2, d3) provider maps, async counts, the DDA map and the counting map == plain route")
     for key in ("facade_inserted", "facade_cleared", "sweep", "env", "cleared"):
         assert same_map(robot[key], plain_robot[key]), key
     for key in ("types", "bitcheck"):
@@ -624,7 +881,38 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict]:
     for key in ("types_prob", "types_shifted"):
         assert same_types(robot[key], plain_robot[key]), key
     log("  (e-g) every robot-path map, count, meanings vector and marked map == plain route")
-    return out, robot, dist, launches
+    return out, robot, dist, fit, launches
+
+
+def check_live_sensing(out: dict, dev: torch.device) -> None:
+    """The providers against direct inserts of the same frames, and the DDA
+    and the counting map against the same calls on CPU copies of the same
+    rays (all 307,200 of them)."""
+    sensor = kinect_sensor()
+    for pool, (env_map, count) in zip((1, POOL), out["live"]):
+        direct = ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev)
+        for frame in out["frames"][:3]:
+            direct = direct.insert_depth_image(frame, sensor, carve_pool=pool)
+        assert torch.equal(env_map.data, direct.data), pool
+        assert isinstance(count, torch.Tensor) and count.device == env_map.device and int(count) >= 0
+        log(f"  (d2) provider carve_pool={pool}: 3 streamed frames == 3 direct inserts; async robot count {int(count)}")
+    rays = out["rays"]
+    dda = out["dda"].data
+    carved, hits = int(((dda > -128) & (dda < 0)).sum()), int((dda > 0).sum())
+    assert carved > hits > 0, (carved, hits)
+    t0 = time.perf_counter()
+    cpu_rays = rays.cpu()
+    cpu_dda = ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device="cpu").insert_sensor_data(
+        cpu_rays, sensor_origin=sensor.position)
+    cpu_counting = CountingVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device="cpu").insert_point_cloud(cpu_rays)
+    assert torch.equal(dda.cpu(), cpu_dda.data), "the DDA on the card differs from the same call on the CPU"
+    assert torch.equal(out["counting"].data.cpu(), cpu_counting.data)
+    assert torch.equal(out["dense_cells"].cpu(), cpu_counting.occupied_mask(3))
+    dense = int(out["dense_cells"].sum())
+    assert 0 < dense < int(out["counting"].occupied_mask().sum())
+    log(f"  (d3) DDA insert_sensor_data of {rays.shape[0]} rays into 256^3: {hits} occupied, {carved} carved voxels; "
+        f"counting map: {dense} voxels with >= 3 points; both == the same calls on the CPU at the full point count "
+        f"({time.perf_counter() - t0:.1f} s on the host)")
 
 
 def check_robot_path(robot: dict) -> None:
@@ -725,7 +1013,7 @@ def time_k5(smi: str, packed: torch.Tensor, dims, plain: bool) -> tuple[float, f
     return (ms_y + ms_x) / 2, (plain_y + plain_x) / 2
 
 
-def timings(dev: torch.device, smi: str, out: dict, robot: dict, dist: dict) -> tuple[dict, dict]:
+def timings(dev: torch.device, smi: str, out: dict, robot: dict, dist: dict, fit: dict) -> tuple[dict, dict]:
     g = torch.Generator(device=dev).manual_seed(99)
     n = CYCLE_DIMS[0] * CYCLE_DIMS[1] * CYCLE_DIMS[2]
     a = torch.randint(-128, 128, (n,), dtype=torch.int8, device=dev, generator=g)
@@ -766,6 +1054,16 @@ def timings(dev: torch.device, smi: str, out: dict, robot: dict, dist: dict) -> 
     k4_nomark = in_turns(
         lambda: collide_cuda.collide_types_bit_bit(ga, gb, 5, False),
         lambda: collide_cuda.collide_types_bit_bit_plain(ga, gb, 5, False), 10)
+    # K7 reads 64 B per voxel pair; per pair 2 masks, 14 ORs, 2 compares, an
+    # AND and an add
+    t["count_bit_bit"] = in_turns(
+        lambda: collide_cuda.count_bit_bit(ga, gb),
+        lambda: collide_cuda.count_bit_bit_plain(ga, gb), 20)
+    bounds["count_bit_bit"] = bound(64 * ns + 8, 20 * ns)
+    # an offset of one voxel: the slices' addresses differ mod 16 (4-byte loads)
+    k7_scalar = in_turns(
+        lambda: collide_cuda.count_bit_bit(ga, gb, SV_DIMS, (1, 0, 0)),
+        lambda: collide_cuda.count_bit_bit_plain(ga, gb, SV_DIMS, (1, 0, 0)), 20)
     del ga, gb
     for name, (k, p) in t.items():
         log(f"  {name}: kernel {k:.4f} ms, plain torch {p:.4f} ms, bound {bounds[name][0]:.4f} ms "
@@ -773,6 +1071,14 @@ def timings(dev: torch.device, smi: str, out: dict, robot: dict, dist: dict) -> 
     nomark_bound = bound(64 * ns + 40, k4_ops)[0]
     log(f"  collide_types_bit_bit mark=False: kernel {k4_nomark[0]:.4f} ms, plain torch {k4_nomark[1]:.4f} ms, "
         f"bound {nomark_bound:.4f} ms (bytes)  [{smi}]")
+    log(f"  count_bit_bit at 256^3, offset (1, 0, 0) (4-byte loads): kernel {k7_scalar[0]:.4f} ms, plain torch "
+        f"{k7_scalar[1]:.4f} ms, bound {bounds['count_bit_bit'][0]:.4f} ms (bytes)  [{smi}]")
+    ga, gb = dense_bits(dev, n, g), dense_bits(dev, n, g)  # 512^3: 8.6 GB of planes
+    k7_big = in_turns(lambda: collide_cuda.count_bit_bit(ga, gb), lambda: collide_cuda.count_bit_bit_plain(ga, gb), 5)
+    log(f"  count_bit_bit at 512^3: kernel {k7_big[0]:.4f} ms, plain torch {k7_big[1]:.4f} ms, "
+        f"bound {bound(64 * n + 8, 20 * n)[0]:.4f} ms (bytes)  [{smi}]")
+    del ga, gb
+    torch.cuda.empty_cache()
 
     pts = out["cycle_pts"]
 
@@ -832,6 +1138,20 @@ def timings(dev: torch.device, smi: str, out: dict, robot: dict, dist: dict) -> 
     cam_ms = time_ms(camera_frame, 10)
     log(f"  256^3 camera -> distance field frame (pooled carve P={POOL}, merge_occupied, jump_flood): "
         f"{cam_ms:.4f} ms = {1000.0 / cam_ms:.2f} Hz  [{smi}]")
+
+    # the trajectory-scheduling path: the searches read counts on the host
+    search_raw = time_ms(lambda: fit_orderings(fit["robots_raw"], all_solutions=True), 10)
+    search_sum = time_ms(lambda: fit_orderings(fit["robots"], all_solutions=True), 10)
+    centers = [fit["robots_raw"][r][1][0][1] for r in (0, 1)]
+    slot_ms = time_ms(lambda: deconflict_slot(centers, margin=FIT_WINDOW, stride=4), 5)
+    log(f"  fit_orderings over 2 UR10s x 2 trajectories at {FIT_DIMS[0]}^3: {search_raw:.4f} ms per search on raw "
+        f"planes (K7), {search_sum:.4f} ms on occupancy summaries; deconflict_slot (margin {FIT_WINDOW}, stride 4, "
+        f"delays {fit['raw']['delays']}): {slot_ms:.4f} ms  [{smi}]")
+    fresh = ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev)
+    rays = out["rays"]
+    dda_ms = time_ms(lambda: fresh.insert_sensor_data(rays, sensor_origin=sensor.position), 5, warmup=1)
+    log(f"  256^3 DDA insert_sensor_data of one frame ({rays.shape[0]} rays, 256 steps): {dda_ms:.4f} ms = "
+        f"{1000.0 / dda_ms:.2f} Hz  [{smi}]")
     return t, bounds
 
 
@@ -845,16 +1165,16 @@ def main() -> int:
     log("phase 2: kernels against their plain versions (exact)")
     err = check_kernels(dev)
     log("phase 3: the paths through the entry points")
-    out, robot, dist, launches = drive_main_path(dev)
+    out, robot, dist, fit, launches = drive_main_path(dev)
     log("phase 4: times (CUDA events)")
-    t, bounds = timings(dev, smi, out, robot, dist)
+    t, bounds = timings(dev, smi, out, robot, dist, fit)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],
          "ms": t[name][0], "plain_ms": t[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          # no single PyTorch call computes any of these functions: K1/K2 are
          # a compare-and-count, K3 and K6 projective carves, K4 a windowed bit
-         # collide, K5 a min-plus envelope
+         # collide, K5 a min-plus envelope, K7 a fold-and-count (>= 10 calls)
          "library_ms": None}
         for name, _module, source, replaces in KERNELS
     ]}

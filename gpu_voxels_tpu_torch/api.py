@@ -77,8 +77,8 @@ class GpuVoxels:
             m = DistanceVoxelMap.create(self._dims, self._side_length, device=self._device)
         else:
             raise NotImplementedError(
-                f"map type {mt.name} is not ported yet (ROADMAP Queue 1 items 6b, 9-11: "
-                "counting maps, voxel lists, the hierarchical and paged octree tiers)"
+                f"map type {mt.name} is not ported yet (ROADMAP Queue 1 items 9-11: "
+                "voxel lists, the hierarchical and paged octree tiers)"
             )
         self._maps[map_name] = m
         self._locks[map_name] = threading.RLock()

@@ -16,9 +16,9 @@
 // (402 MB, about 120 us). Design for that: one grid-stride pass with 16-byte
 // loads (uint4, 16 voxels per load), the count kept per thread in a
 // register, reduced per warp by shuffles and per block in shared memory, and
-// ONE 64-bit atomicAdd per block. An integer sum is exact in any order, so
-// the count is deterministic. The ragged edges are masked in the kernel;
-// nothing is padded or copied.
+// ONE 64-bit atomicAdd per block (block_reduce.cuh). An integer sum is exact
+// in any order, so the count is deterministic. The ragged edges are masked in
+// the kernel; nothing is padded or copied.
 //
 // Alignment: with an offset, a + sa and b + sb start at arbitrary byte
 // addresses, not necessarily misaligned by the same amount. When a, b (and
@@ -34,25 +34,13 @@
 
 #include <cstdint>
 
+#include "block_reduce.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;  // 16 resident blocks' worth per SM
 constexpr int8_t kCollision = 127;   // MAX_PROBABILITY: eBVM_COLLISION mark
-
-__device__ __forceinline__ void block_add(unsigned int v, unsigned long long* count) {
-  __shared__ unsigned int warp_sums[kThreads / 32];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    unsigned long long s = lane < kThreads / 32 ? warp_sums[lane] : 0u;
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-    if (lane == 0 && s) atomicAdd(count, s);
-  }
-}
 
 template <bool MARK>
 __device__ __forceinline__ unsigned int one(const int8_t* a, const int8_t* b, int8_t* out,
@@ -95,7 +83,7 @@ count_vec_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     }
     if (MARK) vo4[j] = wo;
   }
-  block_add(c, count);
+  block_add<kThreads>(c, count);
 }
 
 // Scalar variant for views whose addresses differ mod 16.
@@ -108,7 +96,7 @@ count_scalar_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   unsigned int c = 0;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride)
     c += one<MARK>(a, b, out, i, t1, t2);
-  block_add(c, count);
+  block_add<kThreads>(c, count);
 }
 
 int blocks_for(int64_t work) {

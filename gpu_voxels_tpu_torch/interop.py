@@ -18,7 +18,7 @@ import torch
 
 from .geometry.pointcloud import MetaPointCloud
 from .maps.distance_map import DistanceVoxelMap
-from .maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+from .maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
 from .robot.dh import DHJointType, DHParameters, KinematicChain
 from .sensors import Sensor, SensorModel
 from .utils import resolve_device
@@ -35,22 +35,34 @@ def prob_map_from_numpy(data, dims, side_length: float, device=None) -> ProbVoxe
 
 
 def bit_map_from_numpy(planes, occ, dims, side_length: float, device=None) -> BitVectorVoxelMap:
-    """A BitVectorVoxelMap over a copy of uint32[8, N] `planes`; `occ` (uint8[N])
-    is the reference's occupancy summary, or None to compute it."""
+    """A BitVectorVoxelMap over a copy of uint32[8, N] `planes` and of the
+    reference map's occupancy summary `occ` (uint8[N]). A reference map
+    without a summary (`occ is None`) becomes a port map without one;
+    `BitVectorVoxelMap.from_planes` is the call that computes a summary."""
     planes = np.ascontiguousarray(planes)
     n = dims[0] * dims[1] * dims[2]
     if planes.dtype != np.uint32 or planes.shape != (8, n):
         raise ValueError(f"bit planes must be uint32[8, {n}], got {planes.dtype}{planes.shape}")
     device = resolve_device(device)
-    m = BitVectorVoxelMap.from_planes(
-        torch.tensor(planes.view(np.int32), device=device), dims, side_length
-    )
     if occ is not None:
         occ = np.asarray(occ)
         if occ.dtype != np.uint8 or occ.shape != (n,):
             raise ValueError(f"occupancy summary must be uint8[{n}], got {occ.dtype}{occ.shape}")
-        m = dataclasses.replace(m, occ=torch.tensor(occ, device=device))
-    return m
+        occ = torch.tensor(occ, device=device)
+    return BitVectorVoxelMap(
+        torch.tensor(planes.view(np.int32), device=device), tuple(int(d) for d in dims), float(side_length), occ=occ
+    )
+
+
+def counting_map_from_numpy(data, dims, side_length: float, device=None) -> CountingVoxelMap:
+    """A CountingVoxelMap over a copy of int8[N] counts `data`."""
+    data = np.asarray(data)
+    n = dims[0] * dims[1] * dims[2]
+    if data.dtype != np.int8 or data.shape != (n,):
+        raise ValueError(f"counting map data must be int8[{n}], got {data.dtype}{data.shape}")
+    return CountingVoxelMap(
+        torch.tensor(data, device=resolve_device(device)), tuple(int(d) for d in dims), float(side_length)
+    )
 
 
 def distance_map_from_numpy(data, dims, side_length: float, device=None) -> DistanceVoxelMap:
@@ -94,15 +106,15 @@ def kinematic_chain_from_numpy(link_names, dh_rows, joint_types, points, cloud_i
 
 
 def to_numpy(m):
-    """The map's arrays in the reference's dtypes: int8[N] for a ProbVoxelMap,
-    (uint32[8, N] planes, uint8[N] occ) for a BitVectorVoxelMap, uint32[N]
-    for a DistanceVoxelMap."""
-    if isinstance(m, ProbVoxelMap):
+    """The map's arrays in the reference's dtypes: int8[N] for a ProbVoxelMap
+    or a CountingVoxelMap, (uint32[8, N] planes, uint8[N] occ or None) for a
+    BitVectorVoxelMap, uint32[N] for a DistanceVoxelMap."""
+    if isinstance(m, (ProbVoxelMap, CountingVoxelMap)):
         return m.data.cpu().numpy()
     if isinstance(m, DistanceVoxelMap):
         return m.data.cpu().numpy().view(np.uint32)
     if isinstance(m, BitVectorVoxelMap):
-        return m.data.cpu().numpy().view(np.uint32), m.occ.cpu().numpy()
+        return m.data.cpu().numpy().view(np.uint32), None if m.occ is None else m.occ.cpu().numpy()
     raise TypeError(f"no numpy form for {type(m)}")
 
 

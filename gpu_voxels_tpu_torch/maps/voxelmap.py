@@ -8,6 +8,7 @@ reference's signed-pointer-offset collision semantics a pair of flat slices.
   ProbVoxelMap       int8[N] log-odds                 (voxelmap/ProbVoxelMap)
   BitVectorVoxelMap  int32[8, N] bit planes + uint8[N] occupancy summary
                                                       (voxelmap/BitVoxelMap)
+  CountingVoxelMap   int8[N] density counter  (dense variant of CountingVoxel)
 
 The public methods are functional, as in the reference: each returns a new
 map (or a count) and leaves its inputs unchanged; the facade rebinds names.
@@ -19,16 +20,19 @@ Routing: prob x prob `collide_with` runs CUDA kernel K1 and
 `collide_with_marking` K2; bit x bit `collide_with_types` and
 `collide_with_bitcheck` run K4 at sv_offset 0 and windows up to 24
 (ops/collide_cuda). Bit x prob and the plain bit x bit count read the bit
-map's occupancy summary in plain torch, as the reference does in XLA; the
-rest of the swept-volume domain (sv_offset != 0, windows 25..31) runs the
-plain full-domain check. Methods of the reference that are not ported yet
-raise NotImplementedError naming the ROADMAP item that brings them.
+map's occupancy summary in plain torch, as the reference does in XLA; a bit
+map without a summary (`occ=None`, raw planes) folds its planes instead, and
+its bit x bit count runs CUDA kernel K7. The rest of the swept-volume domain
+(sv_offset != 0, windows 25..31) runs the plain full-domain check. Methods
+of the reference that are not ported yet raise NotImplementedError naming
+the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass, replace
-from typing import Tuple
+from dataclasses import dataclass
+from dataclasses import replace as _dc_replace
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,15 +40,27 @@ import torch
 from .. import bitops, probability
 from ..constants import (UNKNOWN_PROBABILITY, BitVoxelMeaning, MapType, float_to_probability,
                          meaning_to_probability)
+from ..geometry import transforms
 from ..ops import collide as collide_ops
 from ..ops import collide_cuda
 from ..ops import insert as insert_ops
 from ..ops import raycast
-from ..utils import FACADE, HIERARCHY, SENSING, not_ported, resolve_device, to_device
+from ..utils import FACADE, not_ported, resolve_device, to_device
 
 _log = logging.getLogger(__name__)
 
 Dims = Tuple[int, int, int]
+
+
+def replace(obj, **changes):
+    """dataclasses.replace that also carries the stored Sensor: it survives
+    every operation that derives a map, like the reference's m_sensor member
+    (TemplateVoxelMap.hpp:836-905)."""
+    new = _dc_replace(obj, **changes)
+    sensor = getattr(obj, "_sensor", None)
+    if sensor is not None:
+        object.__setattr__(new, "_sensor", sensor)
+    return new
 
 
 def _n(dims: Dims) -> int:
@@ -99,12 +115,26 @@ class _DenseMap:
     def _offset(offset) -> Dims:
         return tuple(int(v) for v in offset)
 
+    def init_sensor_settings(self, sensor) -> None:
+        """initSensorSettings (TemplateVoxelMap.hpp:836-856): store the Sensor
+        whose pose transforms later insert_sensor_data batches. Host state
+        beside the tensors, like the reference's m_sensor member; this
+        module's `replace` carries it onto every derived map, so the
+        init-once / insert-repeatedly loop works across the functional API."""
+        object.__setattr__(self, "_sensor", sensor)
+
+    def update_sensor_pose(self, sensor) -> None:
+        """updateSensorPose (TemplateVoxelMap.hpp:858-876): refresh the stored
+        sensor's position and orientation; raises if none is stored."""
+        cur = getattr(self, "_sensor", None)
+        if cur is None:
+            raise RuntimeError("Initialize Sensor first! (init_sensor_settings)")
+        cur.position = np.asarray(sensor.position, np.float32)
+        cur.orientation_rpy = np.asarray(sensor.orientation_rpy, np.float32)
+
     print_voxel_map_data = not_ported("print_voxel_map_data", FACADE)
     write_to_disk = not_ported("write_to_disk", FACADE)
     read_from_disk = not_ported("read_from_disk", FACADE)
-    init_sensor_settings = not_ported("init_sensor_settings", SENSING)
-    update_sensor_pose = not_ported("update_sensor_pose", SENSING)
-    collide_with_resolution = not_ported("collide_with_resolution", HIERARCHY)
 
 
 @dataclass(frozen=True, eq=False)
@@ -194,7 +224,41 @@ class ProbVoxelMap(_DenseMap):
             return new, ~clash
         return self.insert_meta_point_cloud(robot_links), torch.ones((), dtype=torch.bool, device=self.device)
 
-    insert_sensor_data = not_ported("insert_sensor_data", SENSING)
+    def insert_sensor_data(
+        self,
+        points,
+        sensor_origin=None,
+        enable_raycasting: bool = True,
+        cut_real_robot: bool = False,
+        robot_map=None,
+        max_steps: int = 256,
+    ) -> "ProbVoxelMap":
+        """ProbVoxelMap::insertSensorData (ProbVoxelMap.hpp:52-102): occupied
+        hits (+72) plus optional free-space carving (-10 per crossing ray).
+
+        With an explicit `sensor_origin`, `points` are world-frame endpoints.
+        With sensor_origin=None and a sensor stored by init_sensor_settings,
+        `points` are sensor-frame and are transformed by the stored pose
+        (the reference's copySensorDataToDevice -> transformSensorData flow,
+        TemplateVoxelMap.hpp:879-905); otherwise the origin is 0. `robot_map`
+        is a map with `occupied_mask()` or a bool[N] mask."""
+        pts = self._points(points)
+        sensor = getattr(self, "_sensor", None)
+        if sensor_origin is None:
+            if sensor is not None:
+                pts = transforms.transform_points(to_device(sensor.pose(), torch.float32, self.device), pts)
+                sensor_origin = sensor.position
+            else:
+                sensor_origin = (0.0, 0.0, 0.0)
+        robot_mask = None
+        if cut_real_robot and robot_map is not None:
+            robot_mask = robot_map.occupied_mask() if hasattr(robot_map, "occupied_mask") else robot_map
+        new = raycast.insert_sensor_data(
+            self.data, tuple(float(v) for v in sensor_origin), pts, self.side_length, self.dims,
+            enable_raycasting=enable_raycasting, cut_real_robot=cut_real_robot,
+            robot_occupied_mask=robot_mask, max_steps=max_steps,
+        )
+        return replace(self, data=new)
 
     # -- collision ----------------------------------------------------------
     def collide_with(self, other, coll_threshold: float = 1.0, offset=(0, 0, 0)) -> torch.Tensor:
@@ -205,8 +269,25 @@ class ProbVoxelMap(_DenseMap):
         if isinstance(other, ProbVoxelMap):
             return collide_cuda.count_prob_prob(self.data, other.data, t, t, self.dims, off)
         if isinstance(other, BitVectorVoxelMap):
-            return collide_ops.count_prob_occ(self.data, t, other.occ, self.dims, off)
+            if other.occ is not None:
+                return collide_ops.count_prob_occ(self.data, t, other.occ, self.dims, off)
+            return collide_ops.count_prob_bit(self.data, t, other.data, self.dims, off)
         raise TypeError(f"cannot collide ProbVoxelMap with {type(other)}")
+
+    def collide_with_resolution(
+        self, other, coll_threshold: float = 1.0, resolution_level: int = 0, offset=(0, 0, 0)
+    ) -> torch.Tensor:
+        """collideWithResolution (CollisionInterfaces.h:107-127): collide at a
+        2^level-coarsened resolution (ops.collide.count_with_resolution)."""
+        t = float_to_probability(coll_threshold)
+        mine = collide_ops.prob_occupied(self.data, t)
+        if isinstance(other, ProbVoxelMap):
+            theirs = collide_ops.prob_occupied(other.data, t)
+        elif isinstance(other, BitVectorVoxelMap):
+            theirs = other.occupied_mask()
+        else:
+            raise TypeError(f"cannot collide ProbVoxelMap with {type(other)}")
+        return collide_ops.count_with_resolution(mine, theirs, resolution_level, self.dims, self._offset(offset))
 
     def collides_with(self, other, coll_threshold: float = 1.0, offset=(0, 0, 0)) -> torch.Tensor:
         """Boolean collisionCheck (TemplateVoxelMap.hpp:329-414), a device bool."""
@@ -244,10 +325,12 @@ class BitVectorVoxelMap(_DenseMap):
     `occ` is the maintained occupancy summary: uint8[N], 1 exactly where the
     voxel is !noneButEmpty (eBVM_FREE masked out, BitVector.h:184-198).
     Every mutation keeps it coherent, so plain collides read 1 byte per
-    voxel instead of folding 32. Unlike the reference, the port always
-    carries it (`from_planes` computes it)."""
+    voxel instead of folding 32. As in the reference, a map built with
+    occ=None (hand-constructed planes) falls back to the plane fold
+    everywhere (bit x bit counts through CUDA kernel K7), and operations
+    then propagate None; `from_planes` computes the summary."""
 
-    occ: torch.Tensor = None
+    occ: Optional[torch.Tensor] = None
     map_type = MapType.MT_BITVECTOR_VOXELMAP
 
     @staticmethod
@@ -266,14 +349,15 @@ class BitVectorVoxelMap(_DenseMap):
         return BitVectorVoxelMap(planes, tuple(int(d) for d in dims), float(side_length), occ=occ)
 
     def clear_map(self) -> "BitVectorVoxelMap":
-        return replace(self, data=torch.zeros_like(self.data), occ=torch.zeros_like(self.occ))
+        occ = None if self.occ is None else torch.zeros_like(self.occ)
+        return replace(self, data=torch.zeros_like(self.data), occ=occ)
 
     # -- insertion ----------------------------------------------------------
     def insert_point_cloud(self, points, meaning=BitVoxelMeaning.eBVM_OCCUPIED) -> "BitVectorVoxelMap":
         new, _, occ_d = insert_ops.insert_bit(
             self.data, self._points(points), self.side_length, self.dims, int(meaning)
         )
-        return replace(self, data=new, occ=self.occ | occ_d)
+        return replace(self, data=new, occ=None if self.occ is None else self.occ | occ_d)
 
     def insert_meta_point_cloud(self, meta, meanings=None) -> "BitVectorVoxelMap":
         """Meta insert, uniform or per-subcloud meanings; the per-subcloud
@@ -299,8 +383,10 @@ class BitVectorVoxelMap(_DenseMap):
 
     # -- bit maintenance ----------------------------------------------------
     def _with_planes(self, data) -> "BitVectorVoxelMap":
-        """New planes that may have cleared bits: the summary is refolded."""
-        return replace(self, data=data, occ=bitops.occupied(data).to(torch.uint8))
+        """New planes that may have cleared bits: the summary, where the map
+        keeps one, is refolded."""
+        occ = None if self.occ is None else bitops.occupied(data).to(torch.uint8)
+        return replace(self, data=data, occ=occ)
 
     def clear_bit(self, bit_index: int) -> "BitVectorVoxelMap":
         """clearBit: clear one meaning in every voxel (BitVoxelMap.hpp:58-72)."""
@@ -326,16 +412,36 @@ class BitVectorVoxelMap(_DenseMap):
 
     # -- collision ----------------------------------------------------------
     def collide_with(self, other, coll_threshold: float = 1.0, offset=(0, 0, 0)) -> torch.Tensor:
-        """collideWith count; both routes read the occupancy summaries."""
+        """collideWith count. Bit x bit reads the occupancy summaries when
+        both maps keep one and folds the planes otherwise (kernel K7 on CUDA
+        maps); bit x prob likewise reads the summary or folds."""
         t = float_to_probability(coll_threshold)
         off = self._offset(offset)
         if isinstance(other, BitVectorVoxelMap):
-            return collide_ops.count_occ_occ(self.occ, other.occ, self.dims, off)
+            if self.occ is not None and other.occ is not None:
+                return collide_ops.count_occ_occ(self.occ, other.occ, self.dims, off)
+            return collide_cuda.count_bit_bit(self.data, other.data, self.dims, off)
         if isinstance(other, ProbVoxelMap):
             # DefaultCollider bit x prob: the threshold applies to the prob side
             roff = tuple(-v for v in off)
-            return collide_ops.count_prob_occ(other.data, t, self.occ, self.dims, roff)
+            if self.occ is not None:
+                return collide_ops.count_prob_occ(other.data, t, self.occ, self.dims, roff)
+            return collide_ops.count_prob_bit(other.data, t, self.data, self.dims, roff)
         raise TypeError(f"cannot collide BitVectorVoxelMap with {type(other)}")
+
+    def collide_with_resolution(
+        self, other, coll_threshold: float = 1.0, resolution_level: int = 0, offset=(0, 0, 0)
+    ) -> torch.Tensor:
+        """collideWithResolution (CollisionInterfaces.h:37-60) at a
+        2^level-coarsened resolution (ops.collide.count_with_resolution)."""
+        mine = self.occupied_mask()
+        if isinstance(other, BitVectorVoxelMap):
+            theirs = other.occupied_mask()
+        elif isinstance(other, ProbVoxelMap):
+            theirs = collide_ops.prob_occupied(other.data, float_to_probability(coll_threshold))
+        else:
+            raise TypeError(f"cannot collide BitVectorVoxelMap with {type(other)}")
+        return collide_ops.count_with_resolution(mine, theirs, resolution_level, self.dims, self._offset(offset))
 
     def collides_with(self, other, coll_threshold: float = 1.0, offset=(0, 0, 0)) -> torch.Tensor:
         """Boolean collisionCheck (TemplateVoxelMap.hpp:329-414), a device bool."""
@@ -358,9 +464,14 @@ class BitVectorVoxelMap(_DenseMap):
             cnt, meanings, new = collide_ops.collide_with_types_bit_prob(self.data, other.data, t)
         else:
             raise TypeError(f"cannot collide BitVectorVoxelMap with {type(other)}")
-        # marking only ever adds eBVM_COLLISION, and a voxel holding it is occupied
-        occ = self.occ | ((new[0] >> 2) & 1).to(torch.uint8)
-        return cnt, meanings, replace(self, data=new, occ=occ)
+        return cnt, meanings, replace(self, data=new, occ=self._occ_marked(new))
+
+    def _occ_marked(self, new_data) -> Optional[torch.Tensor]:
+        """Summary after a marking collide: marking only ever adds
+        eBVM_COLLISION (bit 2), and a voxel holding it is occupied."""
+        if self.occ is None:
+            return None
+        return self.occ | ((new_data[0] >> 2) & 1).to(torch.uint8)
 
     def collide_with_bitcheck(self, other: "BitVectorVoxelMap", margin: int = 0, sv_offset: int = 0) -> torch.Tensor:
         """Same-bit collision with a +-margin window, count only: K4 without
@@ -378,7 +489,9 @@ class BitVectorVoxelMap(_DenseMap):
 
     # -- queries ------------------------------------------------------------
     def occupied_mask(self) -> torch.Tensor:
-        return self.occ != 0
+        if self.occ is not None:
+            return self.occ != 0
+        return bitops.occupied(self.data)
 
     def get_bit_mask(self, meaning) -> torch.Tensor:
         return bitops.get_bit(self.data, int(meaning))
@@ -386,17 +499,42 @@ class BitVectorVoxelMap(_DenseMap):
     def merge(self, other: "BitVectorVoxelMap", new_meaning=None) -> "BitVectorVoxelMap":
         """Voxel::reduce = bitwise OR; optionally re-mean the merged voxels."""
         if new_meaning is None:
-            return replace(self, data=self.data | other.data, occ=self.occ | other.occ)
+            new = self.data | other.data
+            if self.occ is not None and other.occ is not None:
+                return replace(self, data=new, occ=self.occ | other.occ)
+            return self._with_planes(new)
         occ_m = other.occupied_mask()
         p = bitops.bit_plane(int(new_meaning))
         word = bitops.as_int32(bitops.bit_word(int(new_meaning)))
         data = self.data.clone()
         data[p] = torch.where(occ_m, self.data[p] | word, self.data[p])
-        occ = self.occ if int(new_meaning) == 0 else self.occ | occ_m.to(torch.uint8)
+        if self.occ is None or int(new_meaning) == 0:
+            occ = self.occ  # bit 0 never flips noneButEmpty
+        else:
+            occ = self.occ | occ_m.to(torch.uint8)
         return replace(self, data=data, occ=occ)
 
 
-class CountingVoxelMap:
-    """Dense per-voxel point counter: not ported yet."""
+@dataclass(frozen=True, eq=False)
+class CountingVoxelMap(_DenseMap):
+    """Dense per-voxel point counter (dense variant of CountingVoxelList's
+    noise filtering): int8[N] counts that wrap past 127 like the reference's
+    raw int8 counter."""
 
-    create = staticmethod(not_ported("CountingVoxelMap.create", SENSING))
+    map_type = MapType.MT_COUNTING_VOXELLIST
+
+    @staticmethod
+    def create(dims: Dims, side_length: float = 1.0, device=None) -> "CountingVoxelMap":
+        data = torch.zeros((_n(dims),), dtype=torch.int8, device=resolve_device(device))
+        return CountingVoxelMap(data, tuple(int(d) for d in dims), float(side_length))
+
+    def insert_point_cloud(self, points, meaning=BitVoxelMeaning.eBVM_OCCUPIED) -> "CountingVoxelMap":
+        """+1 per point in its voxel; density counters have no meanings."""
+        new, _ = insert_ops.insert_count(self.data, self._points(points), self.side_length, self.dims)
+        return replace(self, data=new)
+
+    def occupied_mask(self, threshold: int = 1) -> torch.Tensor:
+        return self.data.to(torch.int32) >= int(threshold)
+
+    def clear_map(self) -> "CountingVoxelMap":
+        return replace(self, data=torch.zeros_like(self.data))

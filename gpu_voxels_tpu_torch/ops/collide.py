@@ -3,8 +3,8 @@
 Counterpart of gpu_voxels_tpu/ops/collide.py (kernelCollideVoxelMaps /
 ...Debug / ...Bitvector, VoxelMapOperations.hpp:78-239). These forms are the
 semantics spec: `ops/collide_cuda` holds the CUDA kernels K1 and K2 for
-count_prob_prob and count_and_mark_prob and K4 for
-collide_with_types_bit_bit (sv_offset 0, margin <= 24), and takes these
+count_prob_prob and count_and_mark_prob, K4 for collide_with_types_bit_bit
+(sv_offset 0, margin <= 24) and K7 for count_bit_bit, and takes these
 functions for CPU tensors.
 
 Offset semantics replicate collisionCheckWithCounterRelativeTransform
@@ -21,7 +21,6 @@ import torch
 
 from .. import bitops
 from ..constants import MAX_PROBABILITY
-from ..utils import HIERARCHY, not_ported
 from .insert import linear_offset
 
 
@@ -102,6 +101,52 @@ def any_collision(hit_count: torch.Tensor) -> torch.Tensor:
     return hit_count > 0
 
 
+def _shift3d(mask: torch.Tensor, offset) -> torch.Tensor:
+    """Geometric offset: out[z, y, x] = mask[z+oz, y+oy, x+ox], False outside."""
+    ox, oy, oz = (int(v) for v in offset)
+    out = mask
+    for axis, o in ((0, oz), (1, oy), (2, ox)):
+        if o == 0:
+            continue
+        n = out.shape[axis]
+        keep = out.narrow(axis, min(o, n), n - min(o, n)) if o > 0 else out.narrow(axis, 0, max(n + o, 0))
+        fill_shape = list(out.shape)
+        fill_shape[axis] = n - keep.shape[axis]
+        fill = out.new_zeros(fill_shape)
+        out = torch.cat([keep, fill] if o > 0 else [fill, keep], dim=axis)
+    return out
+
+
+def or_pool(mask3d: torch.Tensor, level: int) -> torch.Tensor:
+    """OR-pool a [Z, Y, X] bool mask over 2^level cubes (pad with False)."""
+    s = 1 << int(level)
+    if s == 1:
+        return mask3d
+    pad = [p for d in reversed(mask3d.shape) for p in (0, -d % s)]  # last axis first
+    m = torch.nn.functional.pad(mask3d, pad)
+    zz, yy, xx = m.shape
+    return m.reshape(zz // s, s, yy // s, s, xx // s, s).any(dim=5).any(dim=3).any(dim=1)
+
+
+def count_with_resolution(mask_a, mask_b, resolution_level: int, dims, offset=(0, 0, 0)) -> torch.Tensor:
+    """collideWithResolution for dense maps (CollisionInterfaces.h:37-127).
+
+    The documented contract ("resolution_level = 0 delivers the highest
+    accuracy whereas each increase halves the resolution",
+    CollisionInterfaces.h:56): occupancy is OR-pooled over 2^level cubes and
+    collisions are counted between coarse cells. The offset stays in
+    fine-voxel units and is applied geometrically to the left map before
+    pooling (left[i+off] vs right[i]); unlike the fine-level base-pointer
+    shift (TemplateVoxelMap.hpp:486-519) it does not bleed across axis
+    boundaries.
+    """
+    x, y, z = dims
+    a = _shift3d(mask_a.reshape(z, y, x), offset)
+    b = mask_b.reshape(z, y, x)
+    lvl = int(resolution_level)
+    return _count(or_pool(a, lvl) & or_pool(b, lvl))
+
+
 def _mark_hits(planes: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
     """A copy of `planes` with eBVM_COLLISION (bit 2 of plane 0) set at hits."""
     out = planes.clone()
@@ -145,4 +190,3 @@ def collide_with_types_bit_prob(bit_planes, prob, t, mark_collisions: bool = Tru
     meanings = bitops.or_reduce_words(torch.where(hit[None, :], bit_planes, 0))
     new = _mark_hits(bit_planes, hit) if mark_collisions else bit_planes
     return _count(hit), meanings, new
-count_with_resolution = not_ported("count_with_resolution", HIERARCHY)

@@ -1,11 +1,12 @@
-"""CUDA kernels K1, K2 (prob x prob counting and marking collides) and K4
-(the one-pass swept-volume types collide).
+"""CUDA kernels K1, K2 (prob x prob counting and marking collides), K4
+(the one-pass swept-volume types collide) and K7 (the bit x bit plane-fold
+count).
 
 Counterpart of gpu_voxels_tpu/ops/collide_pallas.py (`count_prob_prob`,
-`count_and_mark_prob`, `collide_types_bit_bit`); the kernels are
-csrc/collide_prob.cu and csrc/collide_types.cu. K1 and K2 take the
-reference's full-map signature with its offset semantics
-(ops/collide._offset_slices). Each wrapper
+`count_and_mark_prob`, `collide_types_bit_bit`, `count_bit_bit`); the
+kernels are csrc/collide_prob.cu, csrc/collide_types.cu and
+csrc/collide_bits.cu. K1, K2 and K7 take the reference's full-map signature
+with its offset semantics (ops/collide._offset_slices). Each wrapper
 
 * on CPU tensors returns the plain torch version (`*_plain`, the spec in
   ops/collide.py);
@@ -24,9 +25,10 @@ from . import collide
 
 count_prob_prob_plain = collide.count_prob_prob
 count_and_mark_prob_plain = collide.count_and_mark_prob
+count_bit_bit_plain = collide.count_bit_bit
 
 # kernel launches since the last reset, by wrapper name
-launches = {"count_prob_prob": 0, "count_and_mark_prob": 0, "collide_types_bit_bit": 0}
+launches = {"count_prob_prob": 0, "count_and_mark_prob": 0, "collide_types_bit_bit": 0, "count_bit_bit": 0}
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -93,7 +95,7 @@ def collide_types_bit_bit_plain(a, b, margin: int = 0, mark: bool = True):
 
 def _check_bits(a: torch.Tensor, b: torch.Tensor) -> None:
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
-        raise ValueError(f"the types collide kernel needs both maps on one CUDA device, got {a.device}, {b.device}")
+        raise ValueError(f"the bit collide kernels need both maps on one CUDA device, got {a.device}, {b.device}")
     if a.dtype != torch.int32 or b.dtype != torch.int32:
         raise TypeError(f"bit planes are int32 views of uint32 words, got {a.dtype}, {b.dtype}")
     if a.ndim != 2 or a.shape[0] != 8 or a.shape != b.shape:
@@ -123,3 +125,24 @@ def collide_types_bit_bit(a, b, margin: int = 0, mark: bool = True):
     kernels.check(err, "collide_types_bit_bit")
     launches["collide_types_bit_bit"] += 1
     return count, meanings, out if mark else a
+
+
+def count_bit_bit(a_planes, b_planes, dims=None, offset=(0, 0, 0)) -> torch.Tensor:
+    """#voxels where a[:, i+off] and b[:, i] are both !noneButEmpty (K7): the
+    fold of each map's 8 planes, bit 0 of plane 0 masked, non-zero on both
+    sides. For callers that hold raw planes, and for maps without an
+    occupancy summary."""
+    if _on_cpu(a_planes, b_planes):
+        return count_bit_bit_plain(a_planes, b_planes, dims, offset)
+    _check_bits(a_planes, b_planes)
+    n = a_planes.shape[1]
+    a0, b0, length = _slices(n, dims, offset)
+    count = torch.empty((), dtype=torch.int64, device=a_planes.device)
+    stream = torch.cuda.current_stream(a_planes.device).cuda_stream
+    with torch.cuda.device(a_planes.device):
+        err = kernels.library().gv_count_bit_bit(
+            a_planes.data_ptr(), b_planes.data_ptr(), n, a0, b0, length, count.data_ptr(), stream
+        )
+    kernels.check(err, "count_bit_bit")
+    launches["count_bit_bit"] += 1
+    return count

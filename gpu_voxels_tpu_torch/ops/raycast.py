@@ -9,12 +9,16 @@ keeps both in gpu_voxels_tpu/ops/raycast_pallas.py:79-137),
 `insert_depth_image` the full frame update (ProbVoxelMap::insertSensorData
 semantics with visibility carving).
 
-The per-ray DDA path (`insert_sensor_data`, `ray_crossing_counts`) is not
-ported yet.
+`insert_sensor_data` is ProbVoxelMap::insertSensorData (ProbVoxelMap.hpp:52-102)
+for sparse or arbitrary point sets, with the Bresenham RayCaster
+(VoxelMapOperations.h:199-334) reformulated as in the reference: every ray
+takes the same `max_steps` dominant-axis steps, masked past its own length,
+each step one scatter-add of ray-crossing counts (`ray_crossing_counts`).
+The loop runs on the device without a host read.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +26,7 @@ import torch
 from .. import probability
 from ..constants import SENSOR_MODEL_FREE, SENSOR_MODEL_OCCUPIED
 from ..geometry import transforms
-from ..utils import SENSING, not_ported, to_device
+from ..utils import to_device
 from .insert import floor_to_int32, in_map, linear_index, map_to_voxels
 
 Dims = Tuple[int, int, int]
@@ -200,5 +204,86 @@ def insert_depth_image(
     return torch.where(delta != 0, probability.update_occupancy(data, delta), data)
 
 
-ray_crossing_counts = not_ported("ray_crossing_counts", SENSING)
-insert_sensor_data = not_ported("insert_sensor_data", SENSING)
+def ray_crossing_counts(origin, points: torch.Tensor, side_length: float, dims: Dims,
+                        max_steps: int = 256) -> torch.Tensor:
+    """int32[N]: per-voxel count of rays origin -> point crossing it.
+
+    Steps are sized so the dominant axis advances one voxel per step
+    (Bresenham's visiting rule); the hit voxel itself is excluded, like the
+    reference, which stops the ray one cell before the measurement. Step
+    k = 0 samples the sensor's own voxel.
+
+    Every f32 operation is one torch op in the reference's order
+    (gpu_voxels_tpu/ops/raycast.py:49-65): `start_v + step_vec * k` rounds
+    the product and the sum on their own (a fused multiply-add can move a
+    sample across a cell boundary). The voxel index goes through
+    `floor_to_int32`, and every scatter has N + 1 slots, slot N taking the
+    samples that are past their ray's end or outside the map.
+    """
+    n = dims[0] * dims[1] * dims[2]
+    points = to_device(points, F32)
+    dev = points.device
+    origin = to_device(origin, F32, dev)
+    # the host-computed reciprocal of insert.map_to_voxels, so that ray
+    # endpoints land in exactly the voxel the hit insert writes
+    recip = float(np.float32(1.0 / float(side_length)))
+
+    start_v = origin * recip
+    end_v = points * recip
+    delta = end_v - start_v[None, :]
+    dominant = delta.abs().amax(dim=-1)  # in voxel units
+    n_steps = floor_to_int32(torch.ceil(dominant))  # cells to visit per ray
+    inv = torch.where(n_steps > 0, 1.0 / n_steps.to(F32).clamp(min=1.0), 0.0)
+    step_vec = delta * inv[:, None]  # one dominant-axis voxel per step
+
+    counts = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    ones = torch.ones(points.shape[0], dtype=torch.int32, device=dev)
+    for k in range(int(max_steps)):
+        pos = start_v + step_vec * float(k)
+        coords = floor_to_int32(pos)
+        live = (n_steps > k) & in_map(coords, dims)
+        counts.index_add_(0, torch.where(live, linear_index(coords, dims), n), ones)
+    return counts[:n]
+
+
+def insert_sensor_data(
+    data: torch.Tensor,
+    sensor_origin,
+    points: torch.Tensor,
+    side_length: float,
+    dims: Dims,
+    enable_raycasting: bool = True,
+    cut_real_robot: bool = False,
+    robot_occupied_mask: Optional[torch.Tensor] = None,
+    max_steps: int = 256,
+) -> torch.Tensor:
+    """ProbVoxelMap::insertSensorData on a flat int8 log-odds grid.
+
+    `points` are world-frame measurement endpoints (already transformed by
+    the sensor pose, cf. transformSensorData TemplateVoxelMap.hpp:894).
+    Every measurement adds SENSOR_MODEL_OCCUPIED (+72) to its voxel
+    (several in one cell accumulate); with raycasting every ray adds
+    SENSOR_MODEL_FREE (-10) to each cell it crosses, with the reference's
+    multiplicity. NaN endpoints hit nothing. With `cut_real_robot`, hits
+    inside `robot_occupied_mask` are skipped: the robot is no obstacle.
+    """
+    n = dims[0] * dims[1] * dims[2]
+    points = to_device(points, F32, data.device)
+    finite = torch.all(torch.isfinite(points), dim=-1)
+    coords = map_to_voxels(torch.where(finite[:, None], points, -1.0), side_length)
+    inside = finite & in_map(coords, dims)
+    idx = torch.where(inside, linear_index(coords, dims), n)
+
+    hit_counts = torch.zeros(n + 1, dtype=torch.int32, device=data.device)
+    hit_counts = hit_counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))[:n]
+    if cut_real_robot and robot_occupied_mask is not None:
+        hit_counts = torch.where(robot_occupied_mask, 0, hit_counts)
+
+    delta = hit_counts * SENSOR_MODEL_OCCUPIED
+    if enable_raycasting:
+        free_counts = ray_crossing_counts(sensor_origin, points, side_length, dims, max_steps)
+        delta = delta + free_counts * SENSOR_MODEL_FREE
+
+    # only touched voxels update: the clamp floor (-127) must not lift
+    # untouched UNKNOWN (-128) voxels
+    return torch.where(delta != 0, probability.update_occupancy(data, delta), data)

@@ -1,0 +1,118 @@
+"""Provider abstraction (reference: octree/test/Provider.h:46-107).
+
+Counterpart of gpu_voxels_tpu/providers.py. The reference's benchmark and
+live apps drive maps through a common contract: init / visualize / collide /
+waitForNewData / newSensorData / setCollideWith, with NTreeProvider /
+VoxelMapProvider / OctomapProvider implementations. Here one generic
+implementation wraps any map kind; sensor data arrives from a DepthSource
+(sensors module) instead of a live Kinect. The visualisation side
+(`visualize`, `finish_visualization`, `live_vis=True`) needs vis/provider.py
+and raises NotImplementedError until ROADMAP Queue 1 item 12 brings it.
+"""
+from __future__ import annotations
+
+import inspect
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .sensors import DepthSource, Sensor
+from .utils import FACADE, not_ported
+
+# map class -> whether its collide_with accepts coll_threshold (see
+# Provider._collide_kwargs)
+_CLASS_TAKES_THRESHOLD: dict = {}
+
+
+class Provider:
+    """init/visualize/collide/waitForNewData/newSensorData contract."""
+
+    def __init__(self, name: str, carve_pool: int = 1, live_vis: bool = False, vis_max_cubes=None):
+        """carve_pool=1 fuses depth frames with the exact per-pixel carve
+        (reference semantics, CUDA kernel K3); carve_pool=P > 1 selects the
+        pooled conservative carve (kernel K6), the fast live-sensor
+        configuration. live_vis and vis_max_cubes belong to the
+        visualisation side, which is not ported yet: setting either raises."""
+        if live_vis or vis_max_cubes is not None:
+            not_ported("Provider(live_vis=True) / Provider(vis_max_cubes=...)", FACADE)()
+        self.name = name
+        self.map = None
+        self.carve_pool = int(carve_pool)
+        self.collide_with_provider: Optional["Provider"] = None
+        self.coll_threshold = 1.0
+        self._last_data_time = 0.0
+
+    def init(self, initial_map) -> None:
+        self.map = initial_map
+
+    def set_collide_with(self, other: "Provider", coll_threshold: float = 1.0) -> None:
+        self.collide_with_provider = other
+        self.coll_threshold = float(coll_threshold)
+
+    def _collide_kwargs(self) -> dict:
+        """Pass coll_threshold only to maps whose collide_with takes it: the
+        dense-map signature is (other, coll_threshold, offset) but octree
+        tiers take (other, min_level, offset) and lists (other, offset), so
+        a positional threshold would silently bind to the wrong parameter.
+        The signature inspection is cached per map class (collide_async runs
+        per frame in live loops)."""
+        cls = type(self.map)
+        takes = _CLASS_TAKES_THRESHOLD.get(cls)
+        if takes is None:
+            try:
+                takes = "coll_threshold" in inspect.signature(cls.collide_with).parameters
+            except (TypeError, ValueError):
+                takes = False
+            _CLASS_TAKES_THRESHOLD[cls] = takes
+        return {"coll_threshold": self.coll_threshold} if takes else {}
+
+    def _other_map(self):
+        other = self.collide_with_provider
+        return None if other is None else other.map
+
+    def collide(self) -> int:
+        """The collision count against the other provider's map, read on the
+        host (one wait for the device); 0 when there is no other map."""
+        count = self.collide_async()
+        return 0 if count is None else int(count)
+
+    def collide_async(self) -> Optional[torch.Tensor]:
+        """The collision count as a device scalar, without a host sync: live
+        loops read counts in batches or one frame late, so the read overlaps
+        the next frame's work. None when there is no other map."""
+        other = self._other_map()
+        if other is None:
+            return None
+        return self.map.collide_with(other, **self._collide_kwargs())
+
+    def new_sensor_data(self, depth, sensor: Sensor) -> None:
+        if hasattr(self.map, "insert_depth_image"):
+            self.map = self.map.insert_depth_image(depth, sensor, carve_pool=self.carve_pool)
+        else:
+            pts = sensor.process_depth_image(depth, device=self.map.device).cpu().numpy()
+            pts = pts[np.isfinite(pts).all(axis=1)]
+            self.map = self.map.insert_point_cloud(pts)
+        self._last_data_time = time.monotonic()
+
+    def wait_for_new_data(self, source: DepthSource, sensor: Sensor, timeout_s: float = 1.0) -> bool:
+        """Blocks until the source delivers a frame (Provider.h waitForNewData):
+        cadenced sources (StreamingDepthSource) sleep until the next frame is
+        due; plain sources are polled up to the timeout."""
+        if hasattr(source, "wait_for_frame"):
+            frame = source.wait_for_frame(timeout_s)
+        else:
+            frame = source.get_frame()
+            if frame is None:
+                deadline = time.monotonic() + timeout_s
+                while frame is None and time.monotonic() < deadline:
+                    time.sleep(0.001)
+                    frame = source.get_frame()
+        if frame is None:
+            return False
+        self.new_sensor_data(frame, sensor)
+        return True
+
+    visualize = not_ported("Provider.visualize", FACADE)
+    finish_visualization = not_ported("Provider.finish_visualization", FACADE)

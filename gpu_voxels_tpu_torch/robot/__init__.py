@@ -1,8 +1,10 @@
-"""Robots and swept volumes: DH kinematic chains, the UR presets and the
-swept-volume inserts. URDF robots, `.traj` files and the schedule fitter
-are not ported yet (ROADMAP Queue 1 items 12 and 6c)."""
+"""Robots and swept volumes: DH kinematic chains, the UR presets, the
+swept-volume inserts, `.traj` trajectory files and the schedule fitter
+(`robot.fitter`). URDF robots are not ported yet (ROADMAP Queue 1 item 12)."""
 from .dh import DHJointType, DHParameters, KinematicChain
+from .fitter import deconflict_slot, fit_orderings, fit_schedule
 from .robot import JointValueMap, RobotInterface, interpolate_linear
+from .trajectory import Trajectory, load_trajectories
 
 __all__ = [
     "DHJointType",
@@ -10,5 +12,10 @@ __all__ = [
     "JointValueMap",
     "KinematicChain",
     "RobotInterface",
+    "Trajectory",
+    "deconflict_slot",
+    "fit_orderings",
+    "fit_schedule",
     "interpolate_linear",
+    "load_trajectories",
 ]

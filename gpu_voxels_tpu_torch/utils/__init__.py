@@ -5,8 +5,6 @@ import torch
 
 # ROADMAP Queue 1 items that bring what this slice leaves out
 URDF = "ROADMAP Queue 1 item 12: URDF robots, with the binvox reader of geometry/files.py"
-SENSING = "ROADMAP Queue 1 item 6b: DDA sensor insert, counting maps, providers"
-HIERARCHY = "ROADMAP Queue 1 item 10: hierarchical tier"
 FACADE = "ROADMAP Queue 1 item 12: IO, visualization and the facade"
 
 

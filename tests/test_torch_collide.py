@@ -138,4 +138,5 @@ def test_kernel_wrappers_refuse_what_they_cannot_take():
     a = torch.zeros(10, dtype=torch.int8)
     with pytest.raises(ValueError):  # a CPU map never meets a kernel
         collide_cuda._check(a, a)
-    assert collide_cuda.launches == {"count_prob_prob": 0, "count_and_mark_prob": 0, "collide_types_bit_bit": 0}
+    assert collide_cuda.launches == {"count_prob_prob": 0, "count_and_mark_prob": 0, "collide_types_bit_bit": 0,
+                                     "count_bit_bit": 0}

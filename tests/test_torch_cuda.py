@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K6 against their plain torch versions.
+"""The port's CUDA kernels K1-K7 against their plain torch versions.
 
 This file imports torch and the port only (no JAX), so it also runs on a
 machine with a card and no JAX:
@@ -160,6 +160,69 @@ def test_k4_raises_on_inputs_it_does_not_take(cuda_device):
         collide_cuda.collide_types_bit_bit(a, a, 25)
     with pytest.raises(ValueError):
         collide_cuda.collide_types_bit_bit(a[:, ::2], a[:, ::2], 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(64, 32, 20), (67, 45, 39)], ids=["n%4==0", "ragged-n"])
+def test_k7_matches_plain_on_card(cuda_device, dims):
+    """K7 equals the plane fold exactly over offsets: those that keep both
+    slices at one address mod 16 (the vector variant), those that do not, and
+    a ragged N (the scalar variant); the eBVM_FREE-only voxel never counts."""
+    n = dims[0] * dims[1] * dims[2]
+    a, b = _bit_fixture(n, 11, cuda_device)
+    b[0, 5] = 1  # both sides hold only bit 0 of plane 0 at voxel 5
+    a[:, 9], b[:, 9] = 0, 0
+    a[7, 9], b[7, 9] = -(2**31), -(2**31)  # only bit 31 of plane 7: counts
+    before = collide_cuda.launches["count_bit_bit"]
+    offsets = [(0, 0, 0), (4, 0, 0), (-8, 1, 0), (1, 0, 0), (3, -2, 1), (-1, 0, -1), (0, 0, dims[2] - 1)]
+    for off in offsets:
+        got = collide_cuda.count_bit_bit(a, b, dims, off)
+        assert got.dtype == torch.int64 and got.device == a.device and got.ndim == 0
+        assert int(got) == int(collide_cuda.count_bit_bit_plain(a, b, dims, off)) > 0, off
+    assert int(collide_cuda.count_bit_bit(a, b)) == int(collide_cuda.count_bit_bit_plain(a, b))
+    zero = torch.zeros_like(a)
+    assert int(collide_cuda.count_bit_bit(a, zero)) == 0 and int(collide_cuda.count_bit_bit(zero, zero)) == 0
+    one = torch.zeros((8, 1), dtype=torch.int32, device=cuda_device)
+    one[3, 0] = 1
+    assert int(collide_cuda.count_bit_bit(one, one)) == 1
+    torch.cuda.synchronize()
+    assert collide_cuda.launches["count_bit_bit"] == before + len(offsets) + 4
+
+
+@pytest.mark.cuda
+def test_k7_raises_on_inputs_it_does_not_take(cuda_device):
+    a = torch.zeros((8, 100), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        collide_cuda.count_bit_bit(a, a.to(torch.int64))
+    with pytest.raises(ValueError):
+        collide_cuda.count_bit_bit(a, a.cpu())
+    with pytest.raises(ValueError):
+        collide_cuda.count_bit_bit(a[:, ::2], a[:, ::2])
+    with pytest.raises(ValueError):
+        collide_cuda.count_bit_bit(a, a[:, :50].contiguous())
+    with pytest.raises(ValueError):
+        collide_cuda.count_bit_bit(a[:4].contiguous(), a[:4].contiguous())
+
+
+@pytest.mark.cuda
+def test_raw_plane_maps_collide_through_k7(cuda_device):
+    """A BitVectorVoxelMap without a summary counts through K7; with
+    summaries on both sides it does not launch."""
+    from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap
+
+    dims = (16, 12, 10)
+    a, b = _bit_fixture(dims[0] * dims[1] * dims[2], 12, cuda_device)
+    raw_a, raw_b = BitVectorVoxelMap(a, dims, 1.0), BitVectorVoxelMap(b, dims, 1.0)
+    sum_a, sum_b = BitVectorVoxelMap.from_planes(a, dims), BitVectorVoxelMap.from_planes(b, dims)
+    before = collide_cuda.launches["count_bit_bit"]
+    for off in ((0, 0, 0), (2, -1, 1)):
+        expect = int(sum_a.collide_with(sum_b, offset=off))
+        assert collide_cuda.launches["count_bit_bit"] == before
+        assert int(raw_a.collide_with(raw_b, offset=off)) == expect > 0
+        assert int(raw_a.collide_with(sum_b, offset=off)) == expect
+        assert int(sum_a.collide_with(raw_b, offset=off)) == expect
+        before += 3
+    assert collide_cuda.launches["count_bit_bit"] == before
 
 
 @pytest.mark.cuda

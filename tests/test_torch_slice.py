@@ -29,6 +29,7 @@ from gpu_voxels_tpu_torch.geometry import transforms as ttf
 from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap as TBit
 from gpu_voxels_tpu_torch.maps.voxelmap import CountingVoxelMap as TCount
 from gpu_voxels_tpu_torch.maps.voxelmap import ProbVoxelMap as TProb
+from gpu_voxels_tpu_torch.providers import Provider
 
 
 def _linkage(gvl, **init):
@@ -150,8 +151,10 @@ def test_interop_round_trip():
     tprob = interop.prob_map_from_numpy(np.asarray(jprob.data), dims, side, "cpu")
     jbit = JBit.create(dims, side).insert_point_cloud(c1, 3).insert_point_cloud(c2, 250)
     tbit = interop.bit_map_from_numpy(np.asarray(jbit.data), np.asarray(jbit.occ), dims, side, "cpu")
+    # no summary in, no summary out; from_planes is the call that computes one
     tbit_no_occ = interop.bit_map_from_numpy(np.asarray(jbit.data), None, dims, side, "cpu")
-    np.testing.assert_array_equal(tbit_no_occ.occ.numpy(), np.asarray(jbit.occ))
+    assert tbit_no_occ.occ is None and interop.to_numpy(tbit_no_occ)[1] is None
+    np.testing.assert_array_equal(TBit.from_planes(tbit_no_occ.data, dims, side).occ.numpy(), np.asarray(jbit.occ))
 
     jprob, tprob = jprob.insert_point_cloud(c2[:300], 2), tprob.insert_point_cloud(c2[:300], 2)
     jbit, tbit = jbit.insert_point_cloud(c2[:100], 0), tbit.insert_point_cloud(c2[:100], 0)
@@ -178,16 +181,20 @@ def test_left_out_methods_raise():
     m = TProb.create((4, 4, 4), device="cpu")
     b = TBit.create((4, 4, 4), device="cpu")
     for call in (
-        lambda: m.insert_sensor_data(np.zeros((1, 3), np.float32)),
-        lambda: m.collide_with_resolution(m),
-        lambda: b.init_sensor_settings(None),
-        lambda: b.collide_with_resolution(b),
         lambda: TGvl().add_robot("arm", "arm.urdf"),
-        lambda: TCount.create((4, 4, 4)),
         lambda: m.write_to_disk("x"),
+        lambda: b.read_from_disk("x"),
+        lambda: m.print_voxel_map_data(),
+        lambda: TGvl().visualize_map("m"),
+        lambda: Provider("p").visualize(),
     ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
             call()
+    # what earlier slices left out and the dense-map tier now has
+    assert int(m.insert_sensor_data(np.full((1, 3), 1.5, np.float32), sensor_origin=(0.5, 0.5, 0.5)).data.max()) == -128 + 72
+    assert int(m.collide_with_resolution(m)) == int(b.collide_with_resolution(b)) == 0
+    b.init_sensor_settings(tsens.Sensor())
+    assert TCount.create((4, 4, 4), device="cpu").data.shape == (64,)
     src = tsens.SyntheticDepthSource(tsens.Sensor(data_width=8, data_height=6), seed=3)
     ref = jsens.SyntheticDepthSource(jsens.Sensor(data_width=8, data_height=6), seed=3)
     for _ in range(2):
@@ -207,7 +214,9 @@ def test_port_never_imports_jax():
     scanned = {str(p.relative_to(root)) for p in files}
     assert {"bitops.py", "geometry/pointcloud.py", "robot/dh.py", "robot/presets.py", "robot/robot.py",
             "robot/swept_volume.py", "ops/collide_cuda.py", "interop.py", "ops/edt.py", "ops/edt_envelope.py",
-            "ops/edt_cuda.py", "ops/raycast_cuda.py", "maps/distance_map.py", "converters.py"} <= scanned
+            "ops/edt_cuda.py", "ops/raycast_cuda.py", "maps/distance_map.py", "converters.py", "providers.py",
+            "sensors.py", "robot/trajectory.py", "robot/fitter.py", "ops/raycast.py", "ops/insert.py",
+            "maps/voxelmap.py"} <= scanned
     files += [root.parent / "chip_smoke.py", root.parent / "chip_profile.py"]
     bad = []
     for path in files:

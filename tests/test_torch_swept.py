@@ -30,9 +30,11 @@ from gpu_voxels_tpu_torch.constants import MapType
 from gpu_voxels_tpu_torch.geometry import transforms as ttf
 from gpu_voxels_tpu_torch.geometry.pointcloud import MetaPointCloud as TMeta
 from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap as TBit
+from gpu_voxels_tpu_torch.maps.voxelmap import CountingVoxelMap as TCount
 from gpu_voxels_tpu_torch.maps.voxelmap import ProbVoxelMap as TProb
 from gpu_voxels_tpu_torch.ops import collide_cuda
 from gpu_voxels_tpu_torch.ops import insert as tinsert
+from gpu_voxels_tpu_torch.ops import raycast
 from gpu_voxels_tpu_torch.robot import swept_volume as tsv
 from gpu_voxels_tpu_torch.robot.dh import DHParameters as TDH
 from gpu_voxels_tpu_torch.robot.dh import KinematicChain as TChain
@@ -241,6 +243,10 @@ def test_entry_points_default_to_the_card():
         lambda: utils.to_device(np.zeros(3), torch.float32),
         lambda: TMeta.from_clouds([np.zeros((2, 3), np.float32)]).points,
         lambda: interop.prob_map_from_numpy(np.zeros(64, np.int8), (4, 4, 4), 1.0).data,
+        lambda: TCount.create((4, 4, 4)).data,
+        lambda: interop.counting_map_from_numpy(np.zeros(64, np.int8), (4, 4, 4), 1.0).data,
+        lambda: interop.bit_map_from_numpy(np.zeros((8, 64), np.uint32), None, (4, 4, 4), 1.0).data,
+        lambda: raycast.ray_crossing_counts((0.5, 0.5, 0.5), np.ones((2, 3), np.float32), 1.0, (4, 4, 4), 4),
     ]
     gvl = TGvl()
     gvl.initialize(4, 4, 4, 1.0)
