@@ -12,12 +12,18 @@ deconflict_slot on the two-UR10 scene at 256^3, and one DDA
 insert_sensor_data frame) it prints the time per iteration from CUDA events
 (unprofiled), the device-busy time per iteration (the sum of the device
 rows of `key_averages()`: kernels, memsets and copies), the device's idle
-share, and the device rows that take the most time. Needs one CUDA card and
-nvcc, like chip_smoke.py.
+share, and the device rows that take the most time. Last, for the carve and
+envelope kernels (K3, K6, K5), what the compiler made of each: registers per
+thread (ptxas) and the static count of SASS operations (cuobjdump, where
+the toolkit has it). Needs one CUDA card and nvcc, like chip_smoke.py.
 """
 from __future__ import annotations
 
+import os
+import re
+import subprocess
 import sys
+import tempfile
 
 import torch
 from torch.autograd import DeviceType
@@ -50,6 +56,30 @@ def breakdown(name: str, fn, smi: str, iters: int = ITERS) -> None:
           f"idle share {1.0 - busy_ms / wall_ms:.3f}  [{smi}]", flush=True)
     for e in rows[:TOP]:
         print(f"    {e.self_device_time_total / 1e3 / iters:9.4f} ms  x{e.count // iters:<4d} {e.key[:90]}", flush=True)
+
+
+def static_counts() -> None:
+    """Per kernel of csrc/{carve_exact,carve_pooled,edt_envelope}.cu: registers
+    per thread and SASS operations in the whole kernel (slow paths of IEEE
+    divisions and ragged tails included: a static count, not what a thread
+    executes)."""
+    nvcc = kernels._nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("carve_exact", "carve_pooled", "edt_envelope"):
+            obj = os.path.join(tmp, f"{name}.o")
+            built = subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj,
+                                    str(kernels.CSRC_DIR / f"{name}.cu")], capture_output=True, text=True, check=True)
+            registers = dict(re.findall(r"entry function '(\S+)'.*?Used (\d+) registers", built.stderr, re.S))
+            sass_ops = {}
+            if os.path.exists(cuobjdump):
+                sass = subprocess.run([cuobjdump, "-sass", obj], capture_output=True, text=True, check=True).stdout
+                for body in sass.split("Function : ")[1:]:
+                    sass_ops[body.split()[0]] = len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/", body, re.M))
+            for fn, regs in registers.items():
+                kernel, size = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", fn).groups()
+                print(f"{name}.cu {kernel}{f'<{size}>' if size else ''}: {regs} registers, "
+                      f"{sass_ops.get(fn, 'not counted (no cuobjdump)')} SASS operations", flush=True)
 
 
 def main() -> int:
@@ -100,6 +130,7 @@ def main() -> int:
 
     breakdown("BASELINE #4 exact EDT at 512^3 (20,000 obstacles)", obstacles.parallel_banding, smi)
     breakdown("256^3 camera -> distance field frame (pooled carve, merge, EDT)", camera_frame, smi)
+    static_counts()
     return 0
 
 

@@ -11,13 +11,16 @@ non-zero and prints no result. Phases, each an assert or an exception:
 2. each CUDA kernel against its plain torch version, on the card, at full
    size, exact equality: K1/K2 (prob x prob count / count-and-mark) on two
    random int8 512^3 maps over thresholds x offsets, incl. misaligned views;
-   K3 (exact projective carve) at 256^3 on a 640x480 frame under 3 poses;
+   K3 (exact projective carve) at 256^3 on a 640x480 frame under 3 poses,
+   and on a grid whose rows are ragged (dx = 250);
    K4 (swept-volume types collide) on 256^3 bit maps over margins
    {0, 1, 4, 8, 24} x mark, dense-random and sparse (with the bit-0-only
    hazard voxel) fixtures and a length that is not a multiple of the block;
    K5 (the EDT's min-plus envelope) at 256^3 along Y and X on random, empty,
-   single-site, 50 %-dense, ragged (250x200x130) and tie fixtures, on
-   distances and payloads; K6 (pooled carve) at 256^3 under the 3 poses at
+   single-site, 50 %-dense, ragged (250x200x130), tie and dense g = 0
+   fixtures, lines of 1,024 and of 1 position, on distances and payloads,
+   and at least 16 resident warps per SM in both passes; K6 (pooled carve)
+   at 256^3 under the 3 poses at
    P in {4, 8}, and its mask inside K3's; K7 (bit x bit plane-fold count)
    on dense-random and sparse 256^3 plane stacks (with a voxel whose only
    set bit is eBVM_FREE on either side, which must not count, and voxels
@@ -260,14 +263,17 @@ def check_kernels(dev: torch.device) -> dict:
     del a, b, marked, ref_m
 
     depth = torch.as_tensor(bench_frame(), device=dev)
-    for name, pose in carve_poses().items():
-        p = torch.as_tensor(pose, device=dev)
-        got = raycast_cuda.projective_free_space_exact(depth, p, *INTR, FUSION_SIDE, FUSION_DIMS)
-        ref = raycast_cuda.projective_free_space_plain(depth, p, *INTR, FUSION_SIDE, FUSION_DIMS)
+    poses = carve_poses()
+    # dx = 250: rows that end inside a thread's 8 voxels and start off an 8-byte boundary
+    ragged = (K5_RAGGED[0], *FUSION_DIMS[1:])
+    for name, dims in [(name, FUSION_DIMS) for name in poses] + [("inside", ragged)]:
+        p = torch.as_tensor(poses[name], device=dev)
+        got = raycast_cuda.projective_free_space_exact(depth, p, *INTR, FUSION_SIDE, dims)
+        ref = raycast_cuda.projective_free_space_plain(depth, p, *INTR, FUSION_SIDE, dims)
         diff = int((got != ref).sum())
         err["projective_free_space_exact"] = max(err["projective_free_space_exact"], int(diff > 0))
-        assert diff == 0 and int(got.sum()) > 0, (name, diff)
-        log(f"  K3 pose={name}: {int(got.sum())} free voxels, mask equal to plain bit for bit")
+        assert diff == 0 and int(got.sum()) > 0, (name, dims, diff)
+        log(f"  K3 pose={name} dims={dims}: {int(got.sum())} free voxels, mask equal to plain bit for bit")
     del depth, got, ref
 
     n = SV_DIMS[0] * SV_DIMS[1] * SV_DIMS[2]
@@ -352,7 +358,8 @@ def random_obstacles(dev: torch.device, dims, count: int, g: torch.Generator) ->
 def k5_fixtures(dev: torch.device, g: torch.Generator):
     """(name, g, payload, axis) inputs of the EDT's passes at 256^3: the Y
     pass on PBA phase 1's output, the X pass on the plain Y pass's output,
-    and a synthetic tie grid for both."""
+    synthetic tie and dense g = 0 grids for both, and lines of 1,024 and
+    of 1 position."""
     dims = FUSION_DIMS
     dx, dy, dz = dims
     n = dx * dy * dz
@@ -379,9 +386,25 @@ def k5_fixtures(dev: torch.device, g: torch.Generator):
     pay = torch.randint(0, 2**30, shape, dtype=torch.int32, device=dev, generator=g)
     for axis in (1, 2):
         yield "ties", tie, pay, axis
+        # every position a site at offset 0: each starts its own segment, the stack reaches depth n
+        yield "dense g=0", torch.zeros_like(tie), pay, axis
+    # the longest line the packed sites allow, and the shortest
+    for name, shape, axis in (("n=1024", (4, 1024, 64), 1), ("n=1024", (4, 64, 1024), 2),
+                              ("n=1", (8, 1, dims[0]), 1), ("n=1", (8, dims[1], 1), 2)):
+        small = torch.randint(0, 40, shape, dtype=torch.int32, device=dev, generator=g)
+        sparse = torch.where(torch.rand(shape, device=dev, generator=g) < 0.9, edt_envelope.MISS, small)
+        yield name, sparse, torch.randint(0, 2**30, shape, dtype=torch.int32, device=dev, generator=g), axis
 
 
 def check_k5(dev: torch.device, g: torch.Generator, err: dict) -> None:
+    # what the card holds of each pass's kernel at the main path's line lengths
+    for n in (EDT_DIMS[0], FUSION_DIMS[0]):
+        for name, c in (("Y", n), ("X", 1)):
+            occ = edt_cuda.envelope_occupancy(n, c)
+            assert occ["warps_per_sm"] >= 16, (n, name, occ)
+            log(f"  K5 {name} pass, n={n}: {occ['warps_per_sm']} warps per SM ({occ['registers']} registers, "
+                f"{occ['shared_bytes']} B shared per block of {occ['threads']} threads, {occ['local_bytes']} B local "
+                f"per thread)")
     for name, g2, pay, axis in k5_fixtures(dev, g):
         d, p = edt_cuda.envelope_pass(g2, pay, axis)
         ref_d, ref_p = edt_cuda.envelope_pass_plain(g2, pay, axis)

@@ -10,41 +10,72 @@
 // (sz > 1e-6), projects inside the image, the pixel is valid, and
 // sz < depth[v, u] - eps. The mask must be bit-identical to the spec.
 //
-// What bounds it on an H100: the 1-byte-per-voxel mask write (16.7 MB at
-// 256^3, about 5 us at 3.35 TB/s) and ~25 f32 operations with one IEEE
-// division per voxel pair of (u, v); the 1.2 MB frame (640x480 f32) stays in
-// the 50 MB L2, so the per-voxel gather is an L2 hit. The TPU kernel's
-// pooled two-phase band refinement exists only to avoid gathers on the TPU;
-// here one thread per voxel gathers its own pixel directly.
+// What bounds it on an H100: the projection's f32 operations (33 per voxel
+// with an IEEE division counted as one: 8.3 us at 256^3 and 67 T/s; a
+// division is in fact a dozen machine operations and more) against a
+// 1-byte-per-voxel mask write (16.7 MB, 5 us at 3.35 TB/s); the 1.2 MB
+// frame (640x480 f32) stays in the 50 MB L2, so the per-voxel gather is an
+// L2 hit. The TPU kernel's pooled two-phase band refinement exists only to
+// avoid gathers on the TPU; here each voxel gathers its own pixel directly.
 //
-// Bit-identity: the projection (carve_projection.cuh) rounds every f32
-// operation on its own, in the spec's order. The threshold keeps the spec's
-// form sz < d - eps, with eps = f32(eps_vox) * f32(side) folded on the host.
+// What held the first form back (0.110 ms at 256^3 on an H100): one thread a
+// voxel, each turning its index into (x, y, z) with divisions by dx and dy,
+// loading the pose, computing the row's share of the projection again, and
+// storing one byte, so a warp's store filled a quarter of a 128-byte line.
+//
+// What this form does: a row kernel. A thread takes kX consecutive x of one
+// (y, z) row; y and z come from the block and thread indices (two divisions
+// per block, none per voxel); the row's share of the projection
+// (carve_projection.cuh project_row: the pose and the six products with wy
+// and wz) is computed once per thread; the kX results leave as one kX-byte
+// store where the row's address allows, as bytes on a ragged row end.
+//
+// Bit-identity: the projection rounds every f32 operation on its own, in the
+// spec's order; only products are shared along a row, never a sum. The
+// threshold keeps the spec's form sz < d - eps, with eps = f32(eps_vox) *
+// f32(side) folded on the host.
 //
 // The launcher returns cudaGetLastError(); the caller raises on non-zero.
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "carve_projection.cuh"
 
 namespace {
 
+constexpr int kX = 8;  // voxels per thread, along x: one 8-byte store
+
 __global__ void __launch_bounds__(carve::kThreads)
 carve_exact_kernel(const float* __restrict__ depth, int h, int w, const float* __restrict__ pose,
                    float fx, float fy, float cx, float cy, float side, float eps, float invalid,
-                   int dx, int dy, int n, uint8_t* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const carve::Projection p =
-      carve::project(pose, fx, fy, cx, cy, side, h, w, i % dx, (i / dx) % dy, i / (dx * dy));
-  bool carved = false;
-  if (p.seen) {
-    const float d = __ldg(depth + static_cast<int64_t>(p.v) * w + p.u);
-    carved = (d != invalid) && (p.sz < __fsub_rn(d, eps));
+                   int dx, int dy, int tiles_x, int tiles_y, uint8_t* __restrict__ out) {
+  // a block is blockDim.y rows of blockDim.x threads; blockIdx.x = (z, y tile, x tile)
+  const int tile_x = blockIdx.x % tiles_x;
+  const int tile_y = (blockIdx.x / tiles_x) % tiles_y;
+  const int z = blockIdx.x / tiles_x / tiles_y;
+  const int x0 = (tile_x * blockDim.x + threadIdx.x) * kX;
+  const int y = tile_y * blockDim.y + threadIdx.y;
+  if (x0 >= dx || y >= dy) return;
+  const carve::Row row = carve::project_row(pose, side, y, z);
+  uint64_t carved = 0;  // byte i: voxel x0 + i
+#pragma unroll
+  for (int i = 0; i < kX; ++i) {
+    if (x0 + i >= dx) break;
+    const carve::Projection p = carve::project_x(row, fx, fy, cx, cy, h, w, x0 + i);
+    if (p.seen) {
+      const float d = __ldg(depth + static_cast<int64_t>(p.v) * w + p.u);
+      if ((d != invalid) && (p.sz < __fsub_rn(d, eps))) carved |= 1ull << (8 * i);
+    }
   }
-  out[i] = carved;
+  uint8_t* dst = out + (static_cast<int64_t>(z) * dy + y) * dx + x0;
+  if (x0 + kX <= dx && reinterpret_cast<uintptr_t>(dst) % kX == 0) {
+    *reinterpret_cast<uint64_t*>(dst) = carved;
+  } else {
+    for (int i = 0; i < kX && x0 + i < dx; ++i) dst[i] = (carved >> (8 * i)) & 1u;
+  }
 }
 
 }  // namespace
@@ -56,9 +87,17 @@ extern "C" int gv_carve_exact(const void* depth, int h, int w, const void* pose,
   const int64_t n = static_cast<int64_t>(dx) * dy * dz;
   if (n <= 0) return cudaGetLastError();
   if (n > INT32_MAX) return cudaErrorInvalidValue;
-  const int blocks = static_cast<int>((n + carve::kThreads - 1) / carve::kThreads);
-  carve_exact_kernel<<<blocks, carve::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  // the block: as many threads along x as a row needs, up to a warp; rows for the rest
+  const int groups = (dx + kX - 1) / kX;
+  int threads_x = 1;
+  while (threads_x < 32 && threads_x < groups) threads_x *= 2;
+  const dim3 block(threads_x, carve::kThreads / threads_x);
+  const int tiles_x = (groups + threads_x - 1) / threads_x;
+  const int tiles_y = (dy + static_cast<int>(block.y) - 1) / static_cast<int>(block.y);
+  const int64_t blocks = static_cast<int64_t>(tiles_x) * tiles_y * dz;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  carve_exact_kernel<<<static_cast<unsigned>(blocks), block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(depth), h, w, static_cast<const float*>(pose), fx, fy, cx, cy,
-      side, eps, invalid, dx, dy, static_cast<int>(n), static_cast<uint8_t*>(out));
+      side, eps, invalid, dx, dy, tiles_x, tiles_y, static_cast<uint8_t*>(out));
   return cudaGetLastError();
 }

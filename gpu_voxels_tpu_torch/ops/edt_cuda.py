@@ -15,6 +15,8 @@ Both read the grid in place.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..utils import kernels
@@ -60,3 +62,13 @@ def envelope_pass(g2: torch.Tensor, payload: torch.Tensor, axis: int = 1):
     kernels.check(err, "envelope_pass")
     launches["envelope_pass"] += 1
     return out_d, out_p
+
+
+def envelope_occupancy(n: int, c: int) -> dict:
+    """What the current CUDA device holds of the kernel that a pass over lines
+    of `n` positions with inner extent `c` launches (c == 1: the X pass):
+    resident warps per SM, registers per thread, static shared bytes per
+    block, local bytes per thread, threads per block."""
+    out = (ctypes.c_int * 5)()
+    kernels.check(kernels.library().gv_envelope_occupancy(n, c, ctypes.addressof(out)), "envelope_occupancy")
+    return dict(zip(("warps_per_sm", "registers", "shared_bytes", "local_bytes", "threads"), out))

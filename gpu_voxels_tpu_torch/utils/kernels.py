@@ -64,6 +64,8 @@ SIGNATURES = {
     ),
     # (g, pay, out_d, out_pay, A, n, C, stream)
     "gv_envelope_pass": (_P, _P, _P, _P, _I64, _I32, _I64, _P),
+    # (n, C, out: int[5] on the host)
+    "gv_envelope_occupancy": (_I32, _I64, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -102,6 +102,23 @@ def test_k3_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(3, 40, 30), (250, 64, 12), (1, 40, 70), (130, 33, 40)])
+def test_k3_ragged_rows_match_plain_on_card(cuda_device, dims):
+    """K3's row kernel where a row is no multiple of a thread's 8 voxels (the
+    last thread of a row stores bytes) and where dx is no multiple of 8, so
+    that rows start at addresses that are not 8-byte aligned (those rows
+    store bytes throughout). The wrapper allocates the mask itself and takes
+    no output view, so a misaligned row can only come from dx."""
+    carved = 0
+    for i, (depth, pose) in enumerate(_carve_scenes(cuda_device)):
+        got = raycast_cuda.projective_free_space_exact(depth, pose, 52.0, 52.0, 32.0, 24.0, 1.0, dims)
+        ref = raycast_cuda.projective_free_space_plain(depth, pose, 52.0, 52.0, 32.0, 24.0, 1.0, dims)
+        assert got.shape == (dims[0] * dims[1] * dims[2],) and torch.equal(got, ref), i
+        carved += int(got.sum())
+    assert carved > 0
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda_device):
     a = torch.zeros(100, dtype=torch.int8, device=cuda_device)
     with pytest.raises(ValueError):
@@ -240,24 +257,38 @@ def test_k6_matches_plain_on_card(cuda_device, pool):
     assert raycast_cuda.launches["projective_free_space_pooled"] == before + 6
 
 
+ENVELOPE_SHAPES = {
+    # (7 * 33 = 231 lines along Y, 910 along X: neither a multiple of a warp
+    # or a block; dx = 33 is no multiple of 32)
+    "ragged": (7, 130, 33),
+    "n1024-y": (4, 1024, 64),
+    "n1024-x": (4, 64, 1024),
+    "n1-y": (5, 1, 40),
+    "n1-x": (5, 40, 1),
+}
+
+
 def _envelope_grids(kind, device):
     """int32 g (MISS = no site) and payloads; small values make many ties."""
     rng = np.random.default_rng(5)
-    shape = (7, 130, 33) if kind == "ragged" else (6, 64, 40)
+    shape = ENVELOPE_SHAPES.get(kind, (6, 64, 40))
     g = rng.integers(0, 40, shape).astype(np.int32)
     if kind == "ties":
         g[:] = 0
         g[:, ::4, :] = edt_envelope.MISS
     elif kind == "empty":
         g[:] = edt_envelope.MISS
-    else:
+    elif kind == "dense-zero":  # every position a site, all at offset 0: the stack reaches depth n
+        g[:] = 0
+    elif kind not in ("dense", "n1-y", "n1-x"):  # those: every position a site
         g[rng.random(shape) < 0.9] = edt_envelope.MISS
     pay = rng.integers(0, 2**30, shape).astype(np.int32)
     return torch.tensor(g, device=device), torch.tensor(pay, device=device)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "ties", "empty", "ragged"])
+@pytest.mark.parametrize("kind", ["random", "ties", "empty", "ragged", "dense", "dense-zero", "n1024-y", "n1024-x",
+                                  "n1-y", "n1-x"])
 def test_k5_matches_plain_on_card(cuda_device, kind):
     """K5 equals the plain envelope on distances and payloads, along Y and X."""
     g, pay = _envelope_grids(kind, cuda_device)
@@ -268,6 +299,16 @@ def test_k5_matches_plain_on_card(cuda_device, kind):
         assert d.dtype == torch.int32 and torch.equal(d, ref_d) and torch.equal(p, ref_p), axis
     torch.cuda.synchronize()
     assert edt_cuda.launches["envelope_pass"] == before + 2
+
+
+@pytest.mark.cuda
+def test_k5_holds_16_warps_per_sm(cuda_device):
+    """Both arms of K5 at every stack size keep at least 16 warps on an SM."""
+    for n in (256, 512, 1024):
+        for c in (n, 1):
+            occ = edt_cuda.envelope_occupancy(n, c)
+            assert occ["warps_per_sm"] >= 16 and occ["local_bytes"] >= 8 * n, (n, c, occ)
+            assert (occ["shared_bytes"] == 0) == (c != 1), (n, c, occ)
 
 
 @pytest.mark.cuda

@@ -157,3 +157,79 @@ def test_point_cloud_and_ops_insert_depth_image():
         got = trc.insert_depth_image(torch.tensor(data), safe, pose, *INTR, 1.0, DIMS,
                                      cut_real_robot=True, robot_occupied_mask=torch.tensor(robot), carve_pool=pool)
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref), err_msg=f"carve_pool={pool}")
+
+
+def _kinect_frame():
+    """640x480 depth with step edges, noise and an invalid patch."""
+    rng = np.random.default_rng(0)
+    depth = np.full((480, 640), 4.0, np.float32)
+    depth[100:300, 200:450] = 2.5
+    depth[350:460, 50:250] = 1.8
+    depth += rng.normal(0, 0.003, depth.shape).astype(np.float32)
+    depth[20:60, 560:620] = 0.0
+    return depth
+
+
+def _row_kernel_order(depth, pose, fx, fy, cx, cy, side, dims, hoist_sum):
+    """The exact carve in the order of K3's row kernel (csrc/carve_exact.cu,
+    carve_projection.cuh): per (y, z) row the six products with wy and wz
+    once, per voxel the sums in the spec's order (r00 * wx + r01 * wy) +
+    r02 * wz. With `hoist_sum` the row's two products are added first,
+    r00 * wx + (r01 * wy + r02 * wz): the hoisting the kernel must not do."""
+    from gpu_voxels_tpu_torch.ops.insert import floor_to_int32
+
+    dx, dy, dz = dims
+    h, w = depth.shape
+    side = torch.tensor(np.float32(side))
+    rot_t, origin = pose[:3, :3].T, pose[:3, 3]
+    wy = (torch.arange(dy, dtype=torch.float32).view(1, dy, 1) + 0.5) * side - origin[1]
+    wz = (torch.arange(dz, dtype=torch.float32).view(dz, 1, 1) + 0.5) * side - origin[2]
+    row = [(rot_t[i, 1] * wy, rot_t[i, 2] * wz) for i in range(3)]  # each [*, dy, 1] x [dz, *, 1]
+    wx = (torch.arange(dx, dtype=torch.float32).view(1, 1, dx) + 0.5) * side - origin[0]
+    if hoist_sum:
+        sx, sy, sz = (rot_t[i, 0] * wx + (row[i][0] + row[i][1]) for i in range(3))
+    else:
+        sx, sy, sz = ((rot_t[i, 0] * wx + row[i][0]) + row[i][1] for i in range(3))
+    in_front = sz > 1e-6
+    safe_z = torch.where(in_front, sz, 1.0)
+    u = floor_to_int32(fx * sx / safe_z + cx)
+    v = floor_to_int32(fy * sy / safe_z + cy)
+    seen = in_front & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    d = depth.reshape(-1)[v.clamp(0, h - 1).to(torch.int64) * w + u.clamp(0, w - 1).to(torch.int64)]
+    eps = float(np.float32(1.0) * np.float32(side))
+    return (seen & (d != 0.0) & (sz < d - eps)).reshape(-1), (sx, sy, sz)
+
+
+def test_row_kernel_order_is_the_spec_bit_for_bit():
+    """K3's hoisting (row products once, per-voxel sums in the spec's order)
+    gives the spec's mask bit for bit at 64^3 over a 5.12 m cube under the
+    card smoke run's three poses. Hoisting a sum instead moves camera-frame
+    coordinates by an ulp in many voxels of the rotated poses, which is what
+    separates the two orders here; at 64^3 none of those ulps crosses a pixel
+    edge or the depth threshold, so these masks alone would not tell them
+    apart (at 256^3 on a card K3 is held to the spec's mask bit for bit)."""
+    from gpu_voxels_tpu_torch.geometry import transforms as ttf
+
+    bench = np.eye(4, dtype=np.float32)
+    bench[:3, 3] = [2.56, 2.56, 0.1]
+    poses = {
+        "bench": bench,
+        "tilted": ttf.from_rpy_np([0.3, -0.2, 0.1], [2.0, 2.8, 0.3]),
+        "inside": ttf.from_rpy_np([0.05, 0.1, 0.0], [2.56, 2.56, 2.56]),  # half the grid behind the camera
+    }
+    depth = torch.tensor(_kinect_frame())
+    intr, side = (525.0, 525.0, 320.0, 240.0), 0.08
+    moved = {}
+    for name, pose in poses.items():
+        pose = torch.tensor(np.asarray(pose, np.float32))
+        spec = trc.projective_free_space(depth, pose, *intr, side, DIMS)
+        got, coords = _row_kernel_order(depth, pose, *intr, side, DIMS, hoist_sum=False)
+        assert 0 < int(spec.sum()) < spec.numel(), name
+        assert torch.equal(got, spec), name
+        hoisted, hoisted_coords = _row_kernel_order(depth, pose, *intr, side, DIMS, hoist_sum=True)
+        moved[name] = (sum(int((a != b).sum()) for a, b in zip(coords, hoisted_coords)),
+                       int((hoisted != spec).sum()))
+    # the axis-aligned pose has one non-zero product per sum, so nothing can
+    # move there; under a rotation a hoisted sum rounds differently
+    assert moved["bench"] == (0, 0), moved
+    assert moved["tilted"][0] > 0 and moved["inside"][0] > 0, moved
