@@ -8,13 +8,18 @@ gpu_voxels_tpu_torch/csrc and gpu_voxels_tpu_torch/utils/kernels.py (for
 example a `git archive` of the parent commit unpacked into the git-ignored
 gpu_voxels_tpu_torch/_build/). Its kernels are built from its own sources
 into its own _build/ and bound through the C interface, which must be this
-tree's (the wrappers and everything above them are this tree's). For K5 per
+tree's (the wrappers and everything above them are this tree's), except
+that a library without the pool kernel (`gv_min_pool_depth`, trees before
+it) pools the frame in plain torch, as those trees' wrapper did; that branch
+of `use` has no use once every tree compared has the pool kernel. For K5 per
 pass at 512^3 (BASELINE #4's obstacles) and 256^3 (the fused camera map), K3
-and K6 at 256^3, BASELINE #4's exact EDT, the 256^3 camera -> distance field
-frame and the 256^3 fusion frame, the script checks that every library gives
-the same result, then times them with CUDA events in the order other, this,
-this, other and prints the mean of each pair. Needs one CUDA card and nvcc,
-like chip_smoke.py.
+at 256^3, K6 at 256^3 and P = 8 (its pool, its carve alone on a prebuilt
+table, and its whole wrapper), BASELINE #4's exact EDT, the 256^3 camera ->
+distance field frame and the 256^3 fusion frame, the script checks that
+every library gives the same result, then times them with CUDA events in the
+order other, this, this, other and prints the mean of each pair (for K6
+also the device-busy time from torch.profiler, `chip_smoke.device_ms`).
+Needs one CUDA card and nvcc, like chip_smoke.py.
 """
 from __future__ import annotations
 
@@ -40,6 +45,17 @@ def library_of(tree: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.library()
+
+
+def use(lib) -> None:
+    """Bind this tree's wrappers to `lib`; a library without the pool kernel
+    pools in plain torch, as its tree's wrapper did."""
+    kernels._lib = lib
+    has_pool = hasattr(lib, "gv_min_pool_depth")
+    raycast_cuda.min_pool_depth = POOL_KERNEL if has_pool else raycast_cuda.min_pool_depth_plain
+
+
+POOL_KERNEL = raycast_cuda.min_pool_depth
 
 
 def flat(result) -> list:
@@ -72,6 +88,7 @@ def main() -> int:
     depth = torch.as_tensor(cs.bench_frame(), device=dev)
     pose = torch.as_tensor(cs.carve_poses()["bench"], device=dev)
     carve_args = (depth, pose, *cs.INTR, cs.FUSION_SIDE, cs.FUSION_DIMS)
+    pooled = raycast_cuda.min_pool_depth_plain(depth, cs.POOL)  # the carve alone's table
 
     def camera_frame():
         pooled = fresh.insert_depth_image(frames[0], sensor, carve_pool=cs.POOL)
@@ -85,7 +102,10 @@ def main() -> int:
         workloads.append((f"K5 X pass, {label}", 10, lambda d2=d2, pay2=pay2: edt_cuda.envelope_pass(d2, pay2, 2)))
     workloads += [
         ("K3 exact carve, 256^3", 50, lambda: raycast_cuda.projective_free_space_exact(*carve_args)),
-        (f"K6 pooled carve P={cs.POOL}, 256^3", 50,
+        (f"K6 pool P={cs.POOL}, 640x480", 50, lambda: raycast_cuda.min_pool_depth(depth, cs.POOL)),
+        (f"K6 carve alone P={cs.POOL}, 256^3", 50,
+         lambda: raycast_cuda.carve_against_pooled(pooled, cs.POOL, depth.shape, *carve_args[1:])),
+        (f"K6 pooled carve P={cs.POOL}, 256^3 (pool and carve)", 50,
          lambda: raycast_cuda.projective_free_space_pooled(*carve_args, pool=cs.POOL)),
         ("BASELINE #4 exact EDT at 512^3", 5, obstacles.parallel_banding),
         ("256^3 camera -> distance field frame", 10, camera_frame),
@@ -93,22 +113,27 @@ def main() -> int:
     ]
 
     for name, iters, fn in workloads:
-        results, times = {}, {key: [] for key in libs}
+        results = {}
         for key, lib in libs.items():
-            kernels._lib = lib
+            use(lib)
             results[key] = flat(fn())
         for key in libs:
             same = all(torch.equal(x, y) for x, y in zip(results[key], results["this"]))
             assert same, f"{name}: the kernels of {key} and of this tree disagree"
         del results
         others = [key for key in libs if key != "this"]
-        for key in others + ["this", "this"] + others[::-1]:
-            kernels._lib = libs[key]
-            times[key].append(cs.time_ms(fn, iters))
-        kernels._lib = libs["this"]
-        cells = "; ".join(f"{key} {sum(ts) / len(ts):.4f} ms ({', '.join(f'{t:.4f}' for t in ts)})"
-                          for key, ts in times.items())
-        print(f"{name}: {cells}; results equal  [{smi}]", flush=True)
+        # K6's pool is microseconds of device work under the wrappers' host
+        # time, so its workloads also report the profiler's device time
+        clocks = [("", cs.time_ms)] + ([("device ", cs.device_ms)] if name.startswith("K6") else [])
+        for label, clock in clocks:
+            times = {key: [] for key in libs}
+            for key in others + ["this", "this"] + others[::-1]:
+                use(libs[key])
+                times[key].append(clock(fn, iters))
+            use(libs["this"])
+            cells = "; ".join(f"{key} {label}{sum(ts) / len(ts):.4f} ms ({', '.join(f'{t:.4f}' for t in ts)})"
+                              for key, ts in times.items())
+            print(f"{name}: {cells}; results equal  [{smi}]", flush=True)
     return 0
 
 

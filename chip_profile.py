@@ -9,13 +9,15 @@ the 256^3 fusion of one 640x480 frame, the UR10 64-step swept volume with
 its types collide, BASELINE #4's exact EDT at 512^3, the 256^3 camera ->
 distance field frame, the schedule fitter's ordering search and one
 deconflict_slot on the two-UR10 scene at 256^3, and one DDA
-insert_sensor_data frame) it prints the time per iteration from CUDA events
-(unprofiled), the device-busy time per iteration (the sum of the device
-rows of `key_averages()`: kernels, memsets and copies), the device's idle
-share, and the device rows that take the most time. Last, for the carve and
-envelope kernels (K3, K6, K5), what the compiler made of each: registers per
-thread (ptxas) and the static count of SASS operations (cuobjdump, where
-the toolkit has it). Needs one CUDA card and nvcc, like chip_smoke.py.
+insert_sensor_data frame), and for K6 alone at 256^3 and P = 8 (its pool
+kernel, then its carve kernel), it prints the time per iteration from CUDA
+events (unprofiled), the device-busy time per iteration (the sum of the
+device rows of `key_averages()`: kernels, memsets and copies), the device's
+idle share, and the device rows that take the most time. Last, for the carve
+and envelope kernels (K3, K6 and its pool, K5), what the compiler made of
+each: registers per thread (ptxas) and the static count of SASS operations
+(cuobjdump, where the toolkit has it). Needs one CUDA card and nvcc, like
+chip_smoke.py.
 """
 from __future__ import annotations
 
@@ -26,13 +28,12 @@ import sys
 import tempfile
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 from gpu_voxels_tpu_torch.geometry import generation
 from gpu_voxels_tpu_torch.maps.distance_map import DistanceVoxelMap
 from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+from gpu_voxels_tpu_torch.ops import raycast_cuda
 from gpu_voxels_tpu_torch.robot.fitter import deconflict_slot, fit_orderings
 from gpu_voxels_tpu_torch.robot.swept_volume import insert_swept_volume_batched
 from gpu_voxels_tpu_torch.sensors import SyntheticDepthSource
@@ -44,18 +45,12 @@ TOP = 8
 
 def breakdown(name: str, fn, smi: str, iters: int = ITERS) -> None:
     wall_ms = cs.time_ms(fn, iters)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    rows = sorted(cs.device_rows(fn, iters), key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / iters
     print(f"{name}: {wall_ms:.4f} ms per iteration (CUDA events), device busy {busy_ms:.4f} ms, "
           f"idle share {1.0 - busy_ms / wall_ms:.3f}  [{smi}]", flush=True)
     for e in rows[:TOP]:
-        print(f"    {e.self_device_time_total / 1e3 / iters:9.4f} ms  x{e.count // iters:<4d} {e.key[:90]}", flush=True)
+        print(f"    {e.self_device_time_total / 1e3 / iters:9.4f} ms  x{e.count / iters:<5.2f} {e.key[:90]}", flush=True)
 
 
 def static_counts() -> None:
@@ -130,6 +125,11 @@ def main() -> int:
 
     breakdown("BASELINE #4 exact EDT at 512^3 (20,000 obstacles)", obstacles.parallel_banding, smi)
     breakdown("256^3 camera -> distance field frame (pooled carve, merge, EDT)", camera_frame, smi)
+    depth = torch.as_tensor(cs.bench_frame(), device=dev)
+    pose = torch.as_tensor(cs.carve_poses()["bench"], device=dev)
+    breakdown(f"K6 at 256^3, P = {cs.POOL}: the pool kernel, then the carve kernel",
+              lambda: raycast_cuda.projective_free_space_pooled(depth, pose, *cs.INTR, cs.FUSION_SIDE, cs.FUSION_DIMS,
+                                                                pool=cs.POOL), smi, iters=50)
     static_counts()
     return 0
 

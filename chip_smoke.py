@@ -19,9 +19,15 @@ non-zero and prints no result. Phases, each an assert or an exception:
    K5 (the EDT's min-plus envelope) at 256^3 along Y and X on random, empty,
    single-site, 50 %-dense, ragged (250x200x130), tie and dense g = 0
    fixtures, lines of 1,024 and of 1 position, on distances and payloads,
-   and at least 16 resident warps per SM in both passes; K6 (pooled carve)
-   at 256^3 under the 3 poses at
-   P in {4, 8}, and its mask inside K3's; K7 (bit x bit plane-fold count)
+   and at least 16 resident warps per SM in both passes; K6's pool kernel
+   against the plain min-pool, bit pattern for bit pattern (NaN equal to
+   NaN), and its carve (pool, then carve) bit for bit against the plain
+   pooled carve and inside K3's mask, at 256^3 under the 3 poses at
+   P in {2, 4, 7, 8} (P = 7 divides neither 640 nor 480), on a ragged
+   grid (dx = 250), a frame cropped to 479x638,
+   a frame with NaN, -inf and +inf pixels and an invalid patch, and an
+   axis-aligned pose whose voxel centres project exactly onto pooled-cell
+   edges and the image's edges; K7 (bit x bit plane-fold count)
    on dense-random and sparse 256^3 plane stacks (with a voxel whose only
    set bit is eBVM_FREE on either side, which must not count, and voxels
    set only in plane 7's bit 31, which must) over the offsets, a length
@@ -31,7 +37,7 @@ non-zero and prints no result. Phases, each an assert or an exception:
    sync debug mode set to raise (the paths never wait for the device), each
    driven with every launch count set to 0 just before it and read just
    after; each kernel of a path must have launched in it:
-   - the sense -> insert -> collide path (K1, K2, K3): the facade linkage
+   - the sense -> insert -> collide path (K1, K2, K3, K6): the facade linkage
      scene (count == 8000), Kinect fusion (5 frames of 640x480 into 256^3),
      a transformed sphere robot collided with the fused and a box
      environment, the 512^3 insert -> collide cycle with a marking
@@ -68,14 +74,17 @@ non-zero and prints no result. Phases, each an assert or an exception:
    a brute-force minimum over the obstacles at 4,096 sampled voxels;
 4. times with CUDA events (printed, never asserted): each kernel beside its
    plain version (K5 per pass at 512^3 and 256^3, with the share of
-   positions that hold a site), the 512^3 cycle rate, the 256^3 fusion rate, the 64-step swept
+   positions that hold a site; K6 at P = 8 as its pool, its carve alone on a
+   prebuilt table and the two in turn; the pool, a few microseconds of
+   device work under its wrapper's host time, by torch.profiler's device
+   time), the 512^3 cycle rate, the 256^3 fusion rate, the 64-step swept
    insert + types collide per trajectory, the 512^3 EDT, the 256^3
    camera -> distance field frame, K7 at 256^3 (both load widths) and
    512^3, the fitter's ordering search and one deconflict_slot, and one DDA
    insert_sensor_data frame.
 
 Output: progress lines, the card's `name, power.limit` line, one JSON line
-{"kernels": [...]} (each kernel with its launches on its path, its largest
+{"kernels": [...]} (each kernel with its launches on the paths, its largest
 error against the plain version, its time, the plain version's time, the
 least time the card could take for the same work and what bounds it), and
 as the last line
@@ -95,6 +104,8 @@ from dataclasses import replace
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from gpu_voxels_tpu_torch import bitops, converters
 from gpu_voxels_tpu_torch.api import GpuVoxels
@@ -102,7 +113,7 @@ from gpu_voxels_tpu_torch.constants import SV_START, BitVoxelMeaning, MapType
 from gpu_voxels_tpu_torch.geometry import generation, transforms
 from gpu_voxels_tpu_torch.maps.distance_map import DistanceVoxelMap
 from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
-from gpu_voxels_tpu_torch.ops import collide_cuda, edt, edt_cuda, edt_envelope, raycast_cuda
+from gpu_voxels_tpu_torch.ops import collide_cuda, edt, edt_cuda, edt_envelope, raycast, raycast_cuda
 from gpu_voxels_tpu_torch.providers import Provider
 from gpu_voxels_tpu_torch.robot.dh import DHParameters
 from gpu_voxels_tpu_torch.robot.fitter import deconflict_slot, fit_orderings, fit_schedule
@@ -172,6 +183,15 @@ wrist_3_joint        0.0   0.0
 """),
 }
 POOL = 8  # the reference's fast camera configuration (gpu_voxels_tpu/ops/raycast.py:202-208)
+K6_POOLS = (2, 4, 7, POOL)
+# an axis-aligned camera at the centre of a grid's z = 0 face, 0.25 m voxels,
+# whose voxel centres project exactly onto pixel edges: with c = dx / 2,
+# wx = (x - c) * 0.25 and sz = z * 0.25 hold exactly, so u = 320 + 840 *
+# (x - c) / z (v likewise) is an integer wherever z divides 840 * (x - c):
+# onto pooled-cell edges (u, v in P * Z) and onto the image's edges (for
+# z = 21, u = 0 at x = c - 8 and u = 640 at x = c + 8; for z = 7, v = 0 at
+# y = c - 2 and v = 480 at y = c + 2)
+EDGE_INTR, EDGE_SIDE = (840.0, 840.0, 320.0, 240.0), 0.25
 # H100 SXM data sheet: HBM rate and the f32 rate
 # outside the tensor cores, which the integer and f32 ops here are held to
 HBM_BYTES_PER_S = 3.35e12
@@ -191,6 +211,10 @@ KERNELS = [
      "gpu_voxels_tpu/ops/edt_envelope.py:130"),
     ("projective_free_space_pooled", raycast_cuda, "gpu_voxels_tpu_torch/csrc/carve_pooled.cu",
      "gpu_voxels_tpu/ops/raycast_pallas.py:435"),
+    # K6's table: XLA in the reference (min_pool_depth, built before the
+    # Pallas call at raycast_pallas.py:552), a kernel of its own here
+    ("min_pool_depth", raycast_cuda, "gpu_voxels_tpu_torch/csrc/carve_pooled.cu",
+     "gpu_voxels_tpu/ops/raycast_pallas.py:79"),
     ("count_bit_bit", collide_cuda, "gpu_voxels_tpu_torch/csrc/collide_bits.cu",
      "gpu_voxels_tpu/ops/collide_pallas.py:92"),
 ]
@@ -417,21 +441,86 @@ def check_k5(dev: torch.device, g: torch.Generator, err: dict) -> None:
             f"({found} of {d.numel()} voxels reach a site)")
 
 
+def k6_frames() -> dict:
+    """K6's depth frames: the bench frame, one cropped to 479x638 (neither
+    side a multiple of 2, 4, 7 or 8), and one with NaN, -inf and +inf pixels
+    beside its invalid patch (a pooled cell with a NaN pixel is NaN and
+    carves nothing; a cell of +inf pixels carves up to the frame)."""
+    bench = bench_frame()
+    special = bench_frame(seed=3)
+    rng = np.random.default_rng(3)
+    for value, share in ((np.nan, 0.002), (-np.inf, 0.002), (np.inf, 0.01)):
+        special[rng.random(special.shape) < share] = value
+    special[400:416, 560:576] = np.inf  # four whole cells at P = 8
+    special[200:203, 100:140] = np.nan  # a NaN band across cells
+    return {"bench": bench, "cropped": np.ascontiguousarray(bench[:479, :638]), "special": special}
+
+
+def edge_pose(dims) -> np.ndarray:
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [(dims[0] // 2 + 0.5) * EDGE_SIDE, (dims[1] // 2 + 0.5) * EDGE_SIDE, EDGE_SIDE / 2]
+    return pose
+
+
 def check_k6(dev: torch.device, err: dict) -> None:
-    depth = torch.as_tensor(bench_frame(), device=dev)
-    for name, pose in carve_poses().items():
-        p = torch.as_tensor(pose, device=dev)
-        args = (depth, p, *INTR, FUSION_SIDE, FUSION_DIMS)
+    frames = {name: torch.as_tensor(f, device=dev) for name, f in k6_frames().items()}
+    for name, depth in frames.items():
+        for pool in (1,) + K6_POOLS:
+            got = raycast_cuda.min_pool_depth(depth, pool)
+            ref = raycast_cuda.min_pool_depth_plain(depth, pool)
+            same = got.shape == ref.shape and torch.equal(got.view(torch.int32), ref.view(torch.int32))
+            err["min_pool_depth"] = max(err["min_pool_depth"], int(not same))
+            assert same, (name, pool)
+        log(f"  K6 pool {name} {tuple(depth.shape)} P in {(1,) + K6_POOLS}: pooled tables equal to plain bit "
+            f"pattern for bit pattern ({int(torch.isnan(ref).sum())} NaN cells at P = {pool})")
+    poses = {name: torch.as_tensor(p, device=dev) for name, p in carve_poses().items()}
+    # (label, frame, pose, intrinsics, side, dims)
+    cases = [(f"pose={name}", "bench", name, INTR, FUSION_SIDE, FUSION_DIMS) for name in poses]
+    cases += [("pose=inside dx=250", "bench", "inside", INTR, FUSION_SIDE, (K5_RAGGED[0], *FUSION_DIMS[1:])),
+              ("pose=tilted frame 479x638", "cropped", "tilted", INTR, FUSION_SIDE, FUSION_DIMS),
+              ("pose=bench NaN/inf frame", "special", "bench", INTR, FUSION_SIDE, FUSION_DIMS)]
+    poses["edge"] = torch.as_tensor(edge_pose(FUSION_DIMS), device=dev)
+    frames["edge"] = frames["bench"] * 8.0  # 32, 20 and 14.4 m planes: the 64 m grid carves
+    cases.append(("edge-aligned pose", "edge", "edge", EDGE_INTR, EDGE_SIDE, FUSION_DIMS))
+    for label, frame, pose, intr, side, dims in cases:
+        args = (frames[frame], poses[pose], *intr, side, dims)
         exact = raycast_cuda.projective_free_space_exact(*args)
-        for pool in (4, POOL):
+        for pool in K6_POOLS:
             got = raycast_cuda.projective_free_space_pooled(*args, pool=pool)
             ref = raycast_cuda.projective_free_space_pooled_plain(*args, pool=pool)
             diff = int((got != ref).sum())
             err["projective_free_space_pooled"] = max(err["projective_free_space_pooled"], int(diff > 0))
             outside = int((got & ~exact).sum())
-            assert diff == 0 and outside == 0 and int(got.sum()) > 0, (name, pool, diff, outside)
-            log(f"  K6 pose={name} P={pool}: {int(got.sum())} free voxels (exact carve {int(exact.sum())}), "
-                f"mask equal to plain bit for bit and inside K3's")
+            assert diff == 0 and outside == 0 and int(got.sum()) > 0, (label, pool, diff, outside)
+            log(f"  K6 {label} dims={dims} P={pool}: {int(got.sum())} free voxels (exact carve "
+                f"{int(exact.sum())}), mask equal to plain bit for bit and inside K3's")
+    # the edge-aligned pose really meets the edges it is there for
+    on_edge = edge_projections(dev)
+    assert all(v > 0 for v in on_edge.values()), on_edge
+    log(f"  K6 edge-aligned pose: voxel centres in view projecting exactly onto {on_edge}")
+
+
+def edge_projections(dev: torch.device) -> dict:
+    """How many in-front voxel centres of the edge-aligned pose project exactly
+    onto a pooled-cell corner at each P (u and v both in P * Z, inside the
+    image) and onto each edge of the image (u = 640 and v = 480 lie just
+    outside it)."""
+    dx, dy, dz = FUSION_DIMS
+    h, w = bench_frame().shape
+    fx, fy = (int(f) for f in EDGE_INTR[:2])
+    _, u, v, _ = raycast._project(dev, torch.as_tensor(edge_pose(FUSION_DIMS), device=dev), *EDGE_INTR, EDGE_SIDE,
+                                  FUSION_DIMS, h, w)
+    u, v = u.reshape(-1), v.reshape(-1)
+    x = torch.arange(dx, device=dev).view(1, 1, dx) - dx // 2
+    y = torch.arange(dy, device=dev).view(1, dy, 1) - dy // 2
+    z = torch.arange(dz, device=dev).view(dz, 1, 1)
+    # u and v integers in exact arithmetic, in front of the camera
+    on_pixel = ((z > 0) & (fx * x % z.clamp(min=1) == 0) & (fy * y % z.clamp(min=1) == 0)).reshape(-1)
+    inside = (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    counts = {f"cell corners P={p}": int((on_pixel & inside & (u % p == 0) & (v % p == 0)).sum()) for p in K6_POOLS}
+    for name, hit in (("u = 0", u == 0), (f"u = {w}", u == w), ("v = 0", v == 0), (f"v = {h}", v == h)):
+        counts[name] = int((on_pixel & hit).sum())
+    return counts
 
 
 def dense_bits(dev: torch.device, n: int, g: torch.Generator) -> torch.Tensor:
@@ -474,6 +563,7 @@ def plain_route():
         (collide_cuda, "collide_types_bit_bit"): collide_cuda.collide_types_bit_bit_plain,
         (edt_cuda, "envelope_pass"): edt_cuda.envelope_pass_plain,
         (raycast_cuda, "projective_free_space_pooled"): raycast_cuda.projective_free_space_pooled_plain,
+        (raycast_cuda, "min_pool_depth"): raycast_cuda.min_pool_depth_plain,
         (collide_cuda, "count_bit_bit"): collide_cuda.count_bit_bit_plain,
     }
     assert {(m, n) for n, m, *_ in KERNELS} == set(plain)
@@ -812,7 +902,8 @@ def check_distance_path(dist: dict, plain: dict, dev: torch.device) -> None:
 def drive(path, kernel_names, *args) -> tuple[dict, dict]:
     """Run one path with every launch count at 0 and the sync debug mode
     raising (counts stay device tensors: the path must never make the host
-    wait for the device); return its outputs and its kernels' launches."""
+    wait for the device); return its outputs and every kernel's launches in
+    it. Each kernel of `kernel_names` must have launched."""
     for name, module, *_ in KERNELS:
         module.launches[name] = 0
     torch.cuda.set_sync_debug_mode("error")
@@ -821,11 +912,16 @@ def drive(path, kernel_names, *args) -> tuple[dict, dict]:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    launches = {name: module.launches[name] for name, module, *_ in KERNELS if name in kernel_names}
-    log(f"  launches on the path: {launches}")
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} was not launched on its path"
+    launches = {name: module.launches[name] for name, module, *_ in KERNELS}
+    log(f"  launches on the path: { {name: count for name, count in launches.items() if count} }")
+    for name in kernel_names:
+        assert launches[name] > 0, f"kernel {name} was not launched on its path"
     return out, launches
+
+
+def add_launches(total: dict, path: dict) -> None:
+    for name, count in path.items():
+        total[name] = total.get(name, 0) + count
 
 
 def same_map(x, y) -> bool:
@@ -838,8 +934,9 @@ def same_types(x, y) -> bool:
 
 
 def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict]:
-    log("  sense -> insert -> collide (K1, K2, K3)")
-    out, launches = drive(main_path, {"count_prob_prob", "count_and_mark_prob", "projective_free_space_exact"}, dev)
+    log("  sense -> insert -> collide (K1, K2, K3, K6 through the pooled Provider)")
+    out, launches = drive(main_path, {"count_prob_prob", "count_and_mark_prob", "projective_free_space_exact",
+                                      "projective_free_space_pooled", "min_pool_depth"}, dev)
 
     assert int(out["linkage"]) == 8000, int(out["linkage"])
     log(f"  (a) facade linkage scene: count {int(out['linkage'])} == 8000")
@@ -857,13 +954,14 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict]:
 
     log("  robot -> swept volume -> types collide (K4)")
     robot, robot_launches = drive(robot_path, {"collide_types_bit_bit"}, dev, out["env"])
-    launches.update(robot_launches)
+    add_launches(launches, robot_launches)
     check_robot_path(robot)
 
     log("  camera -> distance field (K5, K6)")
     dist_args = (dev, out["frames"], robot["placed"], robot["cfgs"])
-    dist, dist_launches = drive(distance_path, {"envelope_pass", "projective_free_space_pooled"}, *dist_args)
-    launches.update(dist_launches)
+    dist, dist_launches = drive(distance_path, {"envelope_pass", "projective_free_space_pooled", "min_pool_depth"},
+                                *dist_args)
+    add_launches(launches, dist_launches)
     with plain_route():
         plain_dist = distance_path(*dist_args)
     check_distance_path(dist, plain_dist, dev)
@@ -872,8 +970,7 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict]:
     log("  .traj files -> swept volumes -> raw-plane collides -> schedule fitter (K7, K4)")
     fit_args = (dev, robot["sweep"], robot["env"])
     fit, fit_launches = drive(fitter_path, {"count_bit_bit", "collide_types_bit_bit"}, *fit_args)
-    launches["count_bit_bit"] = fit_launches["count_bit_bit"]
-    log(f"  K4 launched {fit_launches['collide_types_bit_bit']} times on this path")
+    add_launches(launches, fit_launches)
     with plain_route():
         plain_fit = fitter_path(*fit_args)
     check_fitter_path(fit, plain_fit)
@@ -973,6 +1070,26 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_rows(fn, iters: int) -> list:
+    """torch.profiler's device rows (kernels, memsets, copies) over `iters`
+    calls of fn, after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, iters: int) -> float:
+    """The device's busy time per call of fn. Where the host takes longer to
+    issue a call than the device takes to run it, CUDA events over
+    back-to-back calls time the host; this does not."""
+    return sum(e.self_device_time_total for e in device_rows(fn, iters)) / 1e3 / iters
 
 
 def in_turns(kernel, plain, iters: int) -> tuple[float, float]:
@@ -1139,16 +1256,35 @@ def timings(dev: torch.device, smi: str, out: dict, robot: dict, dist: dict, fit
     t["envelope_pass"] = time_k5(smi, obstacles.data, EDT_DIMS, plain=True)
     bounds["envelope_pass"] = bound(16 * obstacles.voxelmap_size, 0)
     time_k5(smi, dist["merged"].data, FUSION_DIMS, plain=True)
-    # K6: as K3, the mask write and 33 f32 ops per voxel, plus the frame's pooling
+    # K6 at P = 8: the pool reads the frame once and writes the table, with
+    # 3 ops per pixel (the invalid test, its select, the min); the carve is
+    # K3's projection (33 f32 ops per voxel) against the table and writes the
+    # mask; the wrapper is the two in turn (its table is internal)
+    carve_args = (pose, *INTR, FUSION_SIDE, FUSION_DIMS)
+    pool, pool_plain = (lambda: raycast_cuda.min_pool_depth(depth, POOL),
+                        lambda: raycast_cuda.min_pool_depth_plain(depth, POOL))
+    # the pool's few microseconds are less than the wrapper's host time:
+    # its kernel time is the profiler's device time, the events time the host
+    pool_events = in_turns(pool, pool_plain, 50)
+    t["min_pool_depth"] = device_ms(pool, 50), device_ms(pool_plain, 50)
+    table = raycast_cuda.min_pool_depth(depth, POOL)
+    bounds["min_pool_depth"] = bound(depth.numel() * 4 + table.numel() * 4, 3 * depth.numel())
+    carve_alone = in_turns(
+        lambda: raycast_cuda.carve_against_pooled(table, POOL, depth.shape, *carve_args),
+        lambda: raycast_cuda.carve_against_pooled_plain(table, POOL, depth.shape, *carve_args), 30)
+    carve_bound = bound(nf + table.numel() * 4 + 64, 33 * nf)
     t["projective_free_space_pooled"] = in_turns(
-        lambda: raycast_cuda.projective_free_space_pooled(depth, pose, *INTR, FUSION_SIDE, FUSION_DIMS, pool=POOL),
-        lambda: raycast_cuda.projective_free_space_pooled_plain(depth, pose, *INTR, FUSION_SIDE, FUSION_DIMS,
-                                                                pool=POOL), 30)
-    bounds["projective_free_space_pooled"] = bound(nf + depth.numel() * 4 + 64, 33 * nf)
-    for name in ("envelope_pass", "projective_free_space_pooled"):
+        lambda: raycast_cuda.projective_free_space_pooled(depth, *carve_args, pool=POOL),
+        lambda: raycast_cuda.projective_free_space_pooled_plain(depth, *carve_args, pool=POOL), 30)
+    bounds["projective_free_space_pooled"] = bound(nf + depth.numel() * 4 + 64, 33 * nf + 3 * depth.numel())
+    for name in ("envelope_pass", "min_pool_depth", "projective_free_space_pooled"):
         k, p = t[name]
         log(f"  {name}: kernel {k:.4f} ms, plain torch {p:.4f} ms, bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]})  [{smi}]")
+    log(f"  min_pool_depth by CUDA events over back-to-back calls (the host's time per call): kernel "
+        f"{pool_events[0]:.4f} ms, plain torch {pool_events[1]:.4f} ms  [{smi}]")
+    log(f"  K6 carve alone on a prebuilt P={POOL} table: kernel {carve_alone[0]:.4f} ms, plain torch "
+        f"{carve_alone[1]:.4f} ms, bound {carve_bound[0]:.4f} ms ({carve_bound[1]})  [{smi}]")
 
     edt_ms = time_ms(lambda: obstacles.parallel_banding(), 5)
     log(f"  BASELINE #4 exact EDT at 512^3 (20,000 obstacles): {edt_ms:.4f} ms  [{smi}]")
@@ -1197,7 +1333,8 @@ def main() -> int:
          "ms": t[name][0], "plain_ms": t[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          # no single PyTorch call computes any of these functions: K1/K2 are
          # a compare-and-count, K3 and K6 projective carves, K4 a windowed bit
-         # collide, K5 a min-plus envelope, K7 a fold-and-count (>= 10 calls)
+         # collide, K5 a min-plus envelope, K7 a fold-and-count (>= 10 calls),
+         # K6's pool a select then a min over a padded frame
          "library_ms": None}
         for name, _module, source, replaces in KERNELS
     ]}

@@ -46,36 +46,24 @@
 
 namespace {
 
-constexpr int kX = 8;  // voxels per thread, along x: one 8-byte store
-
 __global__ void __launch_bounds__(carve::kThreads)
 carve_exact_kernel(const float* __restrict__ depth, int h, int w, const float* __restrict__ pose,
                    float fx, float fy, float cx, float cy, float side, float eps, float invalid,
                    int dx, int dy, int tiles_x, int tiles_y, uint8_t* __restrict__ out) {
-  // a block is blockDim.y rows of blockDim.x threads; blockIdx.x = (z, y tile, x tile)
-  const int tile_x = blockIdx.x % tiles_x;
-  const int tile_y = (blockIdx.x / tiles_x) % tiles_y;
-  const int z = blockIdx.x / tiles_x / tiles_y;
-  const int x0 = (tile_x * blockDim.x + threadIdx.x) * kX;
-  const int y = tile_y * blockDim.y + threadIdx.y;
-  if (x0 >= dx || y >= dy) return;
-  const carve::Row row = carve::project_row(pose, side, y, z);
+  const carve::RowThread t = carve::row_thread(tiles_x, tiles_y);
+  if (t.x0 >= dx || t.y >= dy) return;
+  const carve::Row row = carve::project_row(pose, side, t.y, t.z);
   uint64_t carved = 0;  // byte i: voxel x0 + i
 #pragma unroll
-  for (int i = 0; i < kX; ++i) {
-    if (x0 + i >= dx) break;
-    const carve::Projection p = carve::project_x(row, fx, fy, cx, cy, h, w, x0 + i);
+  for (int i = 0; i < carve::kX; ++i) {
+    if (t.x0 + i >= dx) break;
+    const carve::Projection p = carve::project_x(row, fx, fy, cx, cy, h, w, t.x0 + i);
     if (p.seen) {
       const float d = __ldg(depth + static_cast<int64_t>(p.v) * w + p.u);
       if ((d != invalid) && (p.sz < __fsub_rn(d, eps))) carved |= 1ull << (8 * i);
     }
   }
-  uint8_t* dst = out + (static_cast<int64_t>(z) * dy + y) * dx + x0;
-  if (x0 + kX <= dx && reinterpret_cast<uintptr_t>(dst) % kX == 0) {
-    *reinterpret_cast<uint64_t*>(dst) = carved;
-  } else {
-    for (int i = 0; i < kX && x0 + i < dx; ++i) dst[i] = (carved >> (8 * i)) & 1u;
-  }
+  carve::store_row(out, carved, t, dx, dy);
 }
 
 }  // namespace
@@ -87,17 +75,10 @@ extern "C" int gv_carve_exact(const void* depth, int h, int w, const void* pose,
   const int64_t n = static_cast<int64_t>(dx) * dy * dz;
   if (n <= 0) return cudaGetLastError();
   if (n > INT32_MAX) return cudaErrorInvalidValue;
-  // the block: as many threads along x as a row needs, up to a warp; rows for the rest
-  const int groups = (dx + kX - 1) / kX;
-  int threads_x = 1;
-  while (threads_x < 32 && threads_x < groups) threads_x *= 2;
-  const dim3 block(threads_x, carve::kThreads / threads_x);
-  const int tiles_x = (groups + threads_x - 1) / threads_x;
-  const int tiles_y = (dy + static_cast<int>(block.y) - 1) / static_cast<int>(block.y);
-  const int64_t blocks = static_cast<int64_t>(tiles_x) * tiles_y * dz;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  carve_exact_kernel<<<static_cast<unsigned>(blocks), block, 0, static_cast<cudaStream_t>(stream)>>>(
+  const carve::RowGrid g = carve::row_grid(dx, dy, dz);
+  if (g.blocks > INT_MAX) return cudaErrorInvalidValue;
+  carve_exact_kernel<<<static_cast<unsigned>(g.blocks), g.block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(depth), h, w, static_cast<const float*>(pose), fx, fy, cx, cy,
-      side, eps, invalid, dx, dy, tiles_x, tiles_y, static_cast<uint8_t*>(out));
+      side, eps, invalid, dx, dy, g.tiles_x, g.tiles_y, static_cast<uint8_t*>(out));
   return cudaGetLastError();
 }

@@ -15,16 +15,21 @@
 // (y, z) row share: the pose's x column and origin and the six products
 // r.1 * wy, r.2 * wz. project_x() adds what depends on x. Only products are
 // shared, each rounded on its own as before; every sum is taken per voxel in
-// the spec's order, so project_x(project_row(y, z), x) is project(x, y, z)
-// bit for bit. A kernel whose threads walk along x (K3) calls project_row()
-// once per thread; project() serves a kernel with one voxel per thread (K6).
+// the spec's order, so project_x(project_row(y, z), x) is the spec's
+// projection of voxel (x, y, z) bit for bit. The carve kernels are row kernels: a thread takes kX
+// consecutive x of one (y, z) row (row_grid, row_thread), calls project_row()
+// once and project_x() per voxel, and stores its kX results as one kX-byte
+// store where the row's address allows (store_row).
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace carve {
 
 constexpr int kThreads = 256;
+constexpr int kX = 8;  // voxels per thread, along x: one 8-byte store
 constexpr float kIntClamp = 1073741824.0f;  // 2^30
 
 // floor, clamped to +-2^30, NaN -> 0: the spec's (and XLA's) int conversion
@@ -89,10 +94,55 @@ __device__ __forceinline__ Projection project_x(const Row& r, float fx, float fy
   return p;
 }
 
-// The camera-frame depth and the pixel of the centre of voxel (x, y, z).
-__device__ __forceinline__ Projection project(const float* __restrict__ pose, float fx, float fy, float cx,
-                                              float cy, float side, int h, int w, int x, int y, int z) {
-  return project_x(project_row(pose, side, y, z), fx, fy, cx, cy, h, w, x);
+// The row kernels' launch: a block is blockDim.y rows of blockDim.x threads,
+// as many threads along x as a row needs, up to a warp; blockIdx.x is
+// (z, y tile, x tile), x tile fastest.
+struct RowGrid {
+  dim3 block;
+  int tiles_x, tiles_y;
+  int64_t blocks;
+};
+
+inline RowGrid row_grid(int dx, int dy, int dz) {
+  const int groups = (dx + kX - 1) / kX;
+  int threads_x = 1;
+  while (threads_x < 32 && threads_x < groups) threads_x *= 2;
+  RowGrid g;
+  g.block = dim3(threads_x, kThreads / threads_x);
+  g.tiles_x = (groups + threads_x - 1) / threads_x;
+  g.tiles_y = (dy + static_cast<int>(g.block.y) - 1) / static_cast<int>(g.block.y);
+  g.blocks = static_cast<int64_t>(g.tiles_x) * g.tiles_y * dz;
+  return g;
+}
+
+// This thread's row (y, z) and its first voxel x0, from the block and thread
+// indices of row_grid's launch: no division per voxel.
+struct RowThread {
+  int x0, y, z;
+};
+
+__device__ __forceinline__ RowThread row_thread(int tiles_x, int tiles_y) {
+  const int tile_x = blockIdx.x % tiles_x;
+  const int tile_y = (blockIdx.x / tiles_x) % tiles_y;
+  RowThread t;
+  t.z = blockIdx.x / tiles_x / tiles_y;
+  t.x0 = (tile_x * blockDim.x + threadIdx.x) * kX;
+  t.y = tile_y * blockDim.y + threadIdx.y;
+  return t;
+}
+
+// Byte i of `carved` (0 or 1) to voxel x0 + i of the thread's row of a
+// [dz, dy, dx] mask: one kX-byte store where the row's address allows (dx a
+// multiple of 8), bytes where it does not or where the row ends inside the
+// thread's kX voxels.
+__device__ __forceinline__ void store_row(uint8_t* __restrict__ out, uint64_t carved, const RowThread& t, int dx,
+                                          int dy) {
+  uint8_t* dst = out + (static_cast<int64_t>(t.z) * dy + t.y) * dx + t.x0;
+  if (t.x0 + kX <= dx && reinterpret_cast<uintptr_t>(dst) % kX == 0) {
+    *reinterpret_cast<uint64_t*>(dst) = carved;
+  } else {
+    for (int i = 0; i < kX && t.x0 + i < dx; ++i) dst[i] = (carved >> (8 * i)) & 1u;
+  }
 }
 
 }  // namespace carve

@@ -414,9 +414,18 @@ def extract_byte_distances(packed_flat: torch.Tensor, dims: Dims, robot_radius: 
     per voxel = clamp(floor(sqrt(d2)) - robot_radius, 0, 127); uninitialised
     voxels count as 127."""
     d2 = squared_distance_grid(packed_flat, dims)
-    d2f = torch.where(d2 >= MAX_OBSTACLE_DISTANCE, 127.0 * 127.0, d2.to(torch.float32))
-    free = torch.floor(torch.sqrt(d2f))
+    free = floor_sqrt(torch.where(d2 >= MAX_OBSTACLE_DISTANCE, 127 * 127, d2))
     return torch.clamp(free - robot_radius, 0, 127).to(torch.int8).reshape(-1)
+
+
+def floor_sqrt(d2: torch.Tensor) -> torch.Tensor:
+    """int64 floor(sqrt(d2)) of non-negative integers below 2^31, exact by
+    construction: the f32 root floors to within one of it, and the integer
+    tests r * r > d2 and (r + 1)^2 <= d2 correct it."""
+    d2 = d2.to(torch.int64)
+    r = torch.floor(torch.sqrt(d2.to(torch.float32))).to(torch.int64)
+    r = r - (r * r > d2).to(torch.int64)
+    return r + ((r + 1) * (r + 1) <= d2).to(torch.int64)
 
 
 def manhattan_distance(obstacle_mask_flat: torch.Tensor, dims: Dims, cap: int = 32767) -> torch.Tensor:

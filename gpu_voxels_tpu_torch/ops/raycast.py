@@ -124,9 +124,28 @@ def projective_free_space_pooled(
     projects inside the image and sz < pooled_min[v // P, u // P] - eps.
     Never frees a voxel the exact carve keeps; P = 1 is the exact carve.
     The projection is `projective_free_space`'s, op for op."""
-    h, w = depth.shape
     pm = min_pool_depth(depth, pool, invalid_value)
-    sz, u, v, in_fov = _project(depth.device, pose, fx, fy, cx, cy, side_length, dims, h, w)
+    return carve_against_pooled(pm, pool, depth.shape, pose, fx, fy, cx, cy, side_length, dims, eps_vox)
+
+
+def carve_against_pooled(
+    pm: torch.Tensor,
+    pool: int,
+    image_shape: Tuple[int, int],
+    pose: torch.Tensor,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    side_length: float,
+    dims: Dims,
+    eps_vox: float = 1.0,
+) -> torch.Tensor:
+    """bool[N]: `projective_free_space_pooled` against its prebuilt table
+    pm = min_pool_depth(depth, pool, invalid_value) of an image of
+    `image_shape` (h, w)."""
+    h, w = image_shape
+    sz, u, v, in_fov = _project(pm.device, pose, fx, fy, cx, cy, side_length, dims, h, w)
     ui = torch.div(u, pool, rounding_mode="floor").clamp(0, pm.shape[1] - 1).to(torch.int64)
     vi = torch.div(v, pool, rounding_mode="floor").clamp(0, pm.shape[0] - 1).to(torch.int64)
     d = pm.reshape(-1)[vi * pm.shape[1] + ui]

@@ -12,9 +12,13 @@ kernels are csrc/carve_exact.cu and csrc/carve_pooled.cu. Each wrapper
   not take raises. There is no fallback.
 
 The pose is a [4, 4] float32 tensor on the image's device, read by the
-kernel; the host never reads it. The pooled carve's min-pooled depth table
-is built in plain torch (`raycast.min_pool_depth`), as the reference builds
-it outside its kernel.
+kernel; the host never reads it. The pooled carve is two kernels of
+csrc/carve_pooled.cu, launched one after the other on the same stream: the
+P x P min-pool of the frame (`min_pool_depth`, spec `raycast.min_pool_depth`;
+the reference builds its table outside its kernel too) and the carve against
+that table (`carve_against_pooled`, spec `raycast.carve_against_pooled`).
+Each counts its own launches; the carve's count is kept under its wrapper's
+name, `projective_free_space_pooled`, one per call of the wrapper.
 """
 from __future__ import annotations
 
@@ -26,18 +30,25 @@ from . import raycast
 
 projective_free_space_plain = raycast.projective_free_space
 projective_free_space_pooled_plain = raycast.projective_free_space_pooled
+min_pool_depth_plain = raycast.min_pool_depth
+carve_against_pooled_plain = raycast.carve_against_pooled
 
 # kernel launches since the last reset, by wrapper name
-launches = {"projective_free_space_exact": 0, "projective_free_space_pooled": 0}
+launches = {"projective_free_space_exact": 0, "projective_free_space_pooled": 0, "min_pool_depth": 0}
+
+
+def _checked_image(image: torch.Tensor, name: str) -> None:
+    """Raises on an image (a depth frame or a pooled table) the kernels do not take."""
+    if not image.is_cuda:
+        raise ValueError(f"the {name} kernel needs a CUDA depth image, got {image.device}")
+    if image.dtype != torch.float32 or image.ndim != 2 or not image.is_contiguous():
+        raise ValueError(f"depth must be a contiguous float32 [H, W] image, got {image.dtype} {tuple(image.shape)}")
 
 
 def _checked(depth: torch.Tensor, pose, dims, name: str):
-    """The pose on the image's device, the dims as ints, the f32 threshold;
-    raises on what the carve kernels do not take."""
-    if not depth.is_cuda:
-        raise ValueError(f"the {name} kernel needs a CUDA depth image, got {depth.device}")
-    if depth.dtype != torch.float32 or depth.ndim != 2 or not depth.is_contiguous():
-        raise ValueError(f"depth must be a contiguous float32 [H, W] image, got {depth.dtype} {tuple(depth.shape)}")
+    """The pose on the image's device, the dims as ints; raises on what the
+    carve kernels do not take."""
+    _checked_image(depth, name)
     pose = to_device(pose, torch.float32, depth.device).contiguous()
     if pose.shape != (4, 4):
         raise ValueError(f"pose must be [4, 4], got {tuple(pose.shape)}")
@@ -98,19 +109,67 @@ def projective_free_space_pooled(
     pool: int = 4,
 ) -> torch.Tensor:
     """bool[dz*dy*dx] pooled conservative free-space mask, bit-identical to
-    `projective_free_space_pooled` (K6 on CUDA)."""
+    `projective_free_space_pooled` (K6 on CUDA: the pool kernel, then the
+    carve kernel)."""
     if depth.device.type == "cpu":
         return projective_free_space_pooled_plain(
             depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, eps_vox, pool
         )
-    pose, (dx, dy, dz) = _checked(depth, pose, dims, "pooled carve")
+    pm = min_pool_depth(depth, pool, invalid_value)
+    return carve_against_pooled(pm, pool, depth.shape, pose, fx, fy, cx, cy, side_length, dims, eps_vox)
+
+
+def _pooled_shape(h: int, w: int, pool) -> tuple[int, int]:
     if int(pool) < 1:
         raise ValueError(f"the pool must be >= 1, got {pool}")
+    return -(-h // int(pool)), -(-w // int(pool))
+
+
+def min_pool_depth(depth: torch.Tensor, pool: int, invalid_value: float = 0.0) -> torch.Tensor:
+    """f32[ceil(h/P), ceil(w/P)] conservative P x P min-pool of a depth
+    image, bit-identical to `raycast.min_pool_depth` (NaN included; the pool
+    kernel of K6 on CUDA)."""
+    if depth.device.type == "cpu":
+        return min_pool_depth_plain(depth, pool, invalid_value)
+    _checked_image(depth, "min-pool")
     h, w = depth.shape
-    pm = raycast.min_pool_depth(depth, int(pool), invalid_value).contiguous()
-    out = torch.empty(dx * dy * dz, dtype=torch.bool, device=depth.device)
+    ph, pw = _pooled_shape(h, w, pool)
+    out = torch.empty((ph, pw), dtype=torch.float32, device=depth.device)
     stream = torch.cuda.current_stream(depth.device).cuda_stream
     with torch.cuda.device(depth.device):
+        err = kernels.library().gv_min_pool_depth(
+            depth.data_ptr(), h, w, int(pool), invalid_value, out.data_ptr(), stream
+        )
+    kernels.check(err, "min_pool_depth")
+    launches["min_pool_depth"] += 1
+    return out
+
+
+def carve_against_pooled(
+    pm: torch.Tensor,
+    pool: int,
+    image_shape,
+    pose,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    side_length: float,
+    dims,
+    eps_vox: float = 1.0,
+) -> torch.Tensor:
+    """bool[dz*dy*dx]: the pooled carve against a prebuilt table pm of an
+    image of `image_shape` (h, w), bit-identical to
+    `raycast.carve_against_pooled` (K6's carve kernel on CUDA)."""
+    if pm.device.type == "cpu":
+        return carve_against_pooled_plain(pm, pool, image_shape, pose, fx, fy, cx, cy, side_length, dims, eps_vox)
+    pose, (dx, dy, dz) = _checked(pm, pose, dims, "pooled carve")
+    h, w = (int(s) for s in image_shape)
+    if tuple(pm.shape) != _pooled_shape(h, w, pool):
+        raise ValueError(f"a {h}x{w} image pools to {_pooled_shape(h, w, pool)} at P = {pool}, got {tuple(pm.shape)}")
+    out = torch.empty(dx * dy * dz, dtype=torch.bool, device=pm.device)
+    stream = torch.cuda.current_stream(pm.device).cuda_stream
+    with torch.cuda.device(pm.device):
         err = kernels.library().gv_carve_pooled(
             pm.data_ptr(), pm.shape[0], pm.shape[1], int(pool), h, w, pose.data_ptr(), fx, fy, cx, cy,
             side_length, _eps(eps_vox, side_length), dx, dy, dz, out.data_ptr(), stream,

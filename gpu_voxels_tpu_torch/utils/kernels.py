@@ -62,6 +62,8 @@ SIGNATURES = {
         _P, _I32, _I32, _I32, _I32, _I32, _P, _F32, _F32, _F32, _F32, _F32, _F32,
         _I32, _I32, _I32, _P, _P,
     ),
+    # (depth, h, w, pool, invalid, out, stream)
+    "gv_min_pool_depth": (_P, _I32, _I32, _I32, _F32, _P, _P),
     # (g, pay, out_d, out_pay, A, n, C, stream)
     "gv_envelope_pass": (_P, _P, _P, _P, _I64, _I32, _I64, _P),
     # (n, C, out: int[5] on the host)

@@ -27,6 +27,19 @@ from gpu_voxels_tpu_torch.ops import collide as tcol
 from gpu_voxels_tpu_torch.ops import collide_cuda
 from gpu_voxels_tpu_torch.robot import swept_volume as tsv
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """torch on one thread: beside the other busy test processes its thread
+    barriers cost far more than they save on these small grids."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 OFFSETS = [(0, 0, 0), (1, -2, 3), (-1, 0, -1)]
 
 

@@ -22,6 +22,19 @@ from gpu_voxels_tpu_torch.maps.voxelmap import ProbVoxelMap as TProb
 from gpu_voxels_tpu_torch.ops import collide as tcol
 from gpu_voxels_tpu_torch.ops import collide_cuda
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """torch on one thread: beside the other busy test processes its thread
+    barriers cost far more than they save on these small grids."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 DIMS = (37, 29, 23)
 OFFSETS = [(0, 0, 0), (-1, 0, -1), (3, -2, 1), (1, 0, 0)]
 

@@ -21,6 +21,18 @@ from gpu_voxels_tpu_torch.ops import collide_cuda, edt_cuda, edt_envelope, rayca
 from gpu_voxels_tpu_torch.utils import kernels
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """torch on one thread: beside the other busy test processes its thread
+    barriers cost far more than they save on these small grids."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -44,6 +56,15 @@ def test_library_path_is_keyed_by_sources_and_flags():
     assert "-fmad=false" in kernels.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
 
 
+def _carve_poses():
+    """Axis-aligned, tilted, and inside the grid (half of it behind the camera)."""
+    axis = np.eye(4, dtype=np.float32)
+    axis[:3, 3] = [32, 32, 1]
+    tilted = transforms.from_rpy_np([0.4, 0.0, 0.0], [20, 45, 3])
+    inside = transforms.from_rpy_np([0.1, -0.2, 0.3], [32, 32, 32])
+    return axis, tilted, inside
+
+
 def _carve_scenes(dev):
     rng = np.random.default_rng(7)
     step = np.full((48, 64), 40.0, np.float32)
@@ -52,12 +73,8 @@ def _carve_scenes(dev):
     step[30:34, :] += rng.uniform(-5, 5, (4, 64)).astype(np.float32)
     noise = rng.uniform(5, 60, (48, 64)).astype(np.float32)
     noise[noise < 6] = 0.0
-    axis = np.eye(4, dtype=np.float32)
-    axis[:3, 3] = [32, 32, 1]
-    tilted = transforms.from_rpy_np([0.4, 0.0, 0.0], [20, 45, 3])
-    inside = transforms.from_rpy_np([0.1, -0.2, 0.3], [32, 32, 32])
     for depth in (step, noise):
-        for pose in (axis, tilted, inside):
+        for pose in _carve_poses():
             yield torch.tensor(depth, device=dev), torch.tensor(pose, device=dev)
 
 
@@ -242,19 +259,92 @@ def test_raw_plane_maps_collide_through_k7(cuda_device):
     assert collide_cuda.launches["count_bit_bit"] == before
 
 
+def k6_frames():
+    """The pool's frames: random depths, the same cropped to 47x63 (neither
+    side a multiple of 2, 4, 7 or 8), and one with NaN, -inf and +inf pixels
+    beside an invalid patch."""
+    rng = np.random.default_rng(8)
+    noise = rng.uniform(5, 60, (48, 64)).astype(np.float32)
+    special = noise.copy()
+    for value, share in ((np.nan, 0.02), (-np.inf, 0.02), (np.inf, 0.05)):
+        special[rng.random(special.shape) < share] = value
+    special[40:48, 56:64] = np.inf  # a whole cell at P = 8
+    special[10:14, 5:9] = 0.0
+    return {"noise": noise, "cropped": np.ascontiguousarray(noise[:47, :63]), "special": special}
+
+
+# An axis-aligned camera at the centre of a 64^3 grid's z = 0 face, 0.25 m
+# voxels, fx = fy = 84 for a 64x48 frame: wx = (x - 32) * 0.25 and sz = z * 0.25
+# hold exactly, so u = 32 + 84 * (x - 32) / z (v likewise) is an integer
+# wherever z divides 84 * (x - 32). Voxel centres project exactly onto pooled
+# cell edges and onto the image's edges (z = 21: u = 0 at x = 24, u = 64 at
+# x = 40; z = 7: v = 0 at y = 30, v = 48 at y = 34).
+EDGE_INTR, EDGE_SIDE, EDGE_DIMS = (84.0, 84.0, 32.0, 24.0), 0.25, (64, 64, 64)
+
+
+def edge_pose():
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [32.5 * EDGE_SIDE, 32.5 * EDGE_SIDE, 0.5 * EDGE_SIDE]
+    return pose
+
+
+def edge_frame():
+    """Depths of 9.3 and 5.6 m (planes z of ~37 and ~22 voxels), 1 in 50 pixels invalid."""
+    depth = np.full((48, 64), 9.3, np.float32)
+    depth[8:30, 10:40] = 5.6
+    depth[np.random.default_rng(4).random(depth.shape) < 0.02] = 0.0
+    return depth
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("pool", [4, 8])
+@pytest.mark.parametrize("pool", [1, 2, 4, 7, 8])
+def test_k6_pool_matches_plain_on_card(cuda_device, pool):
+    """K6's pool kernel against the plain min-pool, bit pattern for bit
+    pattern (a NaN cell equals a NaN cell), for invalid values 0, NaN and one
+    that occurs in the frame."""
+    before = raycast_cuda.launches["min_pool_depth"]
+    frames = k6_frames()
+    for name, frame in frames.items():
+        depth = torch.tensor(frame, device=cuda_device)
+        for invalid in (0.0, float("nan"), float(frame[3, 3])):
+            got = raycast_cuda.min_pool_depth(depth, pool, invalid)
+            ref = raycast_cuda.min_pool_depth_plain(depth, pool, invalid)
+            assert got.dtype == torch.float32 and got.shape == ref.shape, (name, invalid)
+            assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), (name, invalid)
+    torch.cuda.synchronize()
+    assert raycast_cuda.launches["min_pool_depth"] == before + 3 * len(frames)
+
+
+def _k6_cases(dev):
+    """(depth, pose, intrinsics, side, dims) of K6's card tests."""
+    for depth, pose in _carve_scenes(dev):
+        yield depth, pose, (52.0, 52.0, 32.0, 24.0), 1.0, (64, 64, 64)
+    frames = {name: torch.tensor(f, device=dev) for name, f in k6_frames().items()}
+    axis, _, inside = (torch.tensor(p, device=dev) for p in _carve_poses())
+    yield frames["noise"], axis, (52.0, 52.0, 32.0, 24.0), 1.0, (250, 64, 12)
+    yield frames["cropped"], inside, (52.0, 52.0, 32.0, 24.0), 1.0, (64, 64, 64)
+    yield frames["special"], axis, (52.0, 52.0, 32.0, 24.0), 1.0, (64, 64, 64)
+    yield torch.tensor(edge_frame(), device=dev), torch.tensor(edge_pose(), device=dev), EDGE_INTR, EDGE_SIDE, \
+        EDGE_DIMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [2, 4, 7, 8])
 def test_k6_matches_plain_on_card(cuda_device, pool):
-    """K6 bit for bit against the plain pooled carve, and inside K3's mask."""
+    """K6 (pool, then carve) bit for bit against the plain pooled carve, and
+    inside K3's mask: the carve scenes, a ragged grid (dx = 250), a cropped
+    frame, a frame with NaN and infinities, and the edge-aligned pose."""
     before = raycast_cuda.launches["projective_free_space_pooled"]
-    for i, (depth, pose) in enumerate(_carve_scenes(cuda_device)):
-        args = (depth, pose, 52.0, 52.0, 32.0, 24.0, 1.0, (64, 64, 64))
+    cases = list(_k6_cases(cuda_device))
+    for i, (depth, pose, intr, side, dims) in enumerate(cases):
+        args = (depth, pose, *intr, side, dims)
         got = raycast_cuda.projective_free_space_pooled(*args, pool=pool)
         ref = raycast_cuda.projective_free_space_pooled_plain(*args, pool=pool)
         assert got.dtype == torch.bool and torch.equal(got, ref), i
         assert not bool((got & ~raycast_cuda.projective_free_space_exact(*args)).any()), i
+        assert int(got.sum()) > 0, i
     torch.cuda.synchronize()
-    assert raycast_cuda.launches["projective_free_space_pooled"] == before + 6
+    assert raycast_cuda.launches["projective_free_space_pooled"] == before + len(cases)
 
 
 ENVELOPE_SHAPES = {

@@ -40,6 +40,19 @@ from gpu_voxels_tpu_torch.ops import raycast_cuda
 from tests.test_torch_raycast import DIMS as CARVE_DIMS
 from tests.test_torch_raycast import INTR, _boundary_safe, _min_boundary_distance, _scenes
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """torch on one thread: beside the other busy test processes its thread
+    barriers cost far more than they save on these small grids."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 DIMS, SIDE = (24, 20, 16), 0.1
 N = DIMS[0] * DIMS[1] * DIMS[2]
 

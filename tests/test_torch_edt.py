@@ -9,6 +9,7 @@ is also held against a brute-force numpy oracle. Reference calls run eagerly
 or jitted, whichever is cheaper at these sizes; K5 itself is checked on a
 card by tests/test_torch_cuda.py.
 """
+import math
 from functools import partial
 
 import jax
@@ -22,6 +23,19 @@ from gpu_voxels_tpu.ops import edt_envelope as jenv
 from gpu_voxels_tpu_torch.constants import MAX_OBSTACLE_DISTANCE, PBA_UNINITIALISED_PACKED
 from gpu_voxels_tpu_torch.ops import edt as tedt
 from gpu_voxels_tpu_torch.ops import edt_envelope as tenv
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """torch on one thread: beside the other busy test processes its thread
+    barriers cost far more than they save on these small grids."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
 
 DIMS = (24, 20, 16)
 MISS = 1 << 27
@@ -207,6 +221,24 @@ def test_exact_distances_matches_reference():
     np.testing.assert_array_equal(sqdist(got), np_exact_sqdist(obs[:-1], DIMS))
 
 
+def byte_oracle(d2: np.ndarray, radius: int) -> np.ndarray:
+    """extract_byte_distances by integers: clamp(isqrt(d2) - radius, 0, 127),
+    uninitialised voxels as 127."""
+    root = np.array([math.isqrt(int(v)) for v in np.minimum(d2, 127 * 127)], np.int64)
+    return np.clip(root - radius, 0, 127).astype(np.int8)
+
+
+def test_floor_sqrt_is_exact_on_squares_and_their_neighbours():
+    """The byte distance's root on every perfect square below 127^2, one
+    below and one above each, and on squares up to 2^31, where the f32 root
+    alone can floor one too high or too low."""
+    k = np.arange(0, 46341, dtype=np.int64)
+    for values in (k[:127] ** 2, k[1:127] ** 2 - 1, k[:127] ** 2 + 1, k[1:] ** 2 - 1, k ** 2):
+        values = values[values < 2**31]
+        got = tedt.floor_sqrt(torch.tensor(values)).numpy()
+        np.testing.assert_array_equal(got, [math.isqrt(int(v)) for v in values])
+
+
 def test_manhattan_bytes_and_differences_match_reference():
     obs, mask = scene(8, 12)
     jp, tp = packed_pair(mask)
@@ -215,8 +247,16 @@ def test_manhattan_bytes_and_differences_match_reference():
     np.testing.assert_array_equal(tedt.manhattan_distance(torch.tensor(mask), DIMS, cap=5).numpy(),
                                   np.asarray(jedt.manhattan_distance(jnp.asarray(mask), DIMS, cap=5)))
     sep = tedt.exact_separable(tp, DIMS)
+    d2 = sqdist(sep).reshape(-1).astype(np.int64)
     for radius in (0, 2):
-        np.testing.assert_array_equal(tedt.extract_byte_distances(sep, DIMS, radius).numpy(),
-                                      np.asarray(jedt.extract_byte_distances(jnp.asarray(u32(sep)), DIMS, radius)))
+        oracle = byte_oracle(d2, radius)
+        port = tedt.extract_byte_distances(sep, DIMS, radius).numpy()
+        ref = np.asarray(jedt.extract_byte_distances(jnp.asarray(np.array(u32(sep), copy=True)), DIMS, radius))
+        # which side left the integer oracle, and where
+        for side, got in (("port", port), ("reference", ref)):
+            off = np.flatnonzero(got != oracle)
+            assert off.size == 0, (f"radius {radius}: the {side} leaves the isqrt oracle at {off.size} of {d2.size} "
+                                   f"voxels, d2 {d2[off[:8]].tolist()}: {got[off[:8]].tolist()} against "
+                                   f"{oracle[off[:8]].tolist()}")
     assert int(tedt.differences(sep, tedt.exact_distances(torch.tensor(obs.astype(np.int32)), DIMS), DIMS)) == 0
     assert int(tedt.differences(sep, tp, DIMS)) == int(jedt.differences(jnp.asarray(u32(sep)), jp, DIMS)) > 0

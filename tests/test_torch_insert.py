@@ -21,6 +21,19 @@ from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap as TBit
 from gpu_voxels_tpu_torch.maps.voxelmap import ProbVoxelMap as TProb
 from gpu_voxels_tpu_torch.ops import insert as tins
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """torch on one thread: beside the other busy test processes its thread
+    barriers cost far more than they save on these small grids."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 DIMS = (21, 17, 13)
 
 

@@ -18,6 +18,18 @@ from gpu_voxels_tpu_torch import constants as tconst
 from gpu_voxels_tpu_torch import probability as tprob
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """torch on one thread: beside the other busy test processes its thread
+    barriers cost far more than they save on these small grids."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 def test_constants_match_reference():
     names = [n for n in dir(jconst) if not n.startswith("_")]
     for name in names:

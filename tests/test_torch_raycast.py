@@ -29,6 +29,19 @@ from gpu_voxels_tpu_torch.maps.voxelmap import ProbVoxelMap as TProb
 from gpu_voxels_tpu_torch.ops import raycast as trc
 from gpu_voxels_tpu_torch.ops import raycast_cuda
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """torch on one thread: beside the other busy test processes its thread
+    barriers cost far more than they save on these small grids."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 DIMS = (64, 64, 64)
 INTR = (52.0, 52.0, 32.0, 24.0)
 

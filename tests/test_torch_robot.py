@@ -35,6 +35,19 @@ from gpu_voxels_tpu_torch.robot import presets as tpresets
 from gpu_voxels_tpu_torch.robot.dh import DHJointType, DHParameters
 from gpu_voxels_tpu_torch.robot.robot import interpolate_linear
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """torch on one thread: beside the other busy test processes its thread
+    barriers cost far more than they save on these small grids."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 FK_TOL = dict(rtol=1e-6, atol=1e-6)
 
 

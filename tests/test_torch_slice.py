@@ -32,6 +32,18 @@ from gpu_voxels_tpu_torch.maps.voxelmap import ProbVoxelMap as TProb
 from gpu_voxels_tpu_torch.providers import Provider
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """torch on one thread: beside the other busy test processes its thread
+    barriers cost far more than they save on these small grids."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 def _linkage(gvl, **init):
     gvl.initialize(128, 128, 128, 0.01, **init)
     gvl.add_map(MapType.MT_PROBAB_VOXELMAP, "bA")

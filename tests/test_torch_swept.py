@@ -40,6 +40,18 @@ from gpu_voxels_tpu_torch.robot.dh import DHParameters as TDH
 from gpu_voxels_tpu_torch.robot.dh import KinematicChain as TChain
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """torch on one thread: beside the other busy test processes its thread
+    barriers cost far more than they save on these small grids."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 def _t(w):
     return torch.tensor(np.ascontiguousarray(w).view(np.int32))
 
