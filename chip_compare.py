@@ -8,10 +8,7 @@ gpu_voxels_tpu_torch/csrc and gpu_voxels_tpu_torch/utils/kernels.py (for
 example a `git archive` of the parent commit unpacked into the git-ignored
 gpu_voxels_tpu_torch/_build/). Its kernels are built from its own sources
 into its own _build/ and bound through the C interface, which must be this
-tree's (the wrappers and everything above them are this tree's), except
-that a library without the pool kernel (`gv_min_pool_depth`, trees before
-it) pools the frame in plain torch, as those trees' wrapper did; that branch
-of `use` has no use once every tree compared has the pool kernel. For K5 per
+tree's (the wrappers and everything above them are this tree's). For K5 per
 pass at 512^3 (BASELINE #4's obstacles) and 256^3 (the fused camera map), K3
 at 256^3, K6 at 256^3 and P = 8 (its pool, its carve alone on a prebuilt
 table, and its whole wrapper), BASELINE #4's exact EDT, the 256^3 camera ->
@@ -48,14 +45,8 @@ def library_of(tree: str):
 
 
 def use(lib) -> None:
-    """Bind this tree's wrappers to `lib`; a library without the pool kernel
-    pools in plain torch, as its tree's wrapper did."""
+    """Bind this tree's wrappers to `lib`."""
     kernels._lib = lib
-    has_pool = hasattr(lib, "gv_min_pool_depth")
-    raycast_cuda.min_pool_depth = POOL_KERNEL if has_pool else raycast_cuda.min_pool_depth_plain
-
-
-POOL_KERNEL = raycast_cuda.min_pool_depth
 
 
 def flat(result) -> list:

@@ -8,8 +8,10 @@ For each path of chip_smoke.py's phase 4 (the 512^3 insert -> collide cycle,
 the 256^3 fusion of one 640x480 frame, the UR10 64-step swept volume with
 its types collide, BASELINE #4's exact EDT at 512^3, the 256^3 camera ->
 distance field frame, the schedule fitter's ordering search and one
-deconflict_slot on the two-UR10 scene at 256^3, and one DDA
-insert_sensor_data frame), and for K6 alone at 256^3 and P = 8 (its pool
+deconflict_slot on the two-UR10 scene at 256^3, one DDA
+insert_sensor_data frame, a Kinect frame and the 64-step UR10 sweep into
+voxel lists, the lists' bit check (K4), and one check_motion of the planning
+scene, which reads its counts on the host), and for K6 alone at 256^3 and P = 8 (its pool
 kernel, then its carve kernel), it prints the time per iteration from CUDA
 events (unprofiled), the device-busy time per iteration (the sum of the
 device rows of `key_averages()`: kernels, memsets and copies), the device's
@@ -114,7 +116,22 @@ def main() -> int:
     rays = sensor.process_depth_image(frame, device=dev)
     breakdown("256^3 DDA insert_sensor_data of one 640x480 frame (307,200 rays)",
               lambda: fresh.insert_sensor_data(rays, sensor_origin=sensor.position), smi, iters=3)
-    del robot, placed, cfgs, env, fit, centers, rays
+    sweep_pts = placed.transformed_clouds_for(cfgs).points
+    flat, meanings = sweep_pts.reshape(-1, 3), cs.sweep_meanings(sweep_pts)
+    breakdown("a Kinect frame (307,200 points) into a 256^3 bit list",
+              lambda: cs.bit_vector_voxel_list(cs.FUSION_DIMS, cs.FUSION_SIDE, device=dev).insert_point_cloud(rays), smi)
+    sweep_list = cs.bit_vector_voxel_list(cs.SV_DIMS, cs.SV_SIDE, device=dev)
+    breakdown("the 64-step UR10 sweep (243,200 points) into a 256^3 bit list",
+              lambda: sweep_list.insert_point_cloud_with_meanings(flat, meanings), smi)
+    sweep_list = sweep_list.insert_point_cloud_with_meanings(flat, meanings)
+    obstacles = cs.bit_vector_voxel_list(cs.SV_DIMS, cs.SV_SIDE, device=dev).insert_point_cloud(
+        sweep_pts[cs.OBSTACLE_STEPS[0]], cs.SV_START + cs.OBSTACLE_STEPS[0])
+    breakdown("collide_with_bitcheck of the sweep list, margin 5 (K4)",
+              lambda: sweep_list.collide_with_bitcheck(obstacles, 5), smi)
+    _, _, _, validator = cs.planning_scene(dev)
+    breakdown("one check_motion of the planning scene (start -> goal, 34 UR10 states, one host read)",
+              lambda: validator.check_motion(cs.PLAN_START, cs.PLAN_GOAL), smi)
+    del robot, placed, cfgs, env, fit, centers, rays, sweep_pts, flat, meanings, sweep_list, obstacles, validator
 
     obstacles = DistanceVoxelMap.create(cs.EDT_DIMS, 1.0, device=dev).insert_point_cloud(
         (cs.edt_obstacles() + 0.5).astype("float32"))

@@ -33,7 +33,7 @@ non-zero and prints no result. Phases, each an assert or an exception:
    set only in plane 7's bit 31, which must) over the offsets, a length
    that is not a multiple of 4, the all-zero map, and one pair at 512^3
    (8.6 GB of planes);
-3. four paths through the public entry points, on the card, with torch's
+3. six paths through the public entry points, on the card, with torch's
    sync debug mode set to raise (the paths never wait for the device), each
    driven with every launch count set to 0 just before it and read just
    after; each kernel of a path must have launched in it:
@@ -69,6 +69,32 @@ non-zero and prints no result. Phases, each an assert or an exception:
      count_bit_bit. The searches branch on counts, so they run with the
      sync debug mode at its default; the inserts and single collides stay
      under "error". Raw-plane, summary and plain-route answers must agree;
+   - the voxel-list path (K3, K4): the Kinect frames fused again into 256^3
+     (K3) as the dense environment; the 64-step UR10 sweep into a 256^3
+     bit list in one per-point-meaning insert (equal to the dense swept
+     map voxel for voxel), the robot path's obstacles as a list, one
+     Kinect frame's 307,200 points into a bit, a counting (then
+     remove_underpopulated(5)) and a prob list; list x list collides, the
+     types collide, bit checks at margins {0, 1, 4, 24} (K4) and at 25 and
+     sv_offset 3 (plain), per-meaning counts, list x dense against the fused
+     map and the swept map with and without its summary, the type mask,
+     coarse levels 0-3, merge (offset, new meaning) and subtract, a morton
+     list at 2048^3 (linear ids refuse it) of the frame's voxels moved past
+     coordinate 1,024, collided across id modes, and a disk round trip of
+     every list kind and each dense map kind. Every answer and file must
+     equal the same calls on CPU copies at the full point count;
+   - the planning path (no kernel): examples/ompl_planner_app.py's scene
+     through the facade at the reference planner's size (150 x 150 x 100 at
+     0.02 m), a UR10 among two pillars, a table and the floor, three rounds
+     of RRTConnect (max 3,000 iterations) and the path simplifier, each
+     solution's states into a bit-voxel-list solution map in one insert.
+     The solves read one count per motion check, with the sync debug mode
+     at its default. A round must solve; every interpolated state of a
+     simplified path must count 0 on the card and, over its points that
+     keep 1e-3 voxel from a cell boundary, on a CPU copy; 4,096 random
+     states must count the same on the card and the CPU over those points
+     (raw differences, at points FK's ulps can move across a boundary, are
+     counted and printed);
    every count, meanings vector, map, distance and payload grid must equal
    the same scene run through the plain route, and the 512^3 EDT must equal
    a brute-force minimum over the obstacles at 4,096 sampled voxels;
@@ -80,8 +106,12 @@ non-zero and prints no result. Phases, each an assert or an exception:
    time), the 512^3 cycle rate, the 256^3 fusion rate, the 64-step swept
    insert + types collide per trajectory, the 512^3 EDT, the 256^3
    camera -> distance field frame, K7 at 256^3 (both load widths) and
-   512^3, the fitter's ordering search and one deconflict_slot, and one DDA
-   insert_sensor_data frame.
+   512^3, the fitter's ordering search and one deconflict_slot, one DDA
+   insert_sensor_data frame, and the list and planning paths: a Kinect
+   frame into a bit list, the 64-step swept list insert, list x list, the
+   bit check (K4 on the list payload beside the whole call), list x dense,
+   a disk round trip of the swept list, batch_colliding_voxels of 256
+   states, one check_motion and one solve with its host reads.
 
 Output: progress lines, the card's `name, power.limit` line, one JSON line
 {"kernels": [...]} (each kernel with its launches on the paths, its largest
@@ -93,6 +123,7 @@ as the last line
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -112,8 +143,11 @@ from gpu_voxels_tpu_torch.api import GpuVoxels
 from gpu_voxels_tpu_torch.constants import SV_START, BitVoxelMeaning, MapType
 from gpu_voxels_tpu_torch.geometry import generation, transforms
 from gpu_voxels_tpu_torch.maps.distance_map import DistanceVoxelMap
+from gpu_voxels_tpu_torch.maps.voxellist import (VoxelList, bit_vector_morton_voxel_list, bit_vector_voxel_list,
+                                                 counting_voxel_list, prob_voxel_list)
 from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
 from gpu_voxels_tpu_torch.ops import collide_cuda, edt, edt_cuda, edt_envelope, raycast, raycast_cuda
+from gpu_voxels_tpu_torch.planning import GvlValidityChecker, JointSpace, MotionValidator, PathSimplifier, RRTConnect
 from gpu_voxels_tpu_torch.providers import Provider
 from gpu_voxels_tpu_torch.robot.dh import DHParameters
 from gpu_voxels_tpu_torch.robot.fitter import deconflict_slot, fit_orderings, fit_schedule
@@ -192,6 +226,19 @@ K6_POOLS = (2, 4, 7, POOL)
 # z = 21, u = 0 at x = c - 8 and u = 640 at x = c + 8; for z = 7, v = 0 at
 # y = c - 2 and v = 480 at y = c + 2)
 EDGE_INTR, EDGE_SIDE = (840.0, 840.0, 320.0, 240.0), 0.25
+# path 5: K4's margins as a list bit check, and a morton list at 2048^3 (past
+# 2^32 voxels) holding the Kinect frame's voxels moved beyond coordinate 1,024
+LIST_MARGINS = (0, 1, 4, 24)
+MORTON_DIMS, MORTON_SHIFT = (2048, 2048, 2048), 1030
+# path 6: examples/ompl_planner_app.py at the reference planner's size
+# (gvl_ompl_planner_helper.cpp:53): 150 x 150 x 100 at 0.02 m, the UR10 based
+# at (1.5, 1.5, 0.5) among two pillars, a table plate and the floor
+PLAN_DIMS, PLAN_SIDE, PLAN_BASE = (150, 150, 100), 0.02, (1.5, 1.5, 0.5)
+PLAN_BOXES = (((1.0, 1.0, 0.0), (1.2, 1.2, 1.2)), ((1.8, 1.8, 0.0), (2.0, 2.0, 1.2)),
+              ((1.1, 1.1, 1.2), (1.9, 1.9, 1.3)), ((0.0, 0.0, 0.0), (3.0, 3.0, 0.01)))
+PLAN_START = np.array([-1.3, -0.2, 0.0, 0.0, 0.0, 0.0], np.float32)
+PLAN_GOAL = np.array([1.3, -0.5, 0.0, 0.0, 0.0, 0.0], np.float32)
+PLAN_SEED, PLAN_ROUNDS, PLAN_RESOLUTION, PLAN_RANDOM_STATES = 7, 3, 0.08, 4096
 # H100 SXM data sheet: HBM rate and the f32 rate
 # outside the tensor cores, which the integer and f32 ops here are held to
 HBM_BYTES_PER_S = 3.35e12
@@ -933,7 +980,7 @@ def same_types(x, y) -> bool:
     return int(x[0]) == int(y[0]) and torch.equal(x[1], y[1]) and same_map(x[2], y[2])
 
 
-def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict]:
+def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, dict, dict]:
     log("  sense -> insert -> collide (K1, K2, K3, K6 through the pooled Provider)")
     out, launches = drive(main_path, {"count_prob_prob", "count_and_mark_prob", "projective_free_space_exact",
                                       "projective_free_space_pooled", "min_pool_depth"}, dev)
@@ -1001,7 +1048,19 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict]:
     for key in ("types_prob", "types_shifted"):
         assert same_types(robot[key], plain_robot[key]), key
     log("  (e-g) every robot-path map, count, meanings vector and marked map == plain route")
-    return out, robot, dist, fit, launches
+
+    log("  voxel lists (K3, K4)")
+    lp, list_launches = drive(list_path, {"projective_free_space_exact", "collide_types_bit_bit"}, dev,
+                              out["frames"], robot, out["counting"], dist["field"])
+    add_launches(launches, list_launches)
+    check_list_path(lp, out["env"])
+    check_list_path_on_cpu(lp)
+
+    log("  planning on dense maps (no kernel)")
+    plan, plan_launches = drive(planning_path, set(), dev)
+    add_launches(launches, plan_launches)
+    check_planning_path(plan, dev)
+    return out, robot, dist, fit, lp, plan, launches
 
 
 def check_live_sensing(out: dict, dev: torch.device) -> None:
@@ -1057,6 +1116,420 @@ def check_robot_path(robot: dict) -> None:
     log(f"  (g) bit checks margin 0/8: {[int(c) for c in robot['bitcheck']]}; vs fused prob map: "
         f"{int(robot['types_prob'][0])}; shifted by 1 step, window 2: {int(robot['types_shifted'][0])}")
 
+
+# -- paths 5 and 6 ------------------------------------------------------------
+def sweep_meanings(sweep_pts: torch.Tensor) -> torch.Tensor:
+    """SV_START + step for every point of a [steps, P, 3] sweep."""
+    steps, p = sweep_pts.shape[:2]
+    return (SV_START + torch.arange(steps, device=sweep_pts.device)).repeat_interleave(p)
+
+
+def list_answers(dev: torch.device, inputs: dict, tmp: str) -> dict:
+    """Everything path 5 asks of the voxel lists, on `dev`: the same calls
+    run on the card and on CPU copies of the inputs."""
+    sweep_pts, rays, env = inputs["sweep_pts"], inputs["rays"], inputs["fused"]
+    sweep_dense = inputs["sweep_dense"]
+    out = {}
+    # (l) the 64-step UR10 sweep into one list in one per-point-meaning
+    # insert; the obstacles of the robot path as a list; one Kinect frame's
+    # hits into a bit, a counting and a prob list
+    sv = bit_vector_voxel_list(SV_DIMS, SV_SIDE, device=dev).insert_point_cloud_with_meanings(
+        sweep_pts.reshape(-1, 3), sweep_meanings(sweep_pts))
+    wrist = inputs["wrist"]
+    obstacles = bit_vector_voxel_list(SV_DIMS, SV_SIDE, device=dev)
+    for k in OBSTACLE_STEPS:
+        obstacles = obstacles.insert_point_cloud(sweep_pts[k, wrist::5], SV_START + k)
+    kinect = bit_vector_voxel_list(FUSION_DIMS, FUSION_SIDE, device=dev).insert_point_cloud(rays)
+    counting = counting_voxel_list(FUSION_DIMS, FUSION_SIDE, device=dev).insert_point_cloud(rays)
+    out["lists"] = {"sweep": sv, "obstacles": obstacles, "kinect": kinect, "counting": counting,
+                    "dense_cells": counting.remove_underpopulated(5),
+                    "prob": prob_voxel_list(FUSION_DIMS, FUSION_SIDE, device=dev).insert_point_cloud(rays)}
+    # (m) the collides: list x list, types, bit checks (K4 at sv_offset 0
+    # and margins up to 24, the plain full-domain form past them), per
+    # meaning, list x dense (the fused map, the swept map with and without
+    # its summary), the type mask and the coarse levels
+    out["collide"] = [sv.collide_with(obstacles), kinect.collide_with(out["lists"]["dense_cells"]),
+                      sv.collide_with(kinect)]
+    out["types"] = sv.collide_with_types(obstacles)
+    out["bitcheck"] = [sv.collide_with_bitcheck(obstacles, m) for m in LIST_MARGINS]
+    out["bitcheck_plain"] = [sv.collide_with_bitcheck(obstacles, 25), sv.collide_with_bitcheck(obstacles, 2, 3)]
+    out["per_meaning"] = sv.collide_counting_per_meaning(obstacles)
+    out["dense"] = [kinect.collide_with_dense(env, 0.55), kinect.collide_with(env), sv.collide_with_dense(env, 0.55),
+                    sv.collide_with_dense(sweep_dense), sv.collide_with_dense(raw_planes(sweep_dense)),
+                    kinect.collide_with_dense(sweep_dense, offset=(0, 0, -3))]
+    first_half = np.zeros(8, np.uint32)
+    first_half[0] = np.uint32(0xFFFFFFF0)  # SV bits 4..31: steps 0..27
+    out["type_mask"] = [sv.collide_with_type_mask(env, first_half, 0.55),
+                        sv.collide_with_type_mask(sweep_dense, first_half),
+                        sv.collide_with_type_mask(raw_planes(sweep_dense), first_half)]
+    out["resolution"] = [(sv.collide_with_resolution(obstacles, resolution_level=lvl),
+                          kinect.collide_with_resolution(env, 0.55, lvl)) for lvl in range(4)]
+    # (n) merge with an offset and a new meaning, then subtract
+    merged = kinect.merge(obstacles, offset=(1, 0, -1), new_meaning=BitVoxelMeaning.eBVM_COLLISION)
+    out["lists"]["merged"] = merged
+    out["lists"]["subtracted"] = merged.subtract(kinect)
+    # (o) a morton list at 2048^3 (> 2^32 voxels: linear ids refuse it) of
+    # the frame's voxels moved beyond coordinate 1,024, across id modes
+    try:
+        bit_vector_voxel_list(MORTON_DIMS, FUSION_SIDE, device=dev)
+        raise AssertionError("a linear list must refuse more than 2^32 voxels")
+    except ValueError:
+        pass
+    with host_reads():
+        fit = kinect.shrink_to_fit()  # reads the count
+    far = bit_vector_morton_voxel_list(MORTON_DIMS, FUSION_SIDE, device=dev).insert_coordinates(
+        fit.entry_coords() + MORTON_SHIFT, BitVoxelMeaning.eBVM_OCCUPIED)
+    out["lists"]["morton"] = far
+    out["cross"] = [kinect.collide_with(far, offset=(MORTON_SHIFT,) * 3),
+                    far.collide_with(kinect, offset=(-MORTON_SHIFT,) * 3), kinect.collide_with(far)]
+    # (p) every list kind and each dense map kind to disk and back
+    with host_reads():
+        out["disk"] = disk_round_trips(dev, tmp, out["lists"], inputs)
+    return out
+
+
+def disk_round_trips(dev: torch.device, tmp: str, lists: dict, inputs: dict) -> dict:
+    """write_to_disk then read_from_disk of each list kind and each dense map
+    kind; returns each file's digest and whether it read back equal."""
+    out = {}
+    maps = {"sweep": lists["sweep"], "counting": lists["counting"], "prob": lists["prob"],
+            "morton": lists["morton"], "fused": inputs["fused"], "sweep_dense": inputs["sweep_dense"],
+            "counting_dense": inputs["counting_dense"], "distance": inputs["field"]}
+    for name, m in maps.items():
+        path = os.path.join(tmp, f"{name}.{dev.type}.bin")
+        assert m.write_to_disk(path)
+        with open(path, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        back = m.read_from_disk(path)
+        os.remove(path)
+        if isinstance(m, VoxelList):
+            n = int(m.count)
+            same = (int(back.count) == n and torch.equal(back.keys, m.keys[:n])
+                    and torch.equal(back.payload, m.payload[..., :n]))
+        else:
+            same = torch.equal(back.data, m.data) and (
+                not isinstance(m, BitVectorVoxelMap) or torch.equal(back.occ, m.occ))
+        out[name] = (digest, same, back.device == m.device)
+    return out
+
+
+def list_path(dev: torch.device, frames, robot: dict, counting_dense, field) -> dict:
+    """Path 5, voxel lists: the Kinect frames fused into 256^3 (K3) as the
+    dense environment, then list_answers on the card (K4 in the bit checks)."""
+    sensor = kinect_sensor()
+    env = ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev)
+    for frame in frames:
+        env = env.insert_depth_image(frame, sensor)
+    inputs = {"sweep_pts": robot["placed"].transformed_clouds_for(robot["cfgs"]).points,
+              "rays": sensor.process_depth_image(frames[0], device=dev), "fused": env,
+              "sweep_dense": robot["sweep"], "wrist": robot["chain"].clouds.offsets[-3],
+              "counting_dense": counting_dense, "field": field}
+    with tempfile.TemporaryDirectory() as tmp:
+        answers = list_answers(dev, inputs, tmp)
+    return {"inputs": inputs, "answers": answers}
+
+
+def cpu_copy(x):
+    """The same value with its tensors on the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, VoxelList):
+        return x.to("cpu")
+    if isinstance(x, (ProbVoxelMap, BitVectorVoxelMap, CountingVoxelMap, DistanceVoxelMap)):
+        occ = getattr(x, "occ", None)
+        return replace(x, data=x.data.cpu(), **({} if occ is None else {"occ": occ.cpu()}))
+    if isinstance(x, dict):
+        return {k: cpu_copy(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(cpu_copy(v) for v in x)
+    return x
+
+
+def same_answer(a, b) -> bool:
+    """Card answer == CPU answer: lists field for field, tensors exactly."""
+    if isinstance(a, VoxelList):
+        return (a.capacity == b.capacity and torch.equal(a.keys.cpu(), b.keys) and torch.equal(a.payload.cpu(), b.payload)
+                and int(a.count) == int(b.count))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.cpu(), b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_answer(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_answer(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def check_list_path(lp: dict, fused_env: ProbVoxelMap) -> None:
+    ans, inputs = lp["answers"], lp["inputs"]
+    assert torch.equal(inputs["fused"].data, fused_env.data), "the list path's fused map differs from path 1's"
+    lists = ans["lists"]
+    sv, obstacles, kinect = lists["sweep"], lists["obstacles"], lists["kinect"]
+    sweep_dense = inputs["sweep_dense"]
+    # the list sweep holds exactly the dense sweep's voxels and bit vectors
+    occupied = torch.nonzero(sweep_dense.occ).reshape(-1)
+    n_sv = int(sv.count)
+    assert n_sv == occupied.numel() > 0 and torch.equal(sv.keys[:n_sv], occupied)
+    assert torch.equal(sv.payload[:, :n_sv], sweep_dense.data[:, occupied])
+    log(f"  (l) 64-step UR10 sweep as one list insert: {n_sv} entries == the dense swept map's voxels and bit "
+        f"vectors; Kinect frame: {int(kinect.count)} bit-list voxels, {int(lists['counting'].count)} counting, "
+        f"{int(lists['dense_cells'].count)} with >= 5 points, {int(lists['prob'].count)} prob")
+    count, meanings = ans["types"]
+    named = [SV_START + k for k in OBSTACLE_STEPS]
+    assert int(count) > 0 and all(bool(bitops.get_bit(meanings, m)) for m in named)
+    checks = [int(c) for c in ans["bitcheck"]]
+    assert checks[0] > 0 and checks == sorted(checks), checks
+    per = ans["per_meaning"]
+    assert all(int(per[m]) > 0 for m in named) and int(per.sum()) >= checks[0]
+    dense = [int(c) for c in ans["dense"]]
+    assert dense[0] > 0 and dense[3] == dense[4] == n_sv, dense
+    mask = [int(c) for c in ans["type_mask"]]
+    assert 0 < mask[1] == mask[2] < n_sv, mask
+    pairs = [int(c) for c in ans["collide"]]
+    assert pairs[0] > 0 and pairs[1] == int(lists["dense_cells"].count) > 0, pairs
+    res = [(int(a), int(b)) for a, b in ans["resolution"]]
+    assert res[0][0] == pairs[0] and all(a > 0 and b > 0 for a, b in res), res
+    cross = [int(c) for c in ans["cross"]]
+    assert cross[0] == cross[1] == int(kinect.count) and cross[2] == 0, cross
+    merged, sub = lists["merged"], lists["subtracted"]
+    assert int(sub.count) > 0 and int(merged.count) == int(kinect.count) + int(sub.count)
+    for name, (_, same, on_dev) in ans["disk"].items():
+        assert same and on_dev, name
+    log(f"  (m) list x list {pairs}; types {int(count)} naming SV bits {named}; bit checks at margins "
+        f"{LIST_MARGINS}: {checks} (K4), at 25 and at sv_offset 3: {[int(c) for c in ans['bitcheck_plain']]}; "
+        f"list x dense {dense}; type mask {mask}; levels 0-3 {res}")
+    log(f"  (n, o) merge (offset, new meaning) {int(merged.count)}, subtract {int(sub.count)}; morton list at "
+        f"{MORTON_DIMS[0]}^3 across id modes {cross}; disk round trips of {sorted(ans['disk'])} read back equal")
+
+
+def check_list_path_on_cpu(lp: dict) -> None:
+    """The same calls on CPU copies of the same inputs, at the full point
+    count: every answer and every file digest equal."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu = list_answers(torch.device("cpu"), cpu_copy(lp["inputs"]), tmp)
+    card = lp["answers"]
+    assert card.keys() == cpu.keys()
+    for key in card:
+        assert same_answer(card[key], cpu[key]), key
+    log(f"  (l-p) every list, count, meanings vector, per-meaning count and file == the same calls on CPU copies "
+        f"({time.perf_counter() - t0:.1f} s on the host)")
+
+
+class PaddedArm:
+    """examples/ompl_planner_app.py's 6-joint UR10 (tool0 fixed) based at
+    PLAN_BASE, for the planner and for the facade's robot calls."""
+
+    def __init__(self, chain):
+        self.chain = chain
+        self.base = to_device(PLAN_BASE, torch.float32, chain.clouds.device)
+
+    def transformed_clouds_for(self, cfg):
+        full = torch.cat([cfg, torch.zeros_like(cfg[..., :1])], dim=-1)
+        c = self.chain.transformed_clouds_for(full)
+        return replace(c, points=c.points + self.base)
+
+    def set_configuration(self, joint_values):
+        self.chain.set_configuration(joint_values)
+
+    def get_configuration(self):
+        return self.chain.get_configuration()
+
+    def get_transformed_clouds(self):
+        c = self.chain.get_transformed_clouds()
+        return replace(c, points=c.points + self.base)
+
+
+def move_obstacle(gvl: GpuVoxels) -> None:
+    """moveObstacle (gvl_ompl_planner_helper.cpp:76-90): two pillars, a table
+    plate and the floor (the animated box is commented out there)."""
+    gvl.clear_map("myEnvironmentMap")
+    for lo, hi in PLAN_BOXES:
+        gvl.insert_box_into_map(lo, hi, "myEnvironmentMap", BitVoxelMeaning.eBVM_OCCUPIED, 2)
+
+
+def planning_scene(dev: torch.device):
+    """examples/ompl_planner_app.py's facade (gvl_ompl_planner_helper.cpp:54-61:
+    robot, environment and query prob maps and a bit-voxel-list solution map),
+    the UR10 and the scene; returns (facade, robot, checker, validator)."""
+    GpuVoxels._instance = None
+    gvl = GpuVoxels.get_instance()
+    gvl.initialize(*PLAN_DIMS, PLAN_SIDE, device=dev)
+    for mt, name in ((MapType.MT_PROBAB_VOXELMAP, "myRobotMap"), (MapType.MT_PROBAB_VOXELMAP, "myEnvironmentMap"),
+                     (MapType.MT_BITVECTOR_VOXELLIST, "mySolutionMap"), (MapType.MT_PROBAB_VOXELMAP, "myQueryMap")):
+        gvl.add_map(mt, name)
+    robot = PaddedArm(ur_robot("ur10", spacing=PLAN_SIDE, device=dev))
+    gvl.add_robot_object("myUrdfRobot", robot)
+    move_obstacle(gvl)
+    checker = GvlValidityChecker(gvl.get_map("myEnvironmentMap"), robot, 0.7)
+    return gvl, robot, checker, MotionValidator(checker, resolution=PLAN_RESOLUTION)
+
+
+def planning_path(dev: torch.device) -> dict:
+    """Path 6: examples/ompl_planner_app.py through the port's facade at the
+    reference planner's size (150 x 150 x 100 at 0.02 m)."""
+    gvl, robot, checker, validator = planning_scene(dev)
+    space = plan_space()
+    gvl.clear_map("myQueryMap")  # insertStartAndGoal (gvl_ompl_planner_helper.cpp:139-160)
+    for cfg, meaning in ((PLAN_START, SV_START), (PLAN_GOAL, SV_START + 1)):
+        gvl.set_robot_configuration("myUrdfRobot", dict(zip(robot.chain.link_names[:6], cfg.tolist())))
+        gvl.insert_robot_into_map("myUrdfRobot", "myQueryMap", meaning)
+    simplifier = PathSimplifier(validator, seed=PLAN_SEED)
+    rounds = []
+    for n in range(PLAN_ROUNDS):
+        move_obstacle(gvl)
+        checker.env = gvl.get_map("myEnvironmentMap")
+        with host_reads():  # the planner branches on one count per motion check
+            result = RRTConnect(space, validator, step=1.0, seed=PLAN_SEED + n).solve(PLAN_START, PLAN_GOAL,
+                                                                                       max_iters=3000)
+            path = simplifier.simplify(result.path) if result.solved else None
+        rnd = {"result": result, "path": path}
+        if path is not None:
+            # visualizeSolution (gvl_ompl_planner_helper.cpp:102-137): FK of
+            # every interpolated state, one per-point-meaning list insert
+            states = path.interpolate(validator.resolution)
+            pts = robot.transformed_clouds_for(to_device(states, torch.float32, dev)).points
+            meanings = (SV_START + torch.arange(len(states), device=dev) % 249).repeat_interleave(pts.shape[1])
+            gvl.clear_map("mySolutionMap")
+            rnd["solution"] = gvl.update_map("mySolutionMap",
+                                             lambda m: m.insert_point_cloud_with_meanings(pts.reshape(-1, 3), meanings))
+            rnd["states"] = states
+        rounds.append(rnd)
+    return {"gvl": gvl, "robot": robot, "checker": checker, "validator": validator, "rounds": rounds,
+            "query": gvl.get_map("myQueryMap")}
+
+
+class MaskedArm:
+    """The arm with the FK points of `keep` ([T, P] bool for a batch of T
+    states) kept and every other point moved far outside the map."""
+
+    def __init__(self, arm, keep: torch.Tensor):
+        self.arm, self.keep = arm, keep
+
+    def transformed_clouds_for(self, cfg):
+        c = self.arm.transformed_clouds_for(cfg)
+        return replace(c, points=torch.where(self.keep[..., None], c.points, -1e6))
+
+
+def boundary_safe(robot, states: torch.Tensor) -> torch.Tensor:
+    """[T, P] bool: the FK points at least 1e-3 voxel from every cell
+    boundary, where FK's ulps between the card and the CPU cannot move them
+    into another voxel."""
+    f = robot.transformed_clouds_for(states).points.to(torch.float64) / PLAN_SIDE
+    return ((f - torch.round(f)).abs() >= 1e-3).all(dim=-1)
+
+
+def card_and_cpu_counts(checker, cpu_checker, states: np.ndarray, chunk: int) -> tuple:
+    """Per state: the card's and the CPU copy's colliding voxels, raw and
+    over the boundary-safe points only (the same points on both sides:
+    the mask is the card's, copied)."""
+    raw, cpu_raw, safe, cpu_safe, near = [], [], [], [], []
+    for i in range(0, len(states), chunk):
+        s = states[i:i + chunk]
+        keep = boundary_safe(checker.robot, to_device(s, torch.float32, checker.device))
+        near.append((~keep.all(dim=1)).cpu().numpy())
+        raw.append(checker.batch_colliding_voxels(s))
+        cpu_raw.append(cpu_checker.batch_colliding_voxels(s))
+        for ck, out, mask in ((checker, safe, keep), (cpu_checker, cpu_safe, keep.cpu())):
+            masked = GvlValidityChecker(ck.env, MaskedArm(ck.robot, mask), 0.7)
+            out.append(masked.batch_colliding_voxels(s))
+    return tuple(np.concatenate(v) for v in (raw, cpu_raw, safe, cpu_safe, near))
+
+
+def check_planning_path(plan: dict, dev: torch.device) -> None:
+    """Path 6's answers: a solve, collision-free simplified paths on the card
+    and on a CPU copy of the map, a non-empty solution list, and the card's
+    per-state counts == the CPU's on 4,096 random states. FK differs by ulps
+    between the card and the CPU and every state of the 3,800-point UR10 has
+    points within 1e-3 voxel of a cell boundary, so the counts are compared
+    raw (differences counted and printed) and over the boundary-safe points
+    (asserted equal)."""
+    checker = plan["checker"]
+    cpu_checker = GvlValidityChecker(cpu_copy(checker.env), PaddedArm(ur_robot("ur10", spacing=PLAN_SIDE,
+                                                                               device="cpu")), 0.7)
+    assert any(r["path"] is not None for r in plan["rounds"]), "no round of the planner solved"
+    with host_reads():
+        for n, rnd in enumerate(plan["rounds"]):
+            res = rnd["result"]
+            log(f"  (q) round {n}: {'solved' if res.solved else 'no solution'} in {res.iterations} iterations, "
+                f"{res.motion_checks} motion checks, {res.states_checked} states checked, {res.host_reads} host reads, "
+                f"{res.plan_seconds * 1e3:.1f} ms" + (f"; path {len(res.path)} -> {len(rnd['path'])} vertices, "
+                                                      f"{len(rnd['states'])} interpolated states" if res.solved else ""))
+            if rnd["path"] is None:
+                continue
+            raw, cpu_raw, safe, cpu_safe, near = card_and_cpu_counts(checker, cpu_checker, rnd["states"], 1024)
+            assert int(raw.max()) == 0 and int(cpu_safe.max()) == 0 and int(rnd["solution"].count) > 0
+            log(f"  (r) round {n}: all {len(raw)} interpolated states collide in 0 voxels on the card, and over their "
+                f"boundary-safe points on the CPU copy ({int(near.sum())} states hold a point < 1e-3 voxel from a "
+                f"boundary; raw CPU counts non-zero in {int((cpu_raw > 0).sum())}); solution list "
+                f"{int(rnd['solution'].count)} voxels")
+        space = plan_space()
+        states = np.random.default_rng(PLAN_SEED).uniform(space.lower, space.upper, (PLAN_RANDOM_STATES, 6))
+        raw, cpu_raw, safe, cpu_safe, near = card_and_cpu_counts(checker, cpu_checker, states.astype(np.float32), 256)
+    assert np.array_equal(safe, cpu_safe), np.flatnonzero(safe != cpu_safe)[:10]
+    assert not ((raw != cpu_raw) & ~near).any()
+    log(f"  (s) batch_colliding_voxels of {PLAN_RANDOM_STATES} random states: {int((raw > 0).sum())} collide on the "
+        f"card; {int(near.sum())} hold an FK point < 1e-3 voxel from a cell boundary, raw card and CPU counts differ "
+        f"in {int((raw != cpu_raw).sum())}; over the boundary-safe points card == CPU in every state")
+
+
+def plan_space() -> JointSpace:
+    """[-pi, pi] per joint, joint 2 capped at 0 (gvl_ompl_planner.cpp:58-63)."""
+    upper = np.full(6, np.pi, np.float32)
+    upper[1] = 0.0
+    return JointSpace(np.full(6, -np.pi, np.float32), upper)
+
+
+def list_timings(dev: torch.device, smi: str, lp: dict, plan: dict) -> None:
+    """Phase 4's times of paths 5 and 6 (printed, never asserted)."""
+    inputs, lists = lp["inputs"], lp["answers"]["lists"]
+    rays, sweep_pts, env = inputs["rays"], inputs["sweep_pts"], inputs["fused"]
+    flat, meanings = sweep_pts.reshape(-1, 3), sweep_meanings(sweep_pts)
+    sv, obstacles, kinect = lists["sweep"], lists["obstacles"], lists["kinect"]
+    frame_ms = time_ms(lambda: bit_vector_voxel_list(FUSION_DIMS, FUSION_SIDE, device=dev).insert_point_cloud(rays), 10)
+    sweep_ms = time_ms(lambda: bit_vector_voxel_list(SV_DIMS, SV_SIDE, device=dev).insert_point_cloud_with_meanings(
+        flat, meanings), 10)
+    log(f"  Kinect frame ({rays.shape[0]} points) into a bit list with dedup: {frame_ms:.4f} ms; 64-step swept "
+        f"list insert ({flat.shape[0]} points, {int(sv.count)} voxels): {sweep_ms:.4f} ms  [{smi}]")
+    pair_ms = time_ms(lambda: kinect.collide_with(sv), 20)
+    before = collide_cuda.launches["collide_types_bit_bit"]
+    check_ms = time_ms(lambda: sv.collide_with_bitcheck(obstacles, 5), 20, warmup=0)
+    k4_calls = collide_cuda.launches["collide_types_bit_bit"] - before
+    mask, partner = sv.find_matching(obstacles)
+    partner = torch.where(mask[None, :], partner, 0)
+    k4_ms, k4_plain = in_turns(lambda: collide_cuda.collide_types_bit_bit(sv.payload, partner, 5, False),
+                               lambda: collide_cuda.collide_types_bit_bit_plain(sv.payload, partner, 5, False), 20)
+    c = sv.capacity
+    k4_bound = bound(64 * c + 40, c * (32 * window_rounds(5) + 35))
+    dense_ms = time_ms(lambda: kinect.collide_with_dense(env, 0.55), 20)
+    log(f"  list x list collide ({kinect.capacity} x {sv.capacity} entries): {pair_ms:.4f} ms; collide_with_bitcheck "
+        f"margin 5: {check_ms:.4f} ms ({k4_calls} K4 launches in 20 calls); K4 alone on the list payload (C = {c}): "
+        f"{k4_ms:.4f} ms, plain torch {k4_plain:.4f} ms, bound {k4_bound[0]:.4f} ms ({k4_bound[1]}); list x dense "
+        f"(Kinect list x fused 256^3 map): {dense_ms:.4f} ms  [{smi}]")
+    with tempfile.TemporaryDirectory() as tmp, host_reads():
+        path = os.path.join(tmp, "sweep.bin")
+        t0 = time.perf_counter()
+        for _ in range(5):
+            sv.write_to_disk(path)
+            sv.read_from_disk(path)
+        torch.cuda.synchronize()
+        disk_ms = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"  write_to_disk + read_from_disk of the swept list ({int(sv.count)} entries): {disk_ms:.4f} ms (host clock)  "
+        f"[{smi}]")
+    checker, validator = plan["checker"], plan["validator"]
+    space = plan_space()
+    states = to_device(np.random.default_rng(1).uniform(space.lower, space.upper, (256, 6)), torch.float32, dev)
+    batch_ms = time_ms(lambda: checker.colliding_voxels_device(states), 10)
+    with host_reads():
+        motion_ms = time_ms(lambda: validator.check_motion(PLAN_START, PLAN_GOAL), 10)
+        reads0 = checker.host_reads
+        t0 = time.perf_counter()
+        result = RRTConnect(space, validator, step=1.0, seed=PLAN_SEED).solve(PLAN_START, PLAN_GOAL,
+                                                                                     max_iters=3000)
+        solve_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  batch_colliding_voxels of 256 states: {batch_ms:.4f} ms = {256e3 / batch_ms:.0f} states/s; one check_motion "
+        f"(start -> goal, {len(validator.segment_states(PLAN_START, PLAN_GOAL))} states): {motion_ms:.4f} ms; one solve: "
+        f"{solve_ms:.4f} ms (host clock), {'solved' if result.solved else 'unsolved'} in {result.iterations} "
+        f"iterations, {result.motion_checks} motion checks, {checker.host_reads - reads0} host reads  [{smi}]")
 
 # -- phase 4 ------------------------------------------------------------------
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -1324,9 +1797,10 @@ def main() -> int:
     log("phase 2: kernels against their plain versions (exact)")
     err = check_kernels(dev)
     log("phase 3: the paths through the entry points")
-    out, robot, dist, fit, launches = drive_main_path(dev)
+    out, robot, dist, fit, lp, plan, launches = drive_main_path(dev)
     log("phase 4: times (CUDA events)")
     t, bounds = timings(dev, smi, out, robot, dist, fit)
+    list_timings(dev, smi, lp, plan)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],

@@ -5,7 +5,7 @@ rewritten by hand in CUDA C++ for Hopper (`csrc/`). Module paths mirror the
 JAX package so each module has one counterpart there; the JAX package is the
 reference every integer contract is held against.
 
-Four slices are ported. The engine's core loop on dense maps, sense ->
+Five slices are ported. The engine's core loop on dense maps, sense ->
 insert -> collide: `maps.voxelmap.ProbVoxelMap` / `BitVectorVoxelMap`,
 point insertion, prob x prob counting and marking collides (CUDA kernels
 K1, K2), depth-camera fusion with the exact projective carve (CUDA kernel
@@ -19,11 +19,16 @@ separable oracles, the distance queries and `converters`, fed by the
 pooled depth carve (CUDA kernel K6). And trajectory scheduling, `.traj`
 file -> swept volumes -> raw-plane collides -> schedule fitter:
 `robot.trajectory`, `robot.fitter`, bit maps without an occupancy summary
-(`occ=None`) and the bit x bit plane-fold count (CUDA kernel K7). The rest
-of the dense-map tier rides along: the DDA `insert_sensor_data`,
-`CountingVoxelMap`, `collide_with_resolution`, the streaming and socket
-depth sources and `providers.Provider`. Around them: the `GpuVoxels` facade
-and interop with the JAX package. Every method of the reference that is
+(`occ=None`) and the bit x bit plane-fold count (CUDA kernel K7). And
+voxel lists with planning on dense maps: `maps.voxellist.VoxelList` (bit,
+prob and counting lists, linear and 60-bit Morton ids, `morton`), whose
+swept-volume bit check runs K4, the dense maps' and the lists' disk files
+(`utils.io`, byte-equal to the reference's), and `planning` (the batched
+validity checker, the motion validator, RRT-Connect and the path
+simplifier). The rest of the dense-map tier rides along: the DDA
+`insert_sensor_data`, `CountingVoxelMap`, `collide_with_resolution`, the
+streaming and socket depth sources and `providers.Provider`. Around them:
+the `GpuVoxels` facade and interop with the JAX package. Every method of the reference that is
 not ported yet raises NotImplementedError naming the ROADMAP item that
 brings it.
 

@@ -6,8 +6,9 @@ both directions, so a map or robot built by gpu_voxels_tpu
 (``np.asarray(m.data)``) continues in the port and the two states can be
 compared byte for byte. Bit planes and packed distance-map coordinates are
 uint32 in the reference and int32 here; the conversion reinterprets the
-same bits (``np.ndarray.view``), it never converts values. Everything
-lands on `device` (default: the card).
+same bits (``np.ndarray.view``), it never converts values. A voxel list's
+(ids_hi, ids) uint32 words become the port's int64 keys and back
+(maps/voxellist.py). Everything lands on `device` (default: the card).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 
 from .geometry.pointcloud import MetaPointCloud
 from .maps.distance_map import DistanceVoxelMap
+from .maps.voxellist import KIND_BIT, VoxelList, join_keys, split_keys
 from .maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
 from .robot.dh import DHJointType, DHParameters, KinematicChain
 from .sensors import Sensor, SensorModel
@@ -78,6 +80,28 @@ def distance_map_from_numpy(data, dims, side_length: float, device=None) -> Dist
     )
 
 
+def voxel_list_from_numpy(ids, ids_hi, payload, count, dims, side_length: float, kind: str,
+                          id_mode: str = "linear", map_type=None, device=None) -> VoxelList:
+    """A VoxelList over copies of the reference list's fields: uint32[C] `ids`
+    and `ids_hi` (joined into the port's int64 keys, the (EMPTY, EMPTY) pair
+    into the morton EMPTY key), the payload (uint32[8, C] planes or int8[C])
+    and the live `count`."""
+    ids, ids_hi = np.asarray(ids), np.asarray(ids_hi)
+    payload = np.ascontiguousarray(payload)
+    c = ids.shape[0]
+    if ids.dtype != np.uint32 or ids_hi.dtype != np.uint32 or ids.shape != (c,) or ids_hi.shape != (c,):
+        raise ValueError(f"ids and ids_hi must be uint32[C], got {ids.dtype}{ids.shape}, {ids_hi.dtype}{ids_hi.shape}")
+    want = (np.uint32, (8, c)) if kind == KIND_BIT else (np.int8, (c,))
+    if (payload.dtype, payload.shape) != want:
+        raise ValueError(f"a {kind} list's payload must be {np.dtype(want[0])}{want[1]}, got {payload.dtype}{payload.shape}")
+    device = resolve_device(device)
+    lst = VoxelList.create(dims, side_length, kind, 0, id_mode, map_type, device=device)
+    keys = join_keys(torch.tensor(ids_hi.astype(np.int64)), torch.tensor(ids.astype(np.int64)), id_mode)
+    data = payload.view(np.int32) if kind == KIND_BIT else payload
+    return dataclasses.replace(lst, keys=keys.to(device), payload=torch.tensor(data, device=device),
+                               count=torch.tensor(int(count), dtype=torch.int64, device=device))
+
+
 def meta_point_cloud_from_numpy(points, cloud_ids, offsets, names, device=None) -> MetaPointCloud:
     """A MetaPointCloud over copies of float32[total, 3] `points` and the
     per-point sub-cloud ids, with the reference's host offsets and names."""
@@ -108,7 +132,12 @@ def kinematic_chain_from_numpy(link_names, dh_rows, joint_types, points, cloud_i
 def to_numpy(m):
     """The map's arrays in the reference's dtypes: int8[N] for a ProbVoxelMap
     or a CountingVoxelMap, (uint32[8, N] planes, uint8[N] occ or None) for a
-    BitVectorVoxelMap, uint32[N] for a DistanceVoxelMap."""
+    BitVectorVoxelMap, uint32[N] for a DistanceVoxelMap, and the reference's
+    (ids uint32[C], ids_hi uint32[C], payload, count int) for a VoxelList."""
+    if isinstance(m, VoxelList):
+        hi, lo = (w.cpu().numpy().astype(np.uint32) for w in split_keys(m.keys, m.id_mode))
+        payload = m.payload.cpu().numpy()
+        return lo, hi, payload.view(np.uint32) if m.kind == KIND_BIT else payload, int(m.count)
     if isinstance(m, (ProbVoxelMap, CountingVoxelMap)):
         return m.data.cpu().numpy()
     if isinstance(m, DistanceVoxelMap):

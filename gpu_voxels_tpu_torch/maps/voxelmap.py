@@ -46,6 +46,7 @@ from ..ops import collide_cuda
 from ..ops import insert as insert_ops
 from ..ops import raycast
 from ..utils import FACADE, not_ported, resolve_device, to_device
+from ..utils.io import DiskIO
 
 _log = logging.getLogger(__name__)
 
@@ -68,7 +69,7 @@ def _n(dims: Dims) -> int:
 
 
 @dataclass(frozen=True, eq=False)
-class _DenseMap:
+class _DenseMap(DiskIO):
     data: torch.Tensor
     dims: Dims
     side_length: float
@@ -133,8 +134,6 @@ class _DenseMap:
         cur.orientation_rpy = np.asarray(sensor.orientation_rpy, np.float32)
 
     print_voxel_map_data = not_ported("print_voxel_map_data", FACADE)
-    write_to_disk = not_ported("write_to_disk", FACADE)
-    read_from_disk = not_ported("read_from_disk", FACADE)
 
 
 @dataclass(frozen=True, eq=False)

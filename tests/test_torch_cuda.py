@@ -183,6 +183,42 @@ def test_k4_matches_plain_on_card(cuda_device, margin):
     assert collide_cuda.launches["collide_types_bit_bit"] == before + 2
 
 
+def _bit_list(keys, payload, count):
+    from gpu_voxels_tpu_torch.maps.voxellist import VoxelList
+
+    return VoxelList(keys, payload, torch.tensor(count, device=keys.device), (128, 128, 64), 1.0, "bit")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [307_201, 1, 0])
+def test_k4_as_the_list_bit_check_on_ragged_lengths(cuda_device, c):
+    """VoxelList.collide_with_bitcheck at sv_offset 0 launches K4 on the
+    list's payload and the matched partner payload, its unmatched columns
+    zeroed, at list lengths that are no multiple of the block: the count
+    equals bit_margin_collision_check_packed over the matched entries, and
+    the same call on CPU copies. An empty list counts 0 without a launch."""
+    from gpu_voxels_tpu_torch import bitops
+
+    g = torch.Generator(device=cuda_device).manual_seed(c)
+    n = 128 * 128 * 64
+    mine = torch.randperm(n, device=cuda_device, generator=g)[:c].sort().values
+    theirs = torch.cat([mine[::2], torch.randint(0, n, (c // 3,), device=cuda_device, generator=g)]).unique()
+    words = lambda k: torch.randint(-(2**31), 2**31 - 1, (8, k), dtype=torch.int32, device=cuda_device,  # noqa: E731
+                                    generator=g) * (torch.rand(k, device=cuda_device, generator=g) < 0.5)
+    a = _bit_list(mine, words(c), c)
+    b = _bit_list(theirs, words(theirs.numel()), theirs.numel())
+    for margin in (0, 1, 24):
+        before = collide_cuda.launches["collide_types_bit_bit"]
+        got = a.collide_with_bitcheck(b, margin)
+        torch.cuda.synchronize()
+        assert collide_cuda.launches["collide_types_bit_bit"] == before + (c > 0)
+        mask, partner = a.find_matching(b)
+        hit, _ = bitops.bit_margin_collision_check_packed(a.payload, torch.where(mask[None, :], partner, 0), margin)
+        want = int((hit & mask).sum())
+        assert int(got) == want == int(a.to("cpu").collide_with_bitcheck(b.to("cpu"), margin))
+        assert c < 1000 or want > 0
+
+
 @pytest.mark.cuda
 def test_k4_raises_on_inputs_it_does_not_take(cuda_device):
     a = torch.zeros((8, 100), dtype=torch.int32, device=cuda_device)

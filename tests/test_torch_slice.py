@@ -70,9 +70,12 @@ def test_facade_registry():
     assert m.device.type == "cpu"
     with pytest.raises(ValueError):
         gvl.add_map(MapType.MT_BITVECTOR_VOXELMAP, "bits")
-    for mt in (MapType.MT_PROBAB_OCTREE, MapType.MT_COUNTING_VOXELLIST, MapType.MT_BITVECTOR_VOXELLIST):
+    for mt in (MapType.MT_PROBAB_OCTREE, MapType.MT_BITVECTOR_OCTREE):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             gvl.add_map(mt, "other")
+    for mt in (MapType.MT_COUNTING_VOXELLIST, MapType.MT_BITVECTOR_VOXELLIST):  # voxel lists since item 9
+        lst = gvl.add_map(mt, mt.name)
+        assert lst.map_type == mt and lst.device.type == "cpu" and lst.capacity == 0
     dist = gvl.add_map(MapType.MT_DISTANCE_VOXELMAP, "dist")
     assert dist.map_type == MapType.MT_DISTANCE_VOXELMAP and dist.device.type == "cpu"
     gvl.insert_point_cloud_into_map(np.asarray([[1.2, 1.2, 1.2]], np.float32), "bits", 9)
@@ -189,20 +192,20 @@ def test_interop_round_trip():
         interop.prob_map_from_numpy(np.zeros(5, np.int16), dims, side, "cpu")
 
 
-def test_left_out_methods_raise():
+def test_left_out_methods_raise(tmp_path):
     m = TProb.create((4, 4, 4), device="cpu")
     b = TBit.create((4, 4, 4), device="cpu")
     for call in (
         lambda: TGvl().add_robot("arm", "arm.urdf"),
-        lambda: m.write_to_disk("x"),
-        lambda: b.read_from_disk("x"),
         lambda: m.print_voxel_map_data(),
         lambda: TGvl().visualize_map("m"),
         lambda: Provider("p").visualize(),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
             call()
-    # what earlier slices left out and the dense-map tier now has
+    # what earlier slices left out and the dense-map tier now has: the disk
+    # files (item 9) among them
+    assert b.write_to_disk(tmp_path / "b.bin") and torch.equal(b.read_from_disk(tmp_path / "b.bin").data, b.data)
     assert int(m.insert_sensor_data(np.full((1, 3), 1.5, np.float32), sensor_origin=(0.5, 0.5, 0.5)).data.max()) == -128 + 72
     assert int(m.collide_with_resolution(m)) == int(b.collide_with_resolution(b)) == 0
     b.init_sensor_settings(tsens.Sensor())
