@@ -10,8 +10,10 @@ its types collide, BASELINE #4's exact EDT at 512^3, the 256^3 camera ->
 distance field frame, the schedule fitter's ordering search and one
 deconflict_slot on the two-UR10 scene at 256^3, one DDA
 insert_sensor_data frame, a Kinect frame and the 64-step UR10 sweep into
-voxel lists, the lists' bit check (K4), and one check_motion of the planning
-scene, which reads its counts on the host), and for K6 alone at 256^3 and P = 8 (its pool
+voxel lists, the lists' bit check (K4), one check_motion of the planning
+scene, which reads its counts on the host, BASELINE #5's batch of 315 states
+against the 1024^3 dense pyramid and one 640x480 frame fused into a 512^3
+HierarchicalBitMap), and for K6 alone at 256^3 and P = 8 (its pool
 kernel, then its carve kernel), it prints the time per iteration from CUDA
 events (unprofiled), the device-busy time per iteration (the sum of the
 device rows of `key_averages()`: kernels, memsets and copies), the device's
@@ -34,8 +36,10 @@ import torch
 import chip_smoke as cs
 from gpu_voxels_tpu_torch.geometry import generation
 from gpu_voxels_tpu_torch.maps.distance_map import DistanceVoxelMap
+from gpu_voxels_tpu_torch.maps.hierarchical import HierarchicalBitMap
 from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
 from gpu_voxels_tpu_torch.ops import raycast_cuda
+from gpu_voxels_tpu_torch.planning import HierarchicalValidityChecker
 from gpu_voxels_tpu_torch.robot.fitter import deconflict_slot, fit_orderings
 from gpu_voxels_tpu_torch.robot.swept_volume import insert_swept_volume_batched
 from gpu_voxels_tpu_torch.sensors import SyntheticDepthSource
@@ -147,6 +151,19 @@ def main() -> int:
     breakdown(f"K6 at 256^3, P = {cs.POOL}: the pool kernel, then the carve kernel",
               lambda: raycast_cuda.projective_free_space_pooled(depth, pose, *cs.INTR, cs.FUSION_SIDE, cs.FUSION_DIMS,
                                                                 pool=cs.POOL), smi, iters=50)
+    del obstacles
+
+    env_pts, robot_pts, states = cs.config5_scene()
+    env_h = HierarchicalBitMap.create(cs.C5_DIMS, 1.0, device=dev).insert_point_cloud(env_pts)
+    checker = HierarchicalValidityChecker(env_h, cs.Translated(robot_pts, dev))
+    states = to_device(states, torch.float32, dev)
+    breakdown(f"BASELINE #5 batch: {len(states)} states x {cs.C5_ROBOT_POINTS} points against the {cs.C5_DIMS[0]}^3 "
+              "dense pyramid (device counts, no host read)", lambda: checker.colliding_voxels_device(states), smi)
+    del env_h, checker
+    hier = HierarchicalBitMap.create(cs.HIER_DIMS, cs.HIER_SIDE, device=dev)
+    posed = cs.PosedSensor(cs.carve_poses()["bench"])
+    breakdown(f"{cs.HIER_DIMS[0]}^3 fusion of one 640x480 frame into a HierarchicalBitMap (exact carve, K3)",
+              lambda: hier.insert_depth_image(depth, posed), smi)
     static_counts()
     return 0
 

@@ -33,7 +33,7 @@ non-zero and prints no result. Phases, each an assert or an exception:
    set only in plane 7's bit 31, which must) over the offsets, a length
    that is not a multiple of 4, the all-zero map, and one pair at 512^3
    (8.6 GB of planes);
-3. six paths through the public entry points, on the card, with torch's
+3. seven paths through the public entry points, on the card, with torch's
    sync debug mode set to raise (the paths never wait for the device), each
    driven with every launch count set to 0 just before it and read just
    after; each kernel of a path must have launched in it:
@@ -95,6 +95,25 @@ non-zero and prints no result. Phases, each an assert or an exception:
      states must count the same on the card and the CPU over those points
      (raw differences, at points FK's ulps can move across a boundary, are
      counted and printed);
+   - the octree path (K3, K6): BASELINE #5 (bench.py:396-424) through the
+     facade, 200,000 uniform obstacles in a 1024^3 HierarchicalBitMap at
+     1.0 m and a HierarchicalValidityChecker over a 400-point robot
+     translated to 315 states in one batch, whose counts must equal a numpy
+     set oracle, and the same env as a PagedHierarchicalMap, whose counts
+     must equal the dense ones; past the dense wall, the facade's 4096^3
+     octrees (the paged tier, deterministic and probabilistic) take a Kinect
+     frame by insert_depth_image (ray carving, max_steps 128) and its voxels
+     again past coordinate 1,024 (voxel_offset), are probed at min_level 0,
+     1, 3 and 6, collided with a morton list past 1,024 and with a dense
+     hierarchy, and written and read back in both file formats: the whole
+     state, every answer and the file digests equal the same calls on CPU
+     copies of the inputs; both dense tiers fuse the frame at 512^3 under
+     three poses with carve_pool 1 (K3) and 8 (K6): the prob tier equals a
+     dense ProbVoxelMap's fusion on the same grid and its status, both
+     equal the plain route bit for bit, check_tree holds after every
+     insert; and the octree collides (octree x dense map, octree x octree,
+     list x octree with an offset). The allocating paged inserts, the
+     checker's counts, check_tree and the files read the device on purpose;
    every count, meanings vector, map, distance and payload grid must equal
    the same scene run through the plain route, and the 512^3 EDT must equal
    a brute-force minimum over the obstacles at 4,096 sampled voxels;
@@ -111,7 +130,10 @@ non-zero and prints no result. Phases, each an assert or an exception:
    frame into a bit list, the 64-step swept list insert, list x list, the
    bit check (K4 on the list payload beside the whole call), list x dense,
    a disk round trip of the swept list, batch_colliding_voxels of 256
-   states, one check_motion and one solve with its host reads.
+   states, one check_motion and one solve with its host reads; and the
+   octree path: BASELINE #5's batch on the dense and the paged tier, the
+   1024^3 builds, a 512^3 fusion frame into each dense tier at both carves,
+   and the 4096^3 paged Kinect insert in steady state and allocating.
 
 Output: progress lines, the card's `name, power.limit` line, one JSON line
 {"kernels": [...]} (each kernel with its launches on the paths, its largest
@@ -138,16 +160,21 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from gpu_voxels_tpu_torch import bitops, converters
+from gpu_voxels_tpu_torch import bitops, converters, interop
 from gpu_voxels_tpu_torch.api import GpuVoxels
 from gpu_voxels_tpu_torch.constants import SV_START, BitVoxelMeaning, MapType
 from gpu_voxels_tpu_torch.geometry import generation, transforms
+from gpu_voxels_tpu_torch.geometry.pointcloud import MetaPointCloud
 from gpu_voxels_tpu_torch.maps.distance_map import DistanceVoxelMap
+from gpu_voxels_tpu_torch.maps.hierarchical import (HierarchicalBitMap, HierarchicalProbMap, _PyramidQueries,
+                                                    _status_from_occupancy, decode_status_flags)
+from gpu_voxels_tpu_torch.maps.paged import PagedHierarchicalMap
 from gpu_voxels_tpu_torch.maps.voxellist import (VoxelList, bit_vector_morton_voxel_list, bit_vector_voxel_list,
                                                  counting_voxel_list, prob_voxel_list)
 from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
 from gpu_voxels_tpu_torch.ops import collide_cuda, edt, edt_cuda, edt_envelope, raycast, raycast_cuda
-from gpu_voxels_tpu_torch.planning import GvlValidityChecker, JointSpace, MotionValidator, PathSimplifier, RRTConnect
+from gpu_voxels_tpu_torch.planning import (GvlValidityChecker, HierarchicalValidityChecker, JointSpace, MotionValidator,
+                                           PathSimplifier, RRTConnect)
 from gpu_voxels_tpu_torch.providers import Provider
 from gpu_voxels_tpu_torch.robot.dh import DHParameters
 from gpu_voxels_tpu_torch.robot.fitter import deconflict_slot, fit_orderings, fit_schedule
@@ -155,7 +182,7 @@ from gpu_voxels_tpu_torch.robot.presets import ur_robot
 from gpu_voxels_tpu_torch.robot.swept_volume import insert_swept_volume_batched
 from gpu_voxels_tpu_torch.robot.trajectory import load_trajectories
 from gpu_voxels_tpu_torch.sensors import Sensor, StreamingDepthSource, SyntheticDepthSource
-from gpu_voxels_tpu_torch.utils import kernels, to_device
+from gpu_voxels_tpu_torch.utils import io, kernels, to_device
 
 INTR = (525.0, 525.0, 320.0, 240.0)  # Kinect 640x480 (BASELINE config #2)
 FUSION_DIMS, FUSION_SIDE = (256, 256, 256), 0.02
@@ -239,6 +266,12 @@ PLAN_BOXES = (((1.0, 1.0, 0.0), (1.2, 1.2, 1.2)), ((1.8, 1.8, 0.0), (2.0, 2.0, 1
 PLAN_START = np.array([-1.3, -0.2, 0.0, 0.0, 0.0, 0.0], np.float32)
 PLAN_GOAL = np.array([1.3, -0.5, 0.0, 0.0, 0.0, 0.0], np.float32)
 PLAN_SEED, PLAN_ROUNDS, PLAN_RESOLUTION, PLAN_RANDOM_STATES = 7, 3, 0.08, 4096
+# path 7: BASELINE config #5 (bench.py:396-424): 200,000 uniform obstacles in
+# a 1024^3 octree at 1.0 m, a 400-point robot translated to 315 states
+C5_DIMS, C5_OBSTACLES, C5_ROBOT_POINTS, C5_STATES, C5_SEED = (1024, 1024, 1024), 200000, 400, 315, 5
+PAGED_DIMS = (4096, 4096, 4096)  # past the dense wall: the facade takes the paged tier
+PAGED_LEVELS = (0, 1, 3, 6)
+HIER_DIMS, HIER_SIDE = (512, 512, 512), 0.01  # the carve poses' 5.12 m cube at 512^3
 # H100 SXM data sheet: HBM rate and the f32 rate
 # outside the tensor cores, which the integer and f32 ops here are held to
 HBM_BYTES_PER_S = 3.35e12
@@ -980,7 +1013,7 @@ def same_types(x, y) -> bool:
     return int(x[0]) == int(y[0]) and torch.equal(x[1], y[1]) and same_map(x[2], y[2])
 
 
-def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, dict, dict]:
+def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict]:
     log("  sense -> insert -> collide (K1, K2, K3, K6 through the pooled Provider)")
     out, launches = drive(main_path, {"count_prob_prob", "count_and_mark_prob", "projective_free_space_exact",
                                       "projective_free_space_pooled", "min_pool_depth"}, dev)
@@ -1060,7 +1093,13 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, di
     plan, plan_launches = drive(planning_path, set(), dev)
     add_launches(launches, plan_launches)
     check_planning_path(plan, dev)
-    return out, robot, dist, fit, lp, plan, launches
+
+    log("  octrees: BASELINE #5, the paged tiers, dense-tier fusion (K3, K6)")
+    oc, oc_launches = drive(octree_path, {"projective_free_space_exact", "projective_free_space_pooled",
+                                          "min_pool_depth"}, dev)
+    add_launches(launches, oc_launches)
+    check_octree_path(oc, dev)
+    return out, robot, dist, fit, lp, plan, oc, launches
 
 
 def check_live_sensing(out: dict, dev: torch.device) -> None:
@@ -1233,7 +1272,7 @@ def cpu_copy(x):
     """The same value with its tensors on the CPU."""
     if isinstance(x, torch.Tensor):
         return x.cpu()
-    if isinstance(x, VoxelList):
+    if isinstance(x, (VoxelList, _PyramidQueries)):
         return x.to("cpu")
     if isinstance(x, (ProbVoxelMap, BitVectorVoxelMap, CountingVoxelMap, DistanceVoxelMap)):
         occ = getattr(x, "occ", None)
@@ -1531,6 +1570,322 @@ def list_timings(dev: torch.device, smi: str, lp: dict, plan: dict) -> None:
         f"{solve_ms:.4f} ms (host clock), {'solved' if result.solved else 'unsolved'} in {result.iterations} "
         f"iterations, {result.motion_checks} motion checks, {checker.host_reads - reads0} host reads  [{smi}]")
 
+# -- path 7 -------------------------------------------------------------------
+class PosedSensor:
+    """A Kinect whose pose is given as a matrix (the carve poses)."""
+
+    fx, fy, cx, cy = INTR
+    invalid_value = 0.0
+
+    def __init__(self, pose: np.ndarray):
+        self._pose = np.asarray(pose, np.float32)
+
+    def pose(self) -> np.ndarray:
+        return self._pose
+
+
+class Translated:
+    """BASELINE #5's robot: a 400-point cloud translated by its 3-d
+    configuration (a [T, 3] batch of states at once)."""
+
+    def __init__(self, cloud: np.ndarray, dev: torch.device):
+        self.cloud = MetaPointCloud.from_clouds([cloud], names=("body",), device=dev)
+
+    def transformed_clouds_for(self, cfg):
+        cfg = to_device(cfg, torch.float32, self.cloud.points.device)
+        return replace(self.cloud, points=self.cloud.points + cfg[..., None, :])
+
+
+def config5_scene():
+    """bench.py:396-424 from a seeded generator: 200,000 uniform obstacles in
+    1024^3 at 1.0 m, a 400-point robot, 315 states."""
+    rng = np.random.default_rng(C5_SEED)
+    d = C5_DIMS[0]
+    env = rng.uniform(0, d, (C5_OBSTACLES, 3)).astype(np.float32)
+    robot = rng.uniform(-2, 2, (C5_ROBOT_POINTS, 3)).astype(np.float32)
+    states = rng.uniform(100.0 * d / 1024, 900.0 * d / 1024, (C5_STATES, 3)).astype(np.float32)
+    return env, robot, states
+
+
+def config5_oracle(env: np.ndarray, robot: np.ndarray, states: np.ndarray) -> np.ndarray:
+    """Per state, the distinct robot voxels that hold an obstacle: numpy sets
+    of int64 linear keys (at 1.0 m the voxel of a point is its floor; the
+    f32 sums are the card's)."""
+    d = C5_DIMS[0]
+
+    def keys(c):
+        return (c[..., 2] * d + c[..., 1]) * d + c[..., 0]
+
+    obstacles = np.unique(keys(np.floor(env).astype(np.int64)))
+    cells = np.floor(robot[None, :, :] + states[:, None, :]).astype(np.int64)
+    inside = ((cells >= 0) & (cells < d)).all(axis=-1)
+    out = np.zeros(len(states), np.int64)
+    for i in range(len(states)):
+        k = np.unique(keys(cells[i][inside[i]]))
+        out[i] = int(np.isin(k, obstacles, assume_unique=True).sum())
+    return out
+
+
+def same_state(a: dict, b: dict) -> bool:
+    for key, value in a.items():
+        other = b[key]
+        if isinstance(value, np.ndarray):
+            if not np.array_equal(value, other):
+                return False
+        elif isinstance(value, list):
+            if len(value) != len(other) or not all(np.array_equal(x, y) for x, y in zip(value, other)):
+                return False
+        elif value != other:
+            return False
+    return True
+
+
+def paged_answers(dev: torch.device, inputs: dict, tmp: str) -> dict:
+    """Path 7's paged part, past the dense wall, on `dev`: both tiers at
+    4096^3 through the facade, one Kinect frame ray-carved in (max_steps 128),
+    the frame's voxels again past coordinate 1,024 (voxel_offset), probes at
+    min_level 0, 1, 3 and 6, collides with a morton list past 1,024 and with a
+    dense hierarchy, and both file formats written and read back. The
+    allocating inserts and the files read the device on purpose."""
+    GpuVoxels._instance = None
+    gvl = GpuVoxels.get_instance()
+    gvl.initialize(*PAGED_DIMS, FUSION_SIDE, device=dev)
+    frame, rays, probes = inputs["frame"], inputs["rays"], inputs["probes"]
+    morton, hier = inputs["morton"], inputs["hier"]
+    out = {}
+    for name, mt in (("det", MapType.MT_BITVECTOR_OCTREE), ("prob", MapType.MT_PROBAB_OCTREE)):
+        m = gvl.add_map(mt, name)
+        assert isinstance(m, PagedHierarchicalMap), type(m)
+        with host_reads():
+            m.insert_depth_image(frame, kinect_sensor(), max_steps=128)
+            m.insert_point_cloud(rays, voxel_offset=(-MORTON_SHIFT,) * 3)
+            tree_ok = m.check_tree()
+        ans = {"tree_ok": tree_ok,
+               "probe": [m.probe_status(probes, lvl) for lvl in PAGED_LEVELS],
+               "morton": [m.collide_with(morton), m.collide_with(morton, offset=(-MORTON_SHIFT,) * 3),
+                          morton.collide_with(m, offset=(-MORTON_SHIFT,) * 3)],
+               "hier": m.collide_with(hier),
+               "unknown": m.collide_with_counting_unknown(morton, min_level=3)}
+        if m.probabilistic:
+            ans["occupancy"] = m.probe_occupancy(probes)
+        with host_reads():
+            ans["state"] = interop.to_numpy(m)  # the whole state
+            ans["occupied"] = m.extract_occupied_coords()
+            files = {}
+            for fmt in ("binary", "ascii"):
+                path = os.path.join(tmp, f"{name}.{fmt}.{dev.type}")
+                if fmt == "binary":
+                    assert m.write_to_disk(path)
+                else:
+                    io.write_paged_map(m, path, ascii=True)
+                with open(path, "rb") as f:
+                    digest = hashlib.sha256(f.read()).hexdigest()
+                back = m.read_from_disk(path)
+                n = m.n_tiles()
+                same = (back.n_tiles() == n and torch.equal(back.pool[:n], m.pool[:n])
+                        and torch.equal(back.slot_block[:n], m.slot_block[:n])
+                        and torch.equal(back.probe_status(probes), m.probe_status(probes)))
+                files[fmt] = (digest, same, back.device == m.device)
+                os.remove(path)
+            ans["files"] = files
+        out[name] = ans
+    GpuVoxels._instance = None
+    return out
+
+
+def paged_inputs(dev: torch.device, frame: np.ndarray) -> dict:
+    """The paged part's inputs: the frame's rays, a morton list at 4096^3 of
+    its voxels moved past coordinate 1,024, a dense hierarchy of the frame
+    (K3), probe coordinates near and past the frame."""
+    sensor = kinect_sensor()
+    rays = sensor.process_depth_image(frame, device=dev)
+    kinect = bit_vector_voxel_list(FUSION_DIMS, FUSION_SIDE, device=dev).insert_point_cloud(rays)
+    with host_reads():
+        fit = kinect.shrink_to_fit()  # reads the count
+    morton = bit_vector_morton_voxel_list(PAGED_DIMS, FUSION_SIDE, device=dev).insert_coordinates(
+        fit.entry_coords() + MORTON_SHIFT, BitVoxelMeaning.eBVM_OCCUPIED)
+    hier = HierarchicalBitMap.create(FUSION_DIMS, FUSION_SIDE, device=dev).insert_depth_image(frame, sensor)
+    rng = np.random.default_rng(5)
+    probes = np.concatenate([rng.integers(0, 260, (20000, 3)), rng.integers(1000, 1300, (5000, 3)),
+                             rng.integers(0, PAGED_DIMS[0], (5000, 3))]).astype(np.int32)
+    return {"frame": frame, "rays": rays, "morton": morton, "hier": hier, "probes": to_device(probes, torch.int32, dev)}
+
+
+def fused_pair(frame, pose, pool: int, dev: torch.device):
+    """One frame under one pose into both dense tiers at 512^3 and into a
+    dense ProbVoxelMap on the same grid (K3 at pool 1, K6 past it)."""
+    sensor = PosedSensor(pose)
+    prob = HierarchicalProbMap.create(HIER_DIMS, HIER_SIDE, device=dev).insert_depth_image(frame, sensor, pool)
+    bit = HierarchicalBitMap.create(HIER_DIMS, HIER_SIDE, device=dev).insert_depth_image(frame, sensor, pool)
+    dense = ProbVoxelMap.create(HIER_DIMS, HIER_SIDE, device=dev).insert_depth_image(frame, sensor, pool)
+    return prob, bit, dense
+
+
+def fusion_answers(dev: torch.device, frame: np.ndarray) -> dict:
+    """(c) and (d): both dense tiers fused at 512^3 under three poses at
+    carve_pool 1 (K3) and 8 (K6), check_tree after every insert; the octree
+    collides: octree x dense map, octree x octree, list x octree."""
+    out = {"fused": {}, "tree_ok": []}
+    for pool in (1, POOL):
+        for label, pose in carve_poses().items():
+            prob, bit, dense = fused_pair(frame, pose, pool, dev)
+            with host_reads():
+                out["tree_ok"].append(prob.check_tree() and bit.check_tree())
+            out["fused"][(pool, label)] = (prob, bit, dense)
+    prob, bit, dense = out["fused"][(1, "bench")]
+    out["collide"] = [prob.collide_with(bit), bit.collide_with(prob, min_level=3), bit.collide_with(dense),
+                      prob.collide_with_counting_unknown(dense, min_level=2)]
+    return out
+
+
+def octree_path(dev: torch.device) -> dict:
+    """Path 7: BASELINE config #5 on the dense pyramid through the facade and
+    on the paged tier, the paged tiers past the dense wall, depth fusion into
+    both dense tiers (K3, K6) and the octree collides."""
+    out = {}
+    env, robot, states = config5_scene()
+    GpuVoxels._instance = None
+    gvl = GpuVoxels.get_instance()
+    gvl.initialize(*C5_DIMS, 1.0, device=dev)
+    dense = gvl.add_map(MapType.MT_BITVECTOR_OCTREE, "env")
+    assert isinstance(dense, HierarchicalBitMap), type(dense)
+    gvl.insert_point_cloud_into_map(env, "env")
+    dense = gvl.get_map("env")
+    arm = Translated(robot, dev)
+    with host_reads():  # the checker reads its counts; the paged build allocates
+        out["c5_dense"] = HierarchicalValidityChecker(dense, arm).batch_colliding_voxels(states)
+        paged = PagedHierarchicalMap(C5_DIMS, 1.0, device=dev).insert_point_cloud(env)
+        paged_checker = HierarchicalValidityChecker(paged, arm)
+        out["c5_paged"] = paged_checker.batch_colliding_voxels(states)
+        out["c5_tree_ok"] = dense.check_tree() and paged.check_tree()
+    out["c5"] = {"dense": dense, "paged": paged, "arm": arm, "states": states, "env": env, "robot": robot,
+                 "checker_reads": paged_checker.host_reads}
+    GpuVoxels._instance = None
+    frame = bench_frame()
+    out["paged_inputs"] = paged_inputs(dev, frame)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["paged"] = paged_answers(dev, out["paged_inputs"], tmp)
+    out["fusion"] = fusion_answers(dev, frame)
+    kinect = bit_vector_voxel_list(FUSION_DIMS, FUSION_SIDE, device=dev).insert_point_cloud(
+        out["paged_inputs"]["rays"])
+    hier = out["paged_inputs"]["hier"]
+    out["list_octree"] = [kinect.collide_with(hier, offset=(1, 0, -1)), hier.collide_with(kinect, offset=(1, 0, -1)),
+                          kinect.collide_with(hier)]
+    return out
+
+
+def check_octree_path(oc: dict, dev: torch.device) -> None:
+    """Path 7's answers: config #5 against the set oracle and dense == paged;
+    the paged part against the same calls on CPU copies of its inputs, files
+    byte-equal; the fusions against the dense map and the plain route."""
+    c5 = oc["c5"]
+    oracle = config5_oracle(c5["env"], c5["robot"], c5["states"])
+    dense_counts, paged_counts = oc["c5_dense"], oc["c5_paged"]
+    assert np.array_equal(dense_counts, oracle), np.flatnonzero(dense_counts != oracle)[:10]
+    assert np.array_equal(paged_counts, dense_counts) and oc["c5_tree_ok"]
+    assert int((oracle > 0).sum()) > 0
+    log(f"  (t) BASELINE #5: {len(oracle)} states x {C5_ROBOT_POINTS} points against {C5_OBSTACLES} obstacles at "
+        f"{C5_DIMS[0]}^3: {int((oracle > 0).sum())} states collide, {int(oracle.sum())} voxel hits; dense pyramid "
+        f"== paged tier == the numpy set oracle; memory_usage dense {c5['dense'].memory_usage()} B, paged "
+        f"{c5['paged'].memory_usage()} B ({c5['paged'].n_tiles()} tiles)")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu = paged_answers(torch.device("cpu"), cpu_copy(oc["paged_inputs"]), tmp)
+    card = oc["paged"]
+    for name in ("det", "prob"):
+        a, b = card[name], cpu[name]
+        assert a["tree_ok"] and b["tree_ok"], name
+        assert same_state(a["state"], b["state"]) and np.array_equal(a["occupied"], b["occupied"]), name
+        for key in ("probe", "morton", "hier", "unknown") + (("occupancy",) if name == "prob" else ()):
+            assert same_answer(a[key], b[key]), (name, key)
+        for fmt in ("binary", "ascii"):
+            (d1, s1, o1), (d2, s2, o2) = a["files"][fmt], b["files"][fmt]
+            assert d1 == d2 and s1 and s2 and o1 and o2, (name, fmt)
+    morton = oc["paged_inputs"]["morton"]
+    n_frame = int(morton.count)
+    det = card["det"]
+    # the oracle: the list's voxels (shifted back) in the occupied set the map extracts
+    occupied = {tuple(c) for c in det["occupied"].tolist()}
+    listed = morton.coords_from_ids(morton.keys[:n_frame]).cpu().numpy().astype(np.int64)
+    want = [sum(tuple(c) in occupied for c in (listed + shift).tolist()) for shift in (0, -MORTON_SHIFT)]
+    got = [int(c) for c in det["morton"]]
+    assert got == [want[0], want[1], want[1]] and want[0] > 0, (got, want)
+    assert int(det["hier"]) > 0
+    log(f"  (u) paged tiers at {PAGED_DIMS[0]}^3 through the facade: a Kinect frame ray-carved (max_steps 128) and "
+        f"its voxels again past 1,024: {card['det']['state']['n_slots']} / {card['prob']['state']['n_slots']} tiles "
+        f"(det / prob); morton list ({n_frame} entries) collides {got} == the occupied-set oracle; x the dense "
+        f"hierarchy {int(det['hier'])}; probes at min_level {PAGED_LEVELS}, files (binary, ascii) and the whole "
+        f"state == the same calls on CPU copies ({time.perf_counter() - t0:.1f} s on the host)")
+
+    fusion = oc["fusion"]
+    assert all(fusion["tree_ok"])
+    for (pool, label), (prob, bit, dense) in fusion["fused"].items():
+        assert torch.equal(prob.occupancy.reshape(-1), dense.data), (pool, label)
+        status = _status_from_occupancy(dense.data).reshape(prob.pyramid[0].shape)
+        assert torch.equal(prob.pyramid[0], status), (pool, label)
+    with plain_route():
+        plain = fusion_answers(dev, oc["paged_inputs"]["frame"])
+    for key, (prob, bit, _) in fusion["fused"].items():
+        p_prob, p_bit, _ = plain["fused"][key]
+        for a, b in zip(prob.pyramid + bit.pyramid, p_prob.pyramid + p_bit.pyramid, strict=True):
+            assert torch.equal(a, b), key
+        assert torch.equal(prob.occupancy, p_prob.occupancy), key
+    counts = [tuple(int(v) for v in c) if isinstance(c, tuple) else int(c) for c in fusion["collide"]]
+    p_counts = [tuple(int(v) for v in c) if isinstance(c, tuple) else int(c) for c in plain["collide"]]
+    assert counts == p_counts and counts[0] > 0, (counts, p_counts)
+    lo = [int(c) for c in oc["list_octree"]]
+    assert lo[0] == lo[1] and lo[2] > 0, lo
+    free = int(decode_status_flags(fusion["fused"][(POOL, "bench")][1].pyramid[0])[2].sum())
+    log(f"  (v) {HIER_DIMS[0]}^3 fusion into both dense tiers under {len(carve_poses())} poses at carve_pool 1 (K3) "
+        f"and {POOL} (K6): the prob tier == the dense ProbVoxelMap's occupancy and its status, both tiers == plain "
+        f"route, check_tree after every insert; pooled bit tier {free} free voxels")
+    log(f"  (w) octree collides: prob x bit {counts[0]}, at level 3 {counts[1]}, bit x dense map {counts[2]}, "
+        f"counting unknown {counts[3]} (== plain route); list x octree with an offset {lo[0]} == octree x list, "
+        f"without {lo[2]}")
+
+
+def octree_timings(dev: torch.device, smi: str, oc: dict) -> None:
+    """Phase 4's times of path 7 (printed, never asserted)."""
+    c5 = oc["c5"]
+    states = to_device(c5["states"], torch.float32, dev)
+    for name in ("dense", "paged"):
+        checker = HierarchicalValidityChecker(c5[name], c5["arm"])
+        ms = time_ms(lambda: checker.colliding_voxels_device(states), 20)
+        with host_reads():
+            read_ms = time_ms(lambda: checker.batch_colliding_voxels(states), 20)
+        log(f"  BASELINE #5 batch ({len(states)} states x {C5_ROBOT_POINTS} points, {name} tier at {C5_DIMS[0]}^3): "
+            f"{ms:.4f} ms on the device = {len(states) * 1e3 / ms:.0f} states/s; with the host read {read_ms:.4f} ms "
+            f"= {len(states) * 1e3 / read_ms:.0f} states/s  [{smi}]")
+    env = to_device(c5["env"], torch.float32, dev)
+    fresh = HierarchicalBitMap.create(C5_DIMS, 1.0, device=dev)
+    build_ms = time_ms(lambda: fresh.insert_point_cloud(env), 5, warmup=1)
+    with host_reads():
+        paged_ms = time_ms(lambda: PagedHierarchicalMap(C5_DIMS, 1.0, device=dev).insert_point_cloud(env), 3, warmup=1)
+    log(f"  {C5_DIMS[0]}^3 build from {C5_OBSTACLES} points: dense pyramid {build_ms:.4f} ms, paged tier "
+        f"{paged_ms:.4f} ms (host allocation included)  [{smi}]")
+    frame = torch.as_tensor(bench_frame(), device=dev)
+    sensor = PosedSensor(carve_poses()["bench"])
+    for cls in (HierarchicalBitMap, HierarchicalProbMap):
+        m = cls.create(HIER_DIMS, HIER_SIDE, device=dev)
+        for pool in (1, POOL):
+            ms = time_ms(lambda: m.insert_depth_image(frame, sensor, pool), 10)
+            log(f"  {HIER_DIMS[0]}^3 fusion frame into a {cls.__name__} (carve_pool {pool}): {ms:.4f} ms  [{smi}]")
+    dense_ms = time_ms(lambda: ProbVoxelMap.create(HIER_DIMS, HIER_SIDE, device=dev).insert_depth_image(frame, sensor),
+                       10)
+    log(f"  the same frame into a dense {HIER_DIMS[0]}^3 ProbVoxelMap (carve_pool 1): {dense_ms:.4f} ms  [{smi}]")
+    kinect = kinect_sensor()
+    with host_reads():
+        for prob in (False, True):
+            steady = PagedHierarchicalMap(PAGED_DIMS, FUSION_SIDE, probabilistic=prob, device=dev)
+            steady.insert_depth_image(frame, kinect)
+            steady_ms = time_ms(lambda: steady.insert_depth_image(frame, kinect), 5, warmup=1)
+            alloc_ms = time_ms(lambda: PagedHierarchicalMap(PAGED_DIMS, FUSION_SIDE, probabilistic=prob, device=dev)
+                               .insert_depth_image(frame, kinect), 5, warmup=1)
+            log(f"  {PAGED_DIMS[0]}^3 paged Kinect frame ({'prob' if prob else 'det'}, {frame.numel()} rays x 128 steps): "
+                f"steady state {steady_ms:.4f} ms, allocating {alloc_ms:.4f} ms ({steady.n_tiles()} tiles)  [{smi}]")
+
+
 # -- phase 4 ------------------------------------------------------------------
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
     for _ in range(warmup):
@@ -1797,10 +2152,11 @@ def main() -> int:
     log("phase 2: kernels against their plain versions (exact)")
     err = check_kernels(dev)
     log("phase 3: the paths through the entry points")
-    out, robot, dist, fit, lp, plan, launches = drive_main_path(dev)
+    out, robot, dist, fit, lp, plan, oc, launches = drive_main_path(dev)
     log("phase 4: times (CUDA events)")
     t, bounds = timings(dev, smi, out, robot, dist, fit)
     list_timings(dev, smi, lp, plan)
+    octree_timings(dev, smi, oc)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],

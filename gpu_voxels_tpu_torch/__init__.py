@@ -5,7 +5,7 @@ rewritten by hand in CUDA C++ for Hopper (`csrc/`). Module paths mirror the
 JAX package so each module has one counterpart there; the JAX package is the
 reference every integer contract is held against.
 
-Five slices are ported. The engine's core loop on dense maps, sense ->
+Six slices are ported. The engine's core loop on dense maps, sense ->
 insert -> collide: `maps.voxelmap.ProbVoxelMap` / `BitVectorVoxelMap`,
 point insertion, prob x prob counting and marking collides (CUDA kernels
 K1, K2), depth-camera fusion with the exact projective carve (CUDA kernel
@@ -25,7 +25,13 @@ prob and counting lists, linear and 60-bit Morton ids, `morton`), whose
 swept-volume bit check runs K4, the dense maps' and the lists' disk files
 (`utils.io`, byte-equal to the reference's), and `planning` (the batched
 validity checker, the motion validator, RRT-Connect and the path
-simplifier). The rest of the dense-map tier rides along: the DDA
+simplifier). And the octree tiers with BASELINE config #5:
+`maps.hierarchical.HierarchicalProbMap` / `HierarchicalBitMap` (the dense
+status pyramid, whose depth fusion runs K3 and K6),
+`maps.paged.PagedHierarchicalMap` (the paged sparse tier up to 65536^3,
+deterministic and probabilistic), their disk files, the facade's octree
+map types, `planning.HierarchicalValidityChecker` and the list x octree
+collides. The rest of the dense-map tier rides along: the DDA
 `insert_sensor_data`, `CountingVoxelMap`, `collide_with_resolution`, the
 streaming and socket depth sources and `providers.Provider`. Around them:
 the `GpuVoxels` facade and interop with the JAX package. Every method of the reference that is
@@ -41,4 +47,34 @@ from .constants import BitVoxelMeaning, MapType
 
 __version__ = "0.1.0"
 
-__all__ = ["BitVoxelMeaning", "MapType", "__version__"]
+# the top-level surface, resolved on first use (as in the reference package)
+_LAZY = {
+    "GpuVoxels": "gpu_voxels_tpu_torch.api",
+    "ProbVoxelMap": "gpu_voxels_tpu_torch.maps.voxelmap",
+    "BitVectorVoxelMap": "gpu_voxels_tpu_torch.maps.voxelmap",
+    "CountingVoxelMap": "gpu_voxels_tpu_torch.maps.voxelmap",
+    "DistanceVoxelMap": "gpu_voxels_tpu_torch.maps.distance_map",
+    "VoxelList": "gpu_voxels_tpu_torch.maps.voxellist",
+    "HierarchicalProbMap": "gpu_voxels_tpu_torch.maps.hierarchical",
+    "HierarchicalBitMap": "gpu_voxels_tpu_torch.maps.hierarchical",
+    "PagedHierarchicalMap": "gpu_voxels_tpu_torch.maps.paged",
+    "MetaPointCloud": "gpu_voxels_tpu_torch.geometry.pointcloud",
+    "PointCloud": "gpu_voxels_tpu_torch.geometry.pointcloud",
+    "Sensor": "gpu_voxels_tpu_torch.sensors",
+}
+
+
+def __getattr__(name):
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(mod), name)
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_LAZY))
+
+
+__all__ = ["BitVoxelMeaning", "MapType", "__version__", *sorted(_LAZY)]

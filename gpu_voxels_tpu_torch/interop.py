@@ -8,7 +8,10 @@ compared byte for byte. Bit planes and packed distance-map coordinates are
 uint32 in the reference and int32 here; the conversion reinterprets the
 same bits (``np.ndarray.view``), it never converts values. A voxel list's
 (ids_hi, ids) uint32 words become the port's int64 keys and back
-(maps/voxellist.py). Everything lands on `device` (default: the card).
+(maps/voxellist.py). A dense hierarchy travels as its occupancy grid and
+its pyramid levels, a paged map as its device arrays, its counters and its
+host directories (`PAGED_ARRAYS`). Everything lands on `device` (default:
+the card).
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import torch
 
 from .geometry.pointcloud import MetaPointCloud
 from .maps.distance_map import DistanceVoxelMap
+from .maps.hierarchical import HierarchicalBitMap, HierarchicalProbMap
+from .maps.paged import PagedHierarchicalMap
 from .maps.voxellist import KIND_BIT, VoxelList, join_keys, split_keys
 from .maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
 from .robot.dh import DHJointType, DHParameters, KinematicChain
@@ -129,11 +134,66 @@ def kinematic_chain_from_numpy(link_names, dh_rows, joint_types, points, cloud_i
     return KinematicChain(list(link_names), params, clouds, lower_limits=lower_limits, upper_limits=upper_limits)
 
 
+def hierarchical_map_from_numpy(pyramid, dims, side_length: float, levels: int, occupancy=None,
+                                device=None):
+    """A HierarchicalProbMap (given its int8[Zp, Yp, Xp] `occupancy`) or a
+    HierarchicalBitMap (without one) over copies of the uint8 `pyramid`
+    levels, taken as they are (not rebuilt)."""
+    device = resolve_device(device)
+    pyr = tuple(torch.tensor(np.asarray(p), device=device) for p in pyramid)
+    if len(pyr) != levels + 1 or any(p.dtype != torch.uint8 for p in pyr):
+        raise ValueError(f"the pyramid must be {levels + 1} uint8 levels")
+    dims = tuple(int(d) for d in dims)
+    if occupancy is None:
+        return HierarchicalBitMap(pyr, dims, float(side_length), int(levels))
+    occ = np.asarray(occupancy)
+    if occ.dtype != np.int8 or occ.shape != tuple(pyr[0].shape):
+        raise ValueError(f"occupancy must be int8{tuple(pyr[0].shape)}, got {occ.dtype}{occ.shape}")
+    return HierarchicalProbMap(torch.tensor(occ, device=device), pyr, dims, float(side_length), int(levels))
+
+
+# a paged map's device arrays, by attribute name (occ_pool only in the
+# probabilistic tier)
+PAGED_ARRAYS = ("skeys", "srows", "pages", "block_summaries", "page_coord", "pool", "occ_pool", "slot_block",
+                "slot_page", "slot_within")
+
+
+def paged_map_from_numpy(state: dict, device=None) -> PagedHierarchicalMap:
+    """A PagedHierarchicalMap over copies of a paged map's state: `dims`,
+    `side_length`, `probabilistic`, the `pyramid` levels, the arrays of
+    PAGED_ARRAYS (uint32 nowhere: int32, uint8 and int8 as the reference
+    holds them), the counters `n_pages` and `n_slots`, and the host
+    directories `page_of` (page key -> row) and `slot_of` (block key ->
+    slot)."""
+    m = PagedHierarchicalMap(state["dims"], state["side_length"], probabilistic=state["probabilistic"],
+                             device=device)
+    m.pyramid = tuple(torch.tensor(np.asarray(p), device=m.device) for p in state["pyramid"])
+    for name in PAGED_ARRAYS:
+        a = state[name]
+        setattr(m, name, None if a is None else torch.tensor(np.asarray(a), device=m.device))
+    m._n_pages, m._n_slots = int(state["n_pages"]), int(state["n_slots"])
+    m._page_of = {int(k): int(v) for k, v in state["page_of"].items()}
+    m._slot_of = {int(k): int(v) for k, v in state["slot_of"].items()}
+    return m
+
+
 def to_numpy(m):
     """The map's arrays in the reference's dtypes: int8[N] for a ProbVoxelMap
     or a CountingVoxelMap, (uint32[8, N] planes, uint8[N] occ or None) for a
     BitVectorVoxelMap, uint32[N] for a DistanceVoxelMap, and the reference's
-    (ids uint32[C], ids_hi uint32[C], payload, count int) for a VoxelList."""
+    (ids uint32[C], ids_hi uint32[C], payload, count int) for a VoxelList,
+    (occupancy int8 grid or None, [uint8 pyramid levels]) for a dense
+    hierarchy, and the state dict of `paged_map_from_numpy` for a paged map."""
+    if isinstance(m, (HierarchicalProbMap, HierarchicalBitMap)):
+        occ = m.occupancy.cpu().numpy() if isinstance(m, HierarchicalProbMap) else None
+        return occ, [p.cpu().numpy() for p in m.pyramid]
+    if isinstance(m, PagedHierarchicalMap):
+        state = {name: (None if getattr(m, name) is None else getattr(m, name).cpu().numpy())
+                 for name in PAGED_ARRAYS}
+        state.update(dims=m.dims, side_length=m.side_length, probabilistic=m.probabilistic,
+                     pyramid=[p.cpu().numpy() for p in m.pyramid], n_pages=m._n_pages, n_slots=m._n_slots,
+                     page_of=dict(m._page_of), slot_of=dict(m._slot_of))
+        return state
     if isinstance(m, VoxelList):
         hi, lo = (w.cpu().numpy().astype(np.uint32) for w in split_keys(m.keys, m.id_mode))
         payload = m.payload.cpu().numpy()

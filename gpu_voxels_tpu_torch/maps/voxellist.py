@@ -57,7 +57,7 @@ from ..constants import (MAX_PROBABILITY, MIN_PROBABILITY, NUM_BIT_PLANES, UNKNO
 from ..morton import LO30_MASK, U32_MASK, inv_morton_code60, morton_key60
 from ..ops import collide as collide_ops
 from ..ops import collide_cuda
-from ..ops.insert import linear_offset, map_to_voxels
+from ..ops.insert import linear_offset, map_to_voxels, shifted
 from ..utils import resolve_device, to_device
 from ..utils.io import DiskIO
 
@@ -129,11 +129,6 @@ def _linear_ids(coords: torch.Tensor, dims: Dims) -> torch.Tensor:
     dx, dy, _ = dims
     c = coords.to(torch.int64) & U32_MASK
     return (_mul_u32(c[..., 2], dx * dy) + _mul_u32(c[..., 1], dx) + c[..., 0]) & U32_MASK
-
-
-def _shifted(coords: torch.Tensor, offset, sign: int = 1) -> torch.Tensor:
-    """int32 coords + sign * offset (a Python triple: no device copy)."""
-    return torch.stack([coords[..., i] + sign * int(offset[i]) for i in range(3)], dim=-1)
 
 
 def _run_starts(idx: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
@@ -433,7 +428,7 @@ class VoxelList(DiskIO):
         not alias: they are dropped before the search."""
         coords = self.entry_coords()
         if tuple(offset) != (0, 0, 0):
-            coords = _shifted(coords, offset)
+            coords = shifted(coords, offset)
         bound = (1 << 20,) * 3 if other.id_mode == "morton" else other.dims
         live = (self.keys != self.empty) & torch.all(coords >= 0, dim=-1)
         for axis, b in enumerate(bound):
@@ -444,20 +439,23 @@ class VoxelList(DiskIO):
     def collide_with(self, other, offset=(0, 0, 0)) -> torch.Tensor:
         """collideWith dispatch: list x list counts shared voxel ids
         (collideVoxellists, TemplateVoxelList.hpp:228-275); list x dense map
-        is the per-entry lookup collide (kernelCollideWithVoxelMap). List x
-        octree (the hierarchical and paged maps) is not ported yet."""
+        is the per-entry lookup collide (kernelCollideWithVoxelMap); list x
+        octree forwards to the octree's probe at my coords + offset
+        (CollidableWithBitVectorOctree, CollisionInterfaces.h:231-243: the
+        reference implements it only inside GvlNTree)."""
+        from .hierarchical import _PyramidQueries
+        from .paged import PagedHierarchicalMap
         from .voxelmap import BitVectorVoxelMap, ProbVoxelMap
 
+        if isinstance(other, (_PyramidQueries, PagedHierarchicalMap)):
+            return other.collide_with(self, offset=offset)
         if isinstance(other, (BitVectorVoxelMap, ProbVoxelMap)):
             return self.collide_with_dense(other, offset=offset)
         if isinstance(other, VoxelList):
             if other.id_mode != self.id_mode:
                 return self._collide_voxellist_cross_mode(other, offset)
             return self._collide_voxellist(other, offset)
-        raise NotImplementedError(
-            f"collide_with({type(other).__name__}) is not ported yet: list x octree collides come with "
-            "the hierarchical and paged tiers (ROADMAP Queue 1 items 10b and 11)"
-        )
+        raise TypeError(f"cannot collide a VoxelList with {type(other).__name__}")
 
     def _coarse_keys(self, coords: torch.Tensor, level: int, valid: torch.Tensor) -> torch.Tensor:
         """int64 sort keys of 2^level-coarse cells (20 bits per axis, the
@@ -482,7 +480,7 @@ class VoxelList(DiskIO):
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         if self.capacity == 0:
             return zero
-        coords_a = _shifted(self.entry_coords(), offset, -1)
+        coords_a = shifted(self.entry_coords(), offset, -1)
         valid_a = torch.arange(self.capacity, device=self.device) < self.count
         keys_a, order = torch.sort(self._coarse_keys(coords_a, lvl, valid_a), stable=True)
         ones = torch.ones((1,), dtype=torch.bool, device=self.device)

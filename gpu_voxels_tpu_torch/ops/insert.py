@@ -76,6 +76,16 @@ def in_map(coords: torch.Tensor, dims: Dims) -> torch.Tensor:
     return inside
 
 
+def shifted(coords: torch.Tensor, offset, sign: int = 1) -> torch.Tensor:
+    """int32 coords + sign * offset, the offset a Python triple (no device copy)."""
+    return torch.stack([coords[..., i] + sign * int(offset[i]) for i in range(3)], dim=-1)
+
+
+def clamp_coords(coords: torch.Tensor, dims: Dims) -> torch.Tensor:
+    """int coords clamped into [0, dims) per axis."""
+    return torch.stack([coords[..., i].clamp(0, int(dims[i]) - 1) for i in range(3)], dim=-1)
+
+
 def insert_prob(data: torch.Tensor, points: torch.Tensor, side_length: float, dims: Dims, meaning):
     """ProbVoxelMap point insert: voxel occupancy SET to the meaning's value
     (ProbabilisticVoxel::insert, a store not an update). Returns (new, outside)."""

@@ -22,11 +22,8 @@ import numpy as np
 import torch
 
 from ..constants import float_to_probability
-from ..ops.insert import in_map, linear_index, map_to_voxels
+from ..ops.insert import clamp_coords, in_map, linear_index, map_to_voxels
 from ..utils import to_device
-
-HIERARCHICAL = "ROADMAP Queue 1 item 10b: the hierarchical tier"
-
 
 def _count_distinct_hits(lin: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
     """Distinct colliding voxels along the last axis (duplicates collapse,
@@ -83,10 +80,43 @@ class GvlValidityChecker:
 
 
 class HierarchicalValidityChecker(GvlValidityChecker):
-    """Validity against the hierarchical (octree-tier) maps: not ported yet."""
+    """Validity against a hierarchical map (BASELINE config #5: an octree-tier
+    map against the robot's voxels inside motion checks). Each robot voxel
+    probes the status pyramid top down, so mostly-uniform space costs one
+    coarse gather.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"HierarchicalValidityChecker is not ported yet ({HIERARCHICAL})")
+    Takes a dense HierarchicalBitMap / HierarchicalProbMap, a PagedSnapshot
+    or a PagedHierarchicalMap (probed through its snapshot; after the paged
+    map changes, `refresh()` takes a new one). Distinct colliding voxels are
+    counted on int64 linear keys, exact at every world size; the
+    reference's uint32 key wraps past 2^32 voxels (F15)."""
+
+    def __init__(self, env_map, robot, max_colliding_voxels: int = 0, min_level: int = 0):
+        self._env_source = env_map if hasattr(env_map, "snapshot") else None
+        self.env = env_map.snapshot() if self._env_source is not None else env_map
+        self.robot = robot
+        self.max_colliding = int(max_colliding_voxels)
+        self.min_level = int(min_level)
+        self.host_reads = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.env.device
+
+    def colliding_voxels_device(self, cfgs) -> torch.Tensor:
+        env = self.env
+        cfg = to_device(cfgs, torch.float32, env.device)
+        coords = map_to_voxels(self.robot.transformed_clouds_for(cfg).points, env.side_length)
+        inside = in_map(coords, env.dims)
+        coords = clamp_coords(coords, env.dims)
+        occ, _, _ = env.probe_clamped(coords, self.min_level)
+        return _count_distinct_hits(linear_index(coords, env.dims), occ & inside)
+
+    def refresh(self) -> None:
+        """Take a new snapshot of a paged environment after it changed; a
+        no-op for a dense one, which the caller rebinds through `env`."""
+        if self._env_source is not None:
+            self.env = self._env_source.snapshot()
 
 
 class MotionValidator:

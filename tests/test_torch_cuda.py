@@ -455,3 +455,106 @@ def test_k5_k6_raise_on_inputs_they_do_not_take(cuda_device):
         raycast_cuda.projective_free_space_pooled(depth, torch.eye(4), 1.0, 1.0, 2.0, 2.0, 1.0, (4, 4, 4), pool=0)
     with pytest.raises(ValueError):
         raycast_cuda.projective_free_space_pooled(depth.double(), torch.eye(4), 1.0, 1.0, 2.0, 2.0, 1.0, (4, 4, 4))
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, the octree tiers included, imports without
+    JAX or the JAX package (the card's machine has neither)."""
+    import subprocess
+    import sys
+
+    code = ("import importlib, pkgutil, sys, gpu_voxels_tpu_torch as p\n"
+            "for m in pkgutil.walk_packages(p.__path__, 'gpu_voxels_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'gpu_voxels_tpu.'))]\n"
+            "assert not bad and 'gpu_voxels_tpu_torch.maps.paged' in sys.modules, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=str(kernels.BUILD_DIR.parent.parent))
+
+
+def _fusion_sensor():
+    from gpu_voxels_tpu_torch.sensors import Sensor
+
+    return Sensor(position=np.asarray([3.2, 3.1, 0.05], np.float32),
+                  orientation_rpy=np.asarray([0.05, -0.03, 0.02], np.float32), data_width=64, data_height=48,
+                  fx=52.0, fy=52.0, cx=32.0, cy=24.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [1, 8])
+@pytest.mark.parametrize("kind", ["bit", "prob"])
+def test_hierarchical_fusion_runs_k3_k6_and_matches_plain(cuda_device, monkeypatch, kind, pool):
+    """Both dense tiers' insert_depth_image on the card: K3 (carve_pool 1) or
+    K6 (carve_pool 8) launches once a frame, and the pyramid equals the same
+    frames through the plain carves on the card and on the CPU."""
+    from gpu_voxels_tpu_torch.maps import hierarchical
+
+    cls = hierarchical.HierarchicalBitMap if kind == "bit" else hierarchical.HierarchicalProbMap
+    sensor = _fusion_sensor()
+    rng = np.random.default_rng(3)
+    frames = [rng.uniform(1.0, 6.0, (48, 64)).astype(np.float32) for _ in range(2)]
+    frames[1][5:9, 7:20] = 0.0
+
+    def fuse(device):
+        m = cls.create((80, 72, 66), 0.1, device=device)
+        for f in frames:
+            m = m.insert_depth_image(f, sensor, carve_pool=pool)
+        return m
+
+    name = "projective_free_space_exact" if pool == 1 else "projective_free_space_pooled"
+    before = raycast_cuda.launches[name]
+    card = fuse(cuda_device)
+    torch.cuda.synchronize()
+    assert raycast_cuda.launches[name] == before + 2
+    cpu = fuse("cpu")
+    monkeypatch.setattr(raycast_cuda, "projective_free_space_exact", raycast_cuda.projective_free_space_plain)
+    monkeypatch.setattr(raycast_cuda, "projective_free_space_pooled", raycast_cuda.projective_free_space_pooled_plain)
+    plain = fuse(cuda_device)
+    for a, b, c in zip(card.pyramid, plain.pyramid, cpu.pyramid, strict=True):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    assert card.check_tree() and int(hierarchical.decode_status_flags(card.pyramid[0])[2].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prob", [False, True])
+def test_paged_tier_and_checker_on_card_match_cpu(cuda_device, prob):
+    """The paged tier on the card against the same calls on the CPU: the
+    whole state after allocating inserts and a ray-carved frame, probes at
+    every level band, and the hierarchical checker's counts."""
+    from gpu_voxels_tpu_torch import interop
+    from gpu_voxels_tpu_torch.geometry.pointcloud import MetaPointCloud
+    from gpu_voxels_tpu_torch.maps.paged import PagedHierarchicalMap
+    from gpu_voxels_tpu_torch.planning import HierarchicalValidityChecker
+
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(0, 4096, (3000, 3)).astype(np.float32)
+    rays = (np.array([2000.37, 2001.61, 1999.83], np.float32) + rng.uniform(-60, 60, (257, 3))).astype(np.float32)
+    maps = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        m = PagedHierarchicalMap((4096,) * 3, 1.0, probabilistic=prob, device=dev)
+        m.insert_point_cloud(pts)
+        m.insert_point_cloud(pts[:1000] * 0.5, 0)
+        m.insert_point_cloud_with_free_space(rays, (2000.37, 2001.61, 1999.83), max_steps=128)
+        maps[dev.type] = m
+    card, cpu = (interop.to_numpy(maps[k]) for k in ("cuda", "cpu"))
+    for key, value in cpu.items():
+        got = card[key]
+        assert (np.array_equal(got, value) if isinstance(value, np.ndarray) else
+                all(np.array_equal(a, b) for a, b in zip(got, value)) if isinstance(value, list) else got == value), key
+    q = np.floor(np.concatenate([pts[:500], rays[:200]])).astype(np.int32)
+    for lvl in (0, 1, 3, 6, maps["cpu"].fine_levels):
+        assert torch.equal(maps["cuda"].probe_status(q, lvl).cpu(), maps["cpu"].probe_status(q, lvl))
+    cloud = MetaPointCloud.from_clouds([rng.uniform(-3, 3, (400, 3)).astype(np.float32)], device="cpu")
+
+    class Translated:
+        def __init__(self, dev):
+            self.c = cloud.points.to(dev)
+
+        def transformed_clouds_for(self, cfg):
+            from dataclasses import replace
+
+            return replace(cloud, points=self.c + torch.as_tensor(cfg, device=self.c.device)[..., None, :])
+
+    states = np.floor(pts[:64]).astype(np.float32) + 0.37
+    counts = [HierarchicalValidityChecker(maps[k], Translated(maps[k].device)).batch_colliding_voxels(states)
+              for k in ("cuda", "cpu")]
+    assert np.array_equal(*counts) and counts[0].sum() > 0

@@ -155,8 +155,24 @@ def test_joint_space_and_path_match_reference():
 
 
 def test_hierarchical_validity_checker_is_not_ported():
-    with pytest.raises(NotImplementedError, match="10b"):
-        HierarchicalValidityChecker(None, None)
+    """Named when the checker raised; since the hierarchical tier is ported
+    it counts a point robot's colliding voxels against a dense hierarchy
+    (tests/test_torch_octree_io.py holds it against the reference)."""
+    from gpu_voxels_tpu_torch.geometry.pointcloud import MetaPointCloud
+    from gpu_voxels_tpu_torch.maps.hierarchical import HierarchicalBitMap
+
+    env = HierarchicalBitMap.create((16, 16, 16), 1.0, device="cpu").insert_point_cloud(
+        np.array([[3.5, 4.5, 5.5], [3.5, 4.5, 6.5]], np.float32))
+
+    class Point:
+        def transformed_clouds_for(self, cfg):
+            pts = torch.tensor([[0.5, 0.5, 0.5], [0.5, 0.5, 1.5], [0.5, 0.5, 1.7]]) + torch.as_tensor(cfg)[..., None, :]
+            return MetaPointCloud(pts, torch.zeros(3, dtype=torch.int64), (0, 3), ("p",))
+
+    checker = HierarchicalValidityChecker(env, Point())
+    assert checker.colliding_voxels(np.array([3.0, 4.0, 5.0], np.float32)) == 2
+    assert checker.batch_colliding_voxels(np.array([[3.0, 4.0, 5.0], [9.0, 9.0, 9.0]], np.float32)).tolist() == [2, 0]
+    assert checker.host_reads == 2 and not checker.is_valid(np.array([3.0, 4.0, 4.0], np.float32))
 
 
 # -- the UR10 (forward kinematics) ------------------------------------------------

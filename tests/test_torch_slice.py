@@ -70,9 +70,10 @@ def test_facade_registry():
     assert m.device.type == "cpu"
     with pytest.raises(ValueError):
         gvl.add_map(MapType.MT_BITVECTOR_VOXELMAP, "bits")
-    for mt in (MapType.MT_PROBAB_OCTREE, MapType.MT_BITVECTOR_OCTREE):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            gvl.add_map(mt, "other")
+    for mt, cls in ((MapType.MT_PROBAB_OCTREE, "HierarchicalProbMap"),
+                    (MapType.MT_BITVECTOR_OCTREE, "HierarchicalBitMap")):  # octrees since items 10b and 11
+        octree = gvl.add_map(mt, mt.name)
+        assert type(octree).__name__ == cls and octree.map_type == mt and octree.device.type == "cpu"
     for mt in (MapType.MT_COUNTING_VOXELLIST, MapType.MT_BITVECTOR_VOXELLIST):  # voxel lists since item 9
         lst = gvl.add_map(mt, mt.name)
         assert lst.map_type == mt and lst.device.type == "cpu" and lst.capacity == 0

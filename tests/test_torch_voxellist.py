@@ -366,8 +366,18 @@ def test_cross_id_mode_collide_and_guards():
 
 
 def test_list_octree_collide_raises():
-    with pytest.raises(NotImplementedError, match="10b and 11"):
-        pair("bit")[1].collide_with(object())
+    """Named when list x octree raised; since the octree tiers are ported it
+    forwards to the octree's probe at the list's coords + offset, and a map
+    of no known kind raises TypeError."""
+    from gpu_voxels_tpu_torch.maps.hierarchical import HierarchicalBitMap
+
+    lst = insert(pair("bit"), np.array([[4.5, 1.5, 0.5], [5.5, 1.5, 0.5]], np.float32))[1]
+    octree = HierarchicalBitMap.create(lst.dims, lst.side_length, device="cpu").insert_point_cloud(
+        np.array([[5.5, 1.5, 0.5]], np.float32) * lst.side_length)
+    assert int(lst.collide_with(octree)) == int(octree.collide_with(lst)) == 1
+    assert int(lst.collide_with(octree, offset=(1, 0, 0))) == 1 and int(lst.collide_with(octree, offset=(2, 0, 0))) == 0
+    with pytest.raises(TypeError):
+        lst.collide_with(object())
 
 
 def test_collide_with_resolution_lists():
@@ -517,5 +527,5 @@ def test_facade_builds_and_fills_every_list_type():
         t.update_map(name, lambda m: m.remove_underpopulated(2) if m.kind == "count" else m)
         t.clear_map(name)
         assert int(t.get_map(name).count) == 0
-    with pytest.raises(NotImplementedError, match="10b and 11"):
-        t.add_map(MapType.MT_BITVECTOR_OCTREE, "octree")
+    octree = t.add_map(MapType.MT_BITVECTOR_OCTREE, "octree")  # since items 10b and 11
+    assert type(octree).__name__ == "HierarchicalBitMap" and octree.device.type == "cpu"
