@@ -33,7 +33,7 @@ non-zero and prints no result. Phases, each an assert or an exception:
    set only in plane 7's bit 31, which must) over the offsets, a length
    that is not a multiple of 4, the all-zero map, and one pair at 512^3
    (8.6 GB of planes);
-3. seven paths through the public entry points, on the card, with torch's
+3. eight paths through the public entry points, on the card, with torch's
    sync debug mode set to raise (the paths never wait for the device), each
    driven with every launch count set to 0 just before it and read just
    after; each kernel of a path must have launched in it:
@@ -114,6 +114,27 @@ non-zero and prints no result. Phases, each an assert or an exception:
      insert; and the octree collides (octree x dense map, octree x octree,
      list x octree with an offset). The allocating paged inserts, the
      checker's counts, check_tree and the files read the device on purpose;
+   - the facade path (K1, K3, K6, K7): tests/test_collision_matrix.py's 8x8
+     type x type matrix through the facade at 256^3 with 300,000 points a
+     map (60,000 shared): every supported ordered pair equal to a numpy set
+     oracle, every unsupported pair a TypeError, and the bit pair without
+     summaries (K7); save_map -> load_map of every map type the facade makes
+     at 256^3 and of both paged octrees at 4096^3 (a second facade), each
+     file equal to io.write_map of a CPU copy, each loaded map re-saved
+     equal; add_robot of examples/models/pan_tilt.urdf swept through five
+     joint configurations at 4 mm voxels (every FK point >= 1e-3 voxel from
+     a cell boundary) and collided with a box, equal to the same calls on
+     the CPU; insert_point_cloud_from_file of a Kinect frame's 307,200
+     endpoints (.xyz, binary .pcd) equal to direct inserts; two
+     Provider(live_vis=True) over the 5 frames at carve_pool 1 (K3) and 8
+     (K6), their maps equal to the plain route and their last layers to a
+     CPU copy's; visualize of the fused 256^3 map, a 512^3
+     HierarchicalBitMap fused from a frame and the 4096^3 paged map, each
+     layer file equal to a CPU copy's publish, the host reads and the bytes
+     read back counted (O(extracted): at most 64 bytes a published cube);
+     compacted_nonzero reads the device twice and print_voxel_map_data once.
+     The files, the paged allocations and the publishes read the device on
+     purpose;
    every count, meanings vector, map, distance and payload grid must equal
    the same scene run through the plain route, and the 512^3 EDT must equal
    a brute-force minimum over the obstacles at 4,096 sampled voxels;
@@ -133,7 +154,11 @@ non-zero and prints no result. Phases, each an assert or an exception:
    states, one check_motion and one solve with its host reads; and the
    octree path: BASELINE #5's batch on the dense and the paged tier, the
    1024^3 builds, a 512^3 fusion frame into each dense tier at both carves,
-   and the 4096^3 paged Kinect insert in steady state and allocating.
+   and the 4096^3 paged Kinect insert in steady state and allocating; and
+   the facade path: the 8x8 matrix's pairs (total and slowest), extract_cubes
+   of the fused 256^3 map and of a 512^3 bit map, one publish per tier,
+   save_map / load_map per tier and a URDF add_robot + insert + collide
+   (host clock where the work is on the host).
 
 Output: progress lines, the card's `name, power.limit` line, one JSON line
 {"kernels": [...]} (each kernel with its launches on the paths, its largest
@@ -149,11 +174,13 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -163,7 +190,7 @@ from torch.profiler import ProfilerActivity, profile
 from gpu_voxels_tpu_torch import bitops, converters, interop
 from gpu_voxels_tpu_torch.api import GpuVoxels
 from gpu_voxels_tpu_torch.constants import SV_START, BitVoxelMeaning, MapType
-from gpu_voxels_tpu_torch.geometry import generation, transforms
+from gpu_voxels_tpu_torch.geometry import files, generation, transforms
 from gpu_voxels_tpu_torch.geometry.pointcloud import MetaPointCloud
 from gpu_voxels_tpu_torch.maps.distance_map import DistanceVoxelMap
 from gpu_voxels_tpu_torch.maps.hierarchical import (HierarchicalBitMap, HierarchicalProbMap, _PyramidQueries,
@@ -173,6 +200,7 @@ from gpu_voxels_tpu_torch.maps.voxellist import (VoxelList, bit_vector_morton_vo
                                                  counting_voxel_list, prob_voxel_list)
 from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
 from gpu_voxels_tpu_torch.ops import collide_cuda, edt, edt_cuda, edt_envelope, raycast, raycast_cuda
+from gpu_voxels_tpu_torch.ops.compact import compacted_nonzero
 from gpu_voxels_tpu_torch.planning import (GvlValidityChecker, HierarchicalValidityChecker, JointSpace, MotionValidator,
                                            PathSimplifier, RRTConnect)
 from gpu_voxels_tpu_torch.providers import Provider
@@ -183,6 +211,8 @@ from gpu_voxels_tpu_torch.robot.swept_volume import insert_swept_volume_batched
 from gpu_voxels_tpu_torch.robot.trajectory import load_trajectories
 from gpu_voxels_tpu_torch.sensors import Sensor, StreamingDepthSource, SyntheticDepthSource
 from gpu_voxels_tpu_torch.utils import io, kernels, to_device
+from gpu_voxels_tpu_torch.vis import extract as vis_extract
+from gpu_voxels_tpu_torch.vis.provider import VisProvider
 
 INTR = (525.0, 525.0, 320.0, 240.0)  # Kinect 640x480 (BASELINE config #2)
 FUSION_DIMS, FUSION_SIDE = (256, 256, 256), 0.02
@@ -272,6 +302,26 @@ C5_DIMS, C5_OBSTACLES, C5_ROBOT_POINTS, C5_STATES, C5_SEED = (1024, 1024, 1024),
 PAGED_DIMS = (4096, 4096, 4096)  # past the dense wall: the facade takes the paged tier
 PAGED_LEVELS = (0, 1, 3, 6)
 HIER_DIMS, HIER_SIDE = (512, 512, 512), 0.01  # the carve poses' 5.12 m cube at 512^3
+# path 8: tests/test_collision_matrix.py's types and support rule at 256^3, a
+# Kinect frame's worth of points a map; the pan/tilt URDF (its mesh is
+# tilt_link.binvox, 252 points) at 4 mm voxels, under joint values whose FK
+# points keep >= 1e-3 voxel from every cell boundary (F4)
+MATRIX_DIMS, MATRIX_POINTS, MATRIX_SHARED, MATRIX_SEED = (256, 256, 256), 300_000, 60_000, 3
+MATRIX_TYPES = [
+    ("prob", MapType.MT_PROBAB_VOXELMAP),
+    ("bit", MapType.MT_BITVECTOR_VOXELMAP),
+    ("bitlist", MapType.MT_BITVECTOR_VOXELLIST),
+    ("mortonlist", MapType.MT_BITVECTOR_MORTON_VOXELLIST),
+    ("problist", MapType.MT_PROBAB_VOXELLIST),
+    ("countlist", MapType.MT_COUNTING_VOXELLIST),
+    ("hierbit", MapType.MT_BITVECTOR_OCTREE),
+    ("hierprob", MapType.MT_PROBAB_OCTREE),
+]
+MATRIX_DENSE = {"prob", "bit"}
+URDF_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "models", "pan_tilt.urdf")
+URDF_DIMS, URDF_SIDE, URDF_POINTS = (256, 256, 256), 0.004, 252
+URDF_CONFIGS = ((0.562, 0.87), (0.68, 0.281), (0.131, 0.05), (0.913, 0.593), (0.143, 0.075))
+URDF_BOX = ((0.45, 0.1, 0.4), (0.62, 0.5, 0.6))
 # H100 SXM data sheet: HBM rate and the f32 rate
 # outside the tensor cores, which the integer and f32 ops here are held to
 HBM_BYTES_PER_S = 3.35e12
@@ -1013,7 +1063,7 @@ def same_types(x, y) -> bool:
     return int(x[0]) == int(y[0]) and torch.equal(x[1], y[1]) and same_map(x[2], y[2])
 
 
-def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict]:
+def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, dict]:
     log("  sense -> insert -> collide (K1, K2, K3, K6 through the pooled Provider)")
     out, launches = drive(main_path, {"count_prob_prob", "count_and_mark_prob", "projective_free_space_exact",
                                       "projective_free_space_pooled", "min_pool_depth"}, dev)
@@ -1099,7 +1149,16 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, di
                                           "min_pool_depth"}, dev)
     add_launches(launches, oc_launches)
     check_octree_path(oc, dev)
-    return out, robot, dist, fit, lp, plan, oc, launches
+
+    log("  the facade: the 8x8 collision matrix, files, URDF, visualization (K1, K3, K6, K7)")
+    fp, fp_launches = drive(facade_path, {"count_prob_prob", "projective_free_space_exact",
+                                          "projective_free_space_pooled", "min_pool_depth", "count_bit_bit"},
+                            dev, out["frames"])
+    add_launches(launches, fp_launches)
+    fp["frames"] = out["frames"]
+    log(f"  path 8 launched K1 {fp_launches['count_prob_prob']} and K7 {fp_launches['count_bit_bit']} times")
+    check_facade_path(fp, dev)
+    return out, robot, dist, fit, lp, plan, oc, fp, launches
 
 
 def check_live_sensing(out: dict, dev: torch.device) -> None:
@@ -1274,6 +1333,8 @@ def cpu_copy(x):
         return x.cpu()
     if isinstance(x, (VoxelList, _PyramidQueries)):
         return x.to("cpu")
+    if isinstance(x, PagedHierarchicalMap):
+        return interop.paged_map_from_numpy(interop.to_numpy(x), device="cpu")
     if isinstance(x, (ProbVoxelMap, BitVectorVoxelMap, CountingVoxelMap, DistanceVoxelMap)):
         occ = getattr(x, "occ", None)
         return replace(x, data=x.data.cpu(), **({} if occ is None else {"occ": occ.cpu()}))
@@ -1886,6 +1947,390 @@ def octree_timings(dev: torch.device, smi: str, oc: dict) -> None:
                 f"steady state {steady_ms:.4f} ms, allocating {alloc_ms:.4f} ms ({steady.n_tiles()} tiles)  [{smi}]")
 
 
+# -- path 8 -------------------------------------------------------------------
+def matrix_scene() -> tuple[np.ndarray, np.ndarray]:
+    """tests/test_collision_matrix.py's scene at MATRIX_DIMS: two uniform
+    clouds of MATRIX_POINTS points that share a slab of MATRIX_SHARED."""
+    rng = np.random.default_rng(MATRIX_SEED)
+    hi = MATRIX_DIMS[0] - 2.0
+    a = rng.uniform(2.0, hi, (MATRIX_POINTS, 3)).astype(np.float32)
+    b = rng.uniform(2.0, hi, (MATRIX_POINTS, 3)).astype(np.float32)
+    b[:MATRIX_SHARED] = a[:MATRIX_SHARED]
+    return a, b
+
+
+def matrix_oracle(a: np.ndarray, b: np.ndarray) -> int:
+    """|occupied(A) n occupied(B)| on floor-voxelized coordinates (numpy)."""
+    dx, dy, _ = MATRIX_DIMS
+
+    def cells(p):
+        v = np.floor(p).astype(np.int64)
+        return np.unique((v[:, 2] * dy + v[:, 1]) * dx + v[:, 0])
+
+    return int(np.intersect1d(cells(a), cells(b), assume_unique=True).size)
+
+
+def matrix_supported(a: str, b: str) -> bool:
+    """Dense maps collide with dense maps only (BitVoxelMap.h:37-38,
+    ProbVoxelMap.h:36-37); lists and octrees with every tier."""
+    return b in MATRIX_DENSE if a in MATRIX_DENSE else True
+
+
+def count_of(r) -> torch.Tensor:
+    return r[0] if isinstance(r, tuple) else r
+
+
+def digest(path) -> str:
+    with open(path, "rb") as f:
+        return hashlib.file_digest(f, "sha256").hexdigest()
+
+
+@contextlib.contextmanager
+def counted_reads():
+    """Count the device -> host reads made inside the block (tensor.cpu()
+    and int() of a tensor; on the card every one reads the device) and
+    their bytes."""
+    tally = {"reads": 0, "bytes": 0}
+    cpu, to_int = torch.Tensor.cpu, torch.Tensor.__int__
+
+    def counting_cpu(self, *args, **kwargs):
+        tally["reads"] += 1
+        tally["bytes"] += self.numel() * self.element_size()
+        return cpu(self, *args, **kwargs)
+
+    def counting_int(self):
+        tally["reads"] += 1
+        tally["bytes"] += self.element_size()
+        return to_int(self)
+
+    torch.Tensor.cpu, torch.Tensor.__int__ = counting_cpu, counting_int
+    try:
+        yield tally
+    finally:
+        torch.Tensor.cpu, torch.Tensor.__int__ = cpu, to_int
+
+
+def facade_matrix(dev: torch.device) -> dict:
+    """(x) the 8x8 type x type collision matrix through the facade at
+    MATRIX_DIMS: every supported ordered pair's count (device tensors), the
+    TypeError of every unsupported pair, and one pair of bit maps without
+    their summaries (K7)."""
+    a, b = matrix_scene()
+    GpuVoxels._instance = None
+    gvl = GpuVoxels.get_instance()
+    gvl.initialize(*MATRIX_DIMS, 1.0, device=dev)
+    pts_a, pts_b = to_device(a, torch.float32, dev), to_device(b, torch.float32, dev)
+    for name, mt in MATRIX_TYPES:
+        for side, pts in (("A_", pts_a), ("B_", pts_b)):
+            gvl.add_map(mt, side + name)
+            gvl.insert_point_cloud_into_map(pts, side + name)
+    counts, refused = {}, []
+    for an, _ in MATRIX_TYPES:
+        for bn, _ in MATRIX_TYPES:
+            x, y = gvl.get_map("A_" + an), gvl.get_map("B_" + bn)
+            if matrix_supported(an, bn):
+                counts[(an, bn)] = count_of(x.collide_with(y))
+                continue
+            try:
+                x.collide_with(y)
+            except TypeError:
+                refused.append((an, bn))
+            else:
+                raise AssertionError(f"{an} x {bn} must raise TypeError")
+    raw = (raw_planes(gvl.get_map("A_bit")), raw_planes(gvl.get_map("B_bit")))
+    counts[("bit_raw", "bit_raw")] = raw[0].collide_with(raw[1])
+    return {"gvl": gvl, "counts": counts, "refused": refused, "raw": raw, "a": a, "b": b, "pts_a": pts_a}
+
+
+def facade_files(dev: torch.device, gvl: GpuVoxels, pts: torch.Tensor, rays: torch.Tensor, tmp: str) -> dict:
+    """(y) save_map -> load_map through the facade for every map type it
+    makes at MATRIX_DIMS (the matrix's A maps and a distance map) and, through
+    a second facade at PAGED_DIMS, both paged octrees holding a Kinect
+    frame's endpoints: each file's digest, the loaded map re-saved."""
+    gvl.add_map(MapType.MT_DISTANCE_VOXELMAP, "A_dist")
+    gvl.insert_point_cloud_into_map(pts, "A_dist")
+    names = [("A_" + n, mt) for n, mt in MATRIX_TYPES] + [("A_dist", MapType.MT_DISTANCE_VOXELMAP)]
+    paged = GpuVoxels()
+    paged.initialize(*PAGED_DIMS, FUSION_SIDE, device=dev)
+    out = {"maps": {}, "digests": {}, "reloaded": {}}
+    with host_reads():  # the files read the device; the paged inserts allocate
+        for prob, mt in ((False, MapType.MT_BITVECTOR_OCTREE), (True, MapType.MT_PROBAB_OCTREE)):
+            name = f"paged_{'prob' if prob else 'det'}"
+            paged.add_map(mt, name)
+            paged.insert_point_cloud_into_map(rays, name)
+            assert isinstance(paged.get_map(name), PagedHierarchicalMap)
+            names.append((name, mt))
+        for name, mt in names:
+            g = paged if name.startswith("paged") else gvl
+            path = os.path.join(tmp, f"{name}.bin")
+            g.save_map(name, path)
+            g.load_map(name + "_loaded", path)
+            g.save_map(name + "_loaded", path + ".again")
+            out["maps"][name] = g.get_map(name)
+            out["digests"][name] = digest(path)
+            out["reloaded"][name] = (digest(path + ".again"), g.get_map(name + "_loaded"))
+            os.remove(path)
+            os.remove(path + ".again")
+    out["paged"] = paged
+    return out
+
+
+def urdf_answers(dev: torch.device) -> dict:
+    """(z) add_robot of the pan/tilt URDF, swept through URDF_CONFIGS into a
+    bit map (one swept-volume meaning a configuration), collided with a box
+    inserted by insert_box_into_map; the FK points of every configuration."""
+    gvl = GpuVoxels()
+    gvl.initialize(*URDF_DIMS, URDF_SIDE, device=dev)
+    gvl.add_robot("pan_tilt", URDF_FILE)
+    gvl.add_map(MapType.MT_BITVECTOR_VOXELMAP, "sweep")
+    gvl.add_map(MapType.MT_BITVECTOR_VOXELMAP, "box")
+    gvl.insert_box_into_map(*URDF_BOX, "box", BitVoxelMeaning.eBVM_OCCUPIED, 2)
+    fk = []
+    for k, cfg in enumerate(URDF_CONFIGS):
+        gvl.set_robot_configuration("pan_tilt", dict(zip(("pan_joint", "tilt_joint"), cfg)))
+        gvl.insert_robot_into_map("pan_tilt", "sweep", SV_START + k)
+        fk.append(gvl.get_robot("pan_tilt").get_transformed_clouds().points)
+    sweep, box = gvl.get_map("sweep"), gvl.get_map("box")
+    return {"sweep": sweep, "box": box, "fk": fk, "count": sweep.collide_with(box),
+            "points": gvl.get_robot("pan_tilt").clouds.accumulated_size}
+
+
+def file_answers(dev: torch.device, rays: torch.Tensor, tmp: str) -> dict:
+    """(aa) insert_point_cloud_from_file of a Kinect frame's 307,200
+    endpoints as an .xyz and a binary .pcd file, beside direct inserts of
+    the points the files hold."""
+    with host_reads():
+        pts = rays.cpu().numpy()
+    xyz, pcd = os.path.join(tmp, "frame.xyz"), os.path.join(tmp, "frame.pcd")
+    files.write_xyz(xyz, pts)
+    with open(pcd, "wb") as f:
+        f.write((f"FIELDS x y z\nSIZE 4 4 4\nTYPE F F F\nCOUNT 1 1 1\nWIDTH {len(pts)}\nHEIGHT 1\n"
+                 f"POINTS {len(pts)}\nDATA binary\n").encode() + pts.astype("<f4").tobytes())
+    gvl = GpuVoxels()
+    gvl.initialize(*FUSION_DIMS, FUSION_SIDE, device=dev)
+    out = {"points": len(pts)}
+    for name, path in (("xyz", xyz), ("pcd", pcd)):
+        gvl.add_map(MapType.MT_PROBAB_VOXELMAP, name)
+        gvl.insert_point_cloud_from_file(name, path)
+        direct = ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev).insert_point_cloud(files.load_point_cloud(path))
+        out[name] = (gvl.get_map(name), direct)
+    out["pcd_exact"] = np.array_equal(files.load_point_cloud(pcd), pts)
+    return out
+
+
+def live_vis(dev: torch.device, frames) -> dict:
+    """(bb) Provider(live_vis=True) fed the 5 Kinect frames at carve_pool 1
+    (K3) and POOL (K6), publishing every frame through its worker thread."""
+    sensor = kinect_sensor()
+    out = {}
+    with host_reads():  # the publisher's worker reads the device while the frames go on
+        for pool in (1, POOL):
+            prov = Provider(f"live_pool{pool}", carve_pool=pool, live_vis=True)
+            prov.init(ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev))
+            for frame in frames:
+                prov.new_sensor_data(frame, sensor)
+                assert prov.visualize()
+            painted = prov.finish_visualization()
+            prov._vis_async.stop()
+            out[pool] = (prov.map, painted)
+    return out
+
+
+def publish(name: str, m, out_dir) -> dict:
+    """One VisProvider publish, its host reads counted; the layer's bytes."""
+    return counted_publish(lambda: VisProvider(name, out_dir).visualize(m), Path(out_dir) / f"{name}.cubes.json")
+
+
+def counted_publish(paint, layer: Path) -> dict:
+    with host_reads(), counted_reads() as tally:
+        t0 = time.perf_counter()
+        assert paint()
+        tally["ms"] = (time.perf_counter() - t0) * 1e3
+    tally["layer"] = layer.read_bytes()
+    return tally
+
+
+def facade_path(dev: torch.device, frames) -> dict:
+    """Path 8: the facade's IO and visualization at production sizes (ROADMAP
+    item 12) and the 8x8 collision matrix at MATRIX_DIMS (K1, K3, K6, K7)."""
+    tmp = tempfile.mkdtemp()
+    card_dir = Path(tmp) / "card"
+    os.environ["GPU_VOXELS_VIS_DIR"] = str(card_dir)  # every publisher made from here on writes there
+    out = {"tmp": tmp, "matrix": facade_matrix(dev)}
+    rays = kinect_sensor().process_depth_image(frames[0], device=dev)
+    out["rays"] = rays
+    out["files"] = facade_files(dev, out["matrix"]["gvl"], out["matrix"]["pts_a"], rays, tmp)
+    out["urdf"] = urdf_answers(dev)
+    out["from_file"] = file_answers(dev, rays, tmp)
+    out["live"] = live_vis(dev, frames)
+    # visualize_map of three maps through facades: the fused 256^3 map, a
+    # 512^3 HierarchicalBitMap fused from a frame (K3) and the 4096^3 paged map
+    fused = GpuVoxels()
+    fused.initialize(*FUSION_DIMS, FUSION_SIDE, device=dev)
+    fused.add_map(MapType.MT_PROBAB_VOXELMAP, "fused")
+    fused.set_map("fused", out["live"][1][0])
+    hier = GpuVoxels()
+    hier.initialize(*HIER_DIMS, HIER_SIDE, device=dev)
+    hier.add_map(MapType.MT_BITVECTOR_OCTREE, "hier512")
+    hier.update_map("hier512", lambda m: m.insert_depth_image(bench_frame(), PosedSensor(carve_poses()["bench"])))
+    views = {"fused": fused, "hier512": hier, "paged_det": out["files"]["paged"]}
+    out["vis_maps"] = {name: g.get_map(name) for name, g in views.items()}
+    out["published"] = {name: counted_publish(lambda: g.visualize_map(name), card_dir / f"{name}.cubes.json")
+                        for name, g in views.items()}
+    del os.environ["GPU_VOXELS_VIS_DIR"]
+    fused = out["vis_maps"]["fused"]
+    with host_reads(), counted_reads() as compaction:
+        compaction["idx"] = compacted_nonzero(fused.occupied_mask(0.5))
+    with host_reads(), counted_reads() as dump:
+        dump["text"] = fused.print_voxel_map_data(max_entries=4)
+    out["reads"] = {"compaction": compaction, "dump": dump}
+    return out
+
+
+def check_facade_path(fp: dict, dev: torch.device) -> None:
+    """Path 8's answers: the matrix against the set oracle, the files
+    against CPU copies' files, the URDF scene and the file inserts against
+    the same calls on the CPU, the live publishers' maps against the plain
+    route and their layers, and the three publishes, against CPU copies'."""
+    m = fp["matrix"]
+    want = matrix_oracle(m["a"], m["b"])
+    got = {pair: int(c) for pair, c in m["counts"].items()}
+    bad = {pair: c for pair, c in got.items() if c != want}
+    assert not bad and want > 0, (want, bad)
+    assert sorted(m["refused"]) == sorted((a, b) for a, _ in MATRIX_TYPES for b, _ in MATRIX_TYPES
+                                          if not matrix_supported(a, b))
+    log(f"  (x) 8x8 collision matrix at {MATRIX_DIMS[0]}^3, {MATRIX_POINTS} points a map ({MATRIX_SHARED} shared): "
+        f"{len(got) - 1} supported pairs and the summary-less bit pair count {want} == the numpy set oracle, "
+        f"{len(m['refused'])} unsupported pairs raise TypeError")
+    log("  per pair: " + ", ".join(f"{a}x{b} {c}" for (a, b), c in sorted(got.items())))
+
+    fl = fp["files"]
+    with host_reads():
+        for name, cur in fl["maps"].items():
+            path = os.path.join(fp["tmp"], f"{name}.cpu.bin")
+            io.write_map(cpu_copy(cur), path)
+            cpu_digest = digest(path)
+            os.remove(path)
+            again, loaded = fl["reloaded"][name]
+            assert fl["digests"][name] == cpu_digest == again, name
+            assert type(loaded) is type(cur) and loaded.device.type == dev.type, name
+            if isinstance(cur, (ProbVoxelMap, BitVectorVoxelMap, DistanceVoxelMap)):
+                assert torch.equal(loaded.data, cur.data), name
+    log(f"  (y) save_map -> load_map through the facade of {len(fl['maps'])} maps (prob, bit, distance, five lists, "
+        f"both octrees at {MATRIX_DIMS[0]}^3, both paged octrees at {PAGED_DIMS[0]}^3 with "
+        f"{fl['maps']['paged_det'].n_tiles()} tiles): every file == io.write_map of a CPU copy (sha256), every loaded "
+        f"map re-saved == the file")
+
+    u = fp["urdf"]
+    for pts in u["fk"]:
+        v = pts.cpu().numpy() / URDF_SIDE
+        assert float(np.abs(v - np.round(v)).min()) >= 1e-3  # F4: FK ulps cannot cross a cell boundary
+    cpu = urdf_answers(torch.device("cpu"))
+    assert u["points"] == cpu["points"] == URDF_POINTS
+    assert torch.equal(u["sweep"].data.cpu(), cpu["sweep"].data) and torch.equal(u["box"].data.cpu(), cpu["box"].data)
+    assert int(u["count"]) == int(cpu["count"]) > 0
+    log(f"  (z) add_robot(pan_tilt.urdf): {u['points']} mesh points swept through {len(URDF_CONFIGS)} configurations "
+        f"at {URDF_DIMS[0]}^3 ({URDF_SIDE} m), every FK point >= 1e-3 voxel from a cell boundary; x the box: "
+        f"{int(u['count'])} voxels; sweep, box and count == the same calls on the CPU")
+
+    ff = fp["from_file"]
+    for name in ("xyz", "pcd"):
+        card, direct = ff[name]
+        assert torch.equal(card.data, direct.data) and int((card.data > 0).sum()) > 0, name
+    assert ff["pcd_exact"]
+    log(f"  (aa) insert_point_cloud_from_file of {ff['points']} points (.xyz and binary .pcd) == direct inserts of the "
+        f"files' points (the .pcd holds the frame's points exactly)")
+
+    with plain_route():
+        sensor = kinect_sensor()
+        for pool, (card, painted) in fp["live"].items():
+            plain = ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev)
+            for frame in fp["frames"]:
+                plain = plain.insert_depth_image(frame, sensor, carve_pool=pool)
+            assert torch.equal(card.data, plain.data) and painted >= 1, pool
+    with host_reads():
+        for pool, (card, _) in fp["live"].items():
+            name = f"live_pool{pool}"
+            cpu_layer = publish(name, cpu_copy(card), Path(fp["tmp"]) / "cpu")["layer"]
+            assert (Path(fp["tmp"]) / "card" / f"{name}.cubes.json").read_bytes() == cpu_layer, name
+    log(f"  (bb) Provider(live_vis=True) over {len(fp['frames'])} frames at carve_pool 1 (K3) and {POOL} (K6): maps == "
+        f"plain route, {[p for _, p in fp['live'].values()]} snapshots painted, last layer == a CPU copy's publish")
+
+    for name, m in fp["vis_maps"].items():
+        card = fp["published"][name]
+        with host_reads():
+            want = publish(name, cpu_copy(m), Path(fp["tmp"]) / "cpu")["layer"]
+        assert card["layer"] == want, name
+        cubes = len(json.loads(want)["centers"])
+        n_voxels = math.prod(m.dims)
+        # O(extracted): a few bytes per published cube (compacted indices,
+        # gathered statuses, the tiles of open blocks), never O(voxels)
+        assert card["bytes"] <= 64 * cubes + 4096, (name, card["bytes"], cubes)
+        log(f"  (cc) visualize {name} ({type(m).__name__} {m.dims[0]}^3): layer == a CPU copy's publish "
+            f"({cubes} cubes, {len(card['layer'])} bytes); {card['reads']} host reads, {card['bytes']} bytes read "
+            f"back = {card['bytes'] / max(cubes, 1):.2f} bytes a cube, {card['bytes'] / n_voxels:.6f} bytes a voxel; "
+            f"{card['ms']:.1f} ms on the host")
+    reads = fp["reads"]
+    fused = cpu_copy(fp["vis_maps"]["fused"])
+    assert np.array_equal(reads["compaction"]["idx"], np.flatnonzero(fused.occupied_mask(0.5).numpy()))
+    assert reads["dump"]["text"] == fused.print_voxel_map_data(max_entries=4)
+    assert reads["compaction"]["reads"] == 2 and reads["dump"]["reads"] == 1, reads
+    log(f"  (dd) host reads: compacted_nonzero {reads['compaction']['reads']} ({reads['compaction']['bytes']} bytes), "
+        f"print_voxel_map_data {reads['dump']['reads']} ({reads['dump']['bytes']} bytes); both == the CPU copy's")
+    shutil.rmtree(fp["tmp"])
+
+
+def facade_timings(dev: torch.device, smi: str, fp: dict) -> None:
+    """Phase 4's times of path 8 (printed, never asserted): the matrix's
+    pairs (CUDA events), extract_cubes, one publish per tier, save_map /
+    load_map per tier and a URDF add_robot + insert + collide (host clock)."""
+    gvl = fp["matrix"]["gvl"]
+    pair_ms = {}
+    for an, _ in MATRIX_TYPES:
+        for bn, _ in MATRIX_TYPES:
+            if matrix_supported(an, bn):
+                x, y = gvl.get_map("A_" + an), gvl.get_map("B_" + bn)
+                pair_ms[(an, bn)] = time_ms(lambda: x.collide_with(y), 3, warmup=1)
+    raw = fp["matrix"]["raw"]
+    pair_ms[("bit_raw", "bit_raw")] = time_ms(lambda: raw[0].collide_with(raw[1]), 3, warmup=1)
+    slowest = max(pair_ms, key=pair_ms.get)
+    log(f"  8x8 matrix at {MATRIX_DIMS[0]}^3: {len(pair_ms)} pairs in {sum(pair_ms.values()):.4f} ms, the slowest "
+        f"{slowest[0]} x {slowest[1]} {pair_ms[slowest]:.4f} ms  [{smi}]")
+    log("  per pair (ms): " + ", ".join(f"{a}x{b} {ms:.3f}" for (a, b), ms in sorted(pair_ms.items())))
+    big = BitVectorVoxelMap.create(CYCLE_DIMS, 1.0, device=dev)
+    pts = to_device(generation.create_equidistant_points_in_box(307200, (511, 511, 511), 1.0), torch.float32, dev)
+    for k in range(4):
+        big = big.insert_point_cloud(pts[k::4], SV_START + 40 * k)
+    with host_reads():
+        for name, m in (("the fused 256^3 prob map", fp["vis_maps"]["fused"]), ("a 512^3 bit map", big)):
+            t0 = time.perf_counter()
+            n = len(vis_extract.extract_cubes(m)[0])
+            log(f"  extract_cubes of {name}: {(time.perf_counter() - t0) * 1e3:.4f} ms (host clock), {n} cubes  [{smi}]")
+        for name, m in fp["vis_maps"].items():
+            tally = publish(name, m, Path(tempfile.gettempdir()) / "gv_path8_times")
+            log(f"  one visualize_map publish of {name}: {tally['ms']:.4f} ms (host clock)  [{smi}]")
+        shutil.rmtree(Path(tempfile.gettempdir()) / "gv_path8_times")
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, cur in fp["files"]["maps"].items():
+                g = fp["files"]["paged"] if name.startswith("paged") else gvl
+                path = os.path.join(tmp, "m.bin")
+                t0 = time.perf_counter()
+                g.save_map(name, path)
+                t1 = time.perf_counter()
+                g.load_map(name + "_timed", path)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                log(f"  {name} ({type(cur).__name__}, {os.path.getsize(path)} bytes): save_map {(t1 - t0) * 1e3:.4f} ms, "
+                    f"load_map {(t2 - t1) * 1e3:.4f} ms (host clock)  [{smi}]")
+                g.del_map(name + "_timed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ans = urdf_answers(dev)
+        int(ans["count"])
+        log(f"  URDF add_robot + {len(URDF_CONFIGS)} inserts + box + collide at {URDF_DIMS[0]}^3: "
+            f"{(time.perf_counter() - t0) * 1e3:.4f} ms (host clock)  [{smi}]")
+
+
 # -- phase 4 ------------------------------------------------------------------
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
     for _ in range(warmup):
@@ -2152,11 +2597,12 @@ def main() -> int:
     log("phase 2: kernels against their plain versions (exact)")
     err = check_kernels(dev)
     log("phase 3: the paths through the entry points")
-    out, robot, dist, fit, lp, plan, oc, launches = drive_main_path(dev)
+    out, robot, dist, fit, lp, plan, oc, fp, launches = drive_main_path(dev)
     log("phase 4: times (CUDA events)")
     t, bounds = timings(dev, smi, out, robot, dist, fit)
     list_timings(dev, smi, lp, plan)
     octree_timings(dev, smi, oc)
+    facade_timings(dev, smi, fp)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],

@@ -5,7 +5,7 @@ rewritten by hand in CUDA C++ for Hopper (`csrc/`). Module paths mirror the
 JAX package so each module has one counterpart there; the JAX package is the
 reference every integer contract is held against.
 
-Six slices are ported. The engine's core loop on dense maps, sense ->
+Seven slices are ported. The engine's core loop on dense maps, sense ->
 insert -> collide: `maps.voxelmap.ProbVoxelMap` / `BitVectorVoxelMap`,
 point insertion, prob x prob counting and marking collides (CUDA kernels
 K1, K2), depth-camera fusion with the exact projective carve (CUDA kernel
@@ -33,10 +33,16 @@ deterministic and probabilistic), their disk files, the facade's octree
 map types, `planning.HierarchicalValidityChecker` and the list x octree
 collides. The rest of the dense-map tier rides along: the DDA
 `insert_sensor_data`, `CountingVoxelMap`, `collide_with_resolution`, the
-streaming and socket depth sources and `providers.Provider`. Around them:
-the `GpuVoxels` facade and interop with the JAX package. Every method of the reference that is
-not ported yet raises NotImplementedError naming the ROADMAP item that
-brings it.
+streaming and socket depth sources and `providers.Provider`. And the IO,
+visualization and facade surface: point-cloud, binvox and heightmap files
+(`geometry.files`, `geometry.heightmap`), URDF robots (`robot.urdf`),
+primitive arrays, the cube extraction over every tier and its exporters and
+publishers (`vis`, with the device compaction of `ops.compact`), the
+facade's `save_map` / `load_map` / `visualize_map`, the config, logging,
+perf-monitor and tf helpers (`utils`) and the camelCase aliases (`compat`).
+Around them: the `GpuVoxels` facade and interop with the JAX package. The
+multi-device branch (ShardedPagedWorld, the facade's `mesh`) raises
+NotImplementedError naming ROADMAP Queue 1 item 13.
 
 The package imports torch and numpy only. Entry points run on the CUDA
 card unless the caller passes `device="cpu"`. Kernels build with nvcc at

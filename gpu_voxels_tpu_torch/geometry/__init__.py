@@ -1,4 +1,6 @@
-"""Geometry helpers: rigid transforms, point clouds and deterministic test geometry."""
-from . import generation, pointcloud, transforms
+"""Geometry helpers: rigid transforms, point clouds, point-cloud files,
+heightmaps and deterministic test geometry."""
+from . import files, generation, heightmap, pointcloud, transforms
+from .pointcloud import MetaPointCloud, PointCloud
 
-__all__ = ["generation", "pointcloud", "transforms"]
+__all__ = ["MetaPointCloud", "PointCloud", "files", "generation", "heightmap", "pointcloud", "transforms"]

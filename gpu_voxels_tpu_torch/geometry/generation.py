@@ -3,11 +3,14 @@
 Counterpart of gpu_voxels_tpu/geometry/generation.py: the same numpy code,
 so generated scenes are identical in both packages. Points are host numpy
 float32 arrays of shape [N, 3]; maps move them to their device on insert.
-The oriented-box generators are not ported yet (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
+
+from . import transforms
 
 
 def _frange32(start, stop_inclusive, step):
@@ -36,6 +39,15 @@ def create_sphere_of_points(center, radius, delta) -> np.ndarray:
     center = np.asarray(center, dtype=np.float32)
     pts = create_box_of_points(center - radius, center + radius, delta)
     keep = np.linalg.norm(center[None] - pts, axis=1) <= radius
+    return pts[keep]
+
+
+def create_cylinder_of_points(center, radius, length_along_z, delta) -> np.ndarray:
+    """createCylinderOfPoints (GeometryGeneration.cpp:136-161)."""
+    center = np.asarray(center, dtype=np.float32)
+    half = np.array([radius, radius, length_along_z / 2.0], dtype=np.float32)
+    pts = create_box_of_points(center - half, center + half, delta)
+    keep = np.sqrt((center[0] - pts[:, 0]) ** 2 + (center[1] - pts[:, 1]) ** 2) <= radius
     return pts[keep]
 
 
@@ -70,3 +82,41 @@ def create_non_overlapping_3d_checkerboard(max_nr_points, max_coords, side_lengt
     s = np.float32(side_length)
     white = black + s  # (i*2+1)*s + s/2 == black + s, per axis
     return black, white
+
+
+@dataclass
+class OrientedBoxParams:
+    """cuda_datatypes.h OrientedBoxParams: center, half-dims, RPY rotation."""
+
+    center: np.ndarray
+    dim: np.ndarray  # half extents
+    rot: np.ndarray  # roll, pitch, yaw
+
+
+def create_oriented_box(params: OrientedBoxParams, spacing) -> np.ndarray:
+    """createOrientedBox (GeometryGeneration.cpp:66-89): filled box, rotated."""
+    d = np.asarray(params.dim, dtype=np.float32)
+    pts = create_box_of_points(-d, d, spacing)
+    m = transforms.from_rpy_np(params.rot, params.center)
+    return pts @ m[:3, :3].T + m[:3, 3]
+
+
+def create_oriented_box_edges(params: OrientedBoxParams, spacing) -> np.ndarray:
+    """createOrientedBoxEdges (GeometryGeneration.cpp:32-64): box wireframe."""
+    d = np.asarray(params.dim, dtype=np.float32)
+    cloud = []
+    for x in _frange32(-d[0], d[0], spacing):
+        for sy in (d[1], -d[1]):
+            for sz in (d[2], -d[2]):
+                cloud.append((x, sy, sz))
+    for y in _frange32(-d[1], d[1], spacing):
+        for sx in (d[0], -d[0]):
+            for sz in (d[2], -d[2]):
+                cloud.append((sx, y, sz))
+    for z in _frange32(-d[2], d[2], spacing):
+        for sx in (d[0], -d[0]):
+            for sy in (d[1], -d[1]):
+                cloud.append((sx, sy, z))
+    pts = np.asarray(cloud, dtype=np.float32)
+    m = transforms.from_rpy_np(params.rot, params.center)
+    return pts @ m[:3, :3].T + m[:3, 3]

@@ -169,9 +169,45 @@ def from_rpy_np(rpy, translation=None) -> np.ndarray:
         return mat3([[c, -s, z], [s, c, z], [z, z, o]])
 
     r3 = rot(rpy[..., 2], 2) @ rot(rpy[..., 1], 1) @ rot(rpy[..., 0], 0)
-    m = np.zeros(r3.shape[:-2] + (4, 4), dtype=np.float32)
-    m[..., :3, :3] = r3
+    return compose_np(r3, translation)
+
+
+def compose_np(rot3, translation=None) -> np.ndarray:
+    """Host float32 4x4 from a 3x3 rotation and a translation (the
+    reference's ``compose(..., xp=np)``)."""
+    rot3 = np.asarray(rot3, dtype=np.float32)
+    m = np.zeros(rot3.shape[:-2] + (4, 4), dtype=np.float32)
+    m[..., :3, :3] = rot3
     if translation is not None:
         m[..., :3, 3] = np.asarray(translation, dtype=np.float32)
     m[..., 3, 3] = 1.0
     return m
+
+
+def from_translation_np(t) -> np.ndarray:
+    m = np.eye(4, dtype=np.float32)
+    m[:3, 3] = np.asarray(t, dtype=np.float32)
+    return m
+
+
+def axis_angle_np(axis, angle) -> np.ndarray:
+    """Host float32 3x3 rotation about a (normalized) axis by angle
+    (Rodrigues), computed as the reference's ``axis_angle(..., xp=np)``."""
+    axis = np.asarray(axis, dtype=np.float32)
+    axis = axis / np.sqrt(np.sum(axis * axis) + np.float32(1e-30))
+    x, y, z = axis[0], axis[1], axis[2]
+    c, s = np.cos(angle), np.sin(angle)
+    C = 1.0 - c
+    rows = [
+        [x * x * C + c, x * y * C - z * s, x * z * C + y * s],
+        [y * x * C + z * s, y * y * C + c, y * z * C - x * s],
+        [z * x * C - y * s, z * y * C + x * s, z * z * C + c],
+    ]
+    return np.stack([np.stack([np.asarray(e, dtype=np.float32) for e in r], axis=-1) for r in rows], axis=-2)
+
+
+def invert_np(matrix: np.ndarray) -> np.ndarray:
+    """Host rigid-transform inverse (the reference's ``invert(..., xp=np)``)."""
+    rt = np.swapaxes(matrix[..., :3, :3], -1, -2)
+    ti = -(rt @ matrix[..., :3, 3][..., None])[..., 0]
+    return compose_np(rt, ti)

@@ -10,8 +10,9 @@ same bits (``np.ndarray.view``), it never converts values. A voxel list's
 (ids_hi, ids) uint32 words become the port's int64 keys and back
 (maps/voxellist.py). A dense hierarchy travels as its occupancy grid and
 its pyramid levels, a paged map as its device arrays, its counters and its
-host directories (`PAGED_ARRAYS`). Everything lands on `device` (default:
-the card).
+host directories (`PAGED_ARRAYS`), a primitive array as its float32[N, 4]
+positions and diameters with its type. Everything lands on `device`
+(default: the card).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from .maps.hierarchical import HierarchicalBitMap, HierarchicalProbMap
 from .maps.paged import PagedHierarchicalMap
 from .maps.voxellist import KIND_BIT, VoxelList, join_keys, split_keys
 from .maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
+from .primitive_array import PrimitiveArray, PrimitiveType
 from .robot.dh import DHJointType, DHParameters, KinematicChain
 from .sensors import Sensor, SensorModel
 from .utils import resolve_device
@@ -177,13 +179,22 @@ def paged_map_from_numpy(state: dict, device=None) -> PagedHierarchicalMap:
     return m
 
 
+def primitive_array_from_numpy(positions_diameters, prim_type, device=None) -> PrimitiveArray:
+    """A PrimitiveArray over a copy of float32[N, 4] (x, y, z, diameter)."""
+    pd = np.asarray(positions_diameters, np.float32).reshape(-1, 4)
+    return PrimitiveArray(torch.from_numpy(pd.copy()).to(resolve_device(device)), PrimitiveType(int(prim_type)))
+
+
 def to_numpy(m):
     """The map's arrays in the reference's dtypes: int8[N] for a ProbVoxelMap
     or a CountingVoxelMap, (uint32[8, N] planes, uint8[N] occ or None) for a
     BitVectorVoxelMap, uint32[N] for a DistanceVoxelMap, and the reference's
     (ids uint32[C], ids_hi uint32[C], payload, count int) for a VoxelList,
     (occupancy int8 grid or None, [uint8 pyramid levels]) for a dense
-    hierarchy, and the state dict of `paged_map_from_numpy` for a paged map."""
+    hierarchy, the state dict of `paged_map_from_numpy` for a paged map and
+    (float32[N, 4], int type) for a PrimitiveArray."""
+    if isinstance(m, PrimitiveArray):
+        return m.positions_diameters.cpu().numpy(), int(m.prim_type)
     if isinstance(m, (HierarchicalProbMap, HierarchicalBitMap)):
         occ = m.occupancy.cpu().numpy() if isinstance(m, HierarchicalProbMap) else None
         return occ, [p.cpu().numpy() for p in m.pyramid]

@@ -11,7 +11,6 @@ map (or a tensor) on the map's device.
 """
 from __future__ import annotations
 
-import logging
 from dataclasses import dataclass, replace
 from typing import Tuple
 
@@ -21,9 +20,10 @@ from ..constants import MAX_OBSTACLE_DISTANCE, PBA_UNINITIALISED_PACKED, BitVoxe
 from ..ops import edt, edt_envelope
 from ..ops import insert as insert_ops
 from ..utils import resolve_device, to_device
+from ..utils.logging import log_stream
 from .voxelmap import ProbVoxelMap, _DenseMap, _n
 
-_log = logging.getLogger(__name__)
+_log = log_stream("voxelmap")
 
 Dims = Tuple[int, int, int]
 
@@ -33,6 +33,7 @@ class DistanceVoxelMap(_DenseMap):
     """data: int32[N] DistanceVoxel-packed obstacle coordinates."""
 
     map_type = MapType.MT_DISTANCE_VOXELMAP
+    _default_value = PBA_UNINITIALISED_PACKED  # print_voxel_map_data skips uninitialised voxels
 
     @staticmethod
     def create(dims: Dims, side_length: float = 1.0, device=None) -> "DistanceVoxelMap":

@@ -27,11 +27,10 @@ Depth fusion runs CUDA kernel K3 (the exact carve, carve_pool = 1) or K6
 (the pooled carve, carve_pool > 1) on the padded grid, through
 ops/raycast_cuda; CPU tensors take their plain versions. The free-space
 point insert runs the DDA of ops/raycast. Nothing here reads the device on
-the host except `check_tree` and `extract_occupied_coords`.
+the host except `check_tree` and `extract_occupied_coords` (O(occupied) bytes).
 """
 from __future__ import annotations
 
-import logging
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
@@ -43,10 +42,12 @@ from ..constants import THRESHOLD_OCCUPANCY, UNKNOWN_PROBABILITY, BitVoxelMeanin
 from ..geometry import transforms
 from ..ops import insert as insert_ops
 from ..ops import raycast, raycast_cuda
+from ..ops.compact import compacted_nonzero
 from ..utils import resolve_device, to_device
 from ..utils.io import DiskIO
+from ..utils.logging import log_stream
 
-_log = logging.getLogger(__name__)
+_log = log_stream("octree")
 
 Dims = Tuple[int, int, int]
 
@@ -295,9 +296,12 @@ class _PyramidQueries(DiskIO):
 
     def extract_occupied_coords(self) -> np.ndarray:
         """int32[K, 3] (x, y, z) of the occupied voxels inside dims, in
-        z, y, x order (host read)."""
-        s0 = self.pyramid[0].cpu().numpy()
-        z, y, x = np.nonzero((s0 & STATUS_OCCUPANCY_MASK) == NS_OCCUPIED)
+        z, y, x order. The mask is compacted on the device: two host reads,
+        O(K) bytes."""
+        idx = compacted_nonzero((self.pyramid[0] & STATUS_OCCUPANCY_MASK) == NS_OCCUPIED)
+        px, py, _ = self.padded_dims
+        z, rem = np.divmod(idx, px * py)
+        y, x = np.divmod(rem, px)
         keep = (x < self.dims[0]) & (y < self.dims[1]) & (z < self.dims[2])
         return np.stack([x[keep], y[keep], z[keep]], axis=1).astype(np.int32)
 

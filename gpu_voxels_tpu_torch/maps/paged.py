@@ -42,7 +42,6 @@ one value (H7: noted at each site).
 """
 from __future__ import annotations
 
-import logging
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -57,12 +56,13 @@ from ..ops import raycast
 from ..ops.insert import clamp_coords, floor_to_int32, in_map, linear_index, map_to_voxels, shifted
 from ..utils import resolve_device, to_device
 from ..utils.io import DiskIO
+from ..utils.logging import log_stream
 from .hierarchical import (NS_DYNAMIC_MAP, NS_FREE, NS_OCCUPIED, NS_STATIC_MAP, NS_UNKNOWN,
                            STATUS_OCCUPANCY_MASK, U8, _build_pyramid, _is_uniform, _num_levels, _pad_dims,
                            _PyramidQueries, _reject_octree_offset, _status_from_occupancy, count_probe_hits,
                            decode_status_flags, descend, meta_first_meaning, query_coords_of)
 
-_log = logging.getLogger(__name__)
+_log = log_stream("octree")
 
 Dims = Tuple[int, int, int]
 B = 8  # tile edge (fine voxels per block axis)

@@ -23,13 +23,10 @@ Routing: prob x prob `collide_with` runs CUDA kernel K1 and
 map's occupancy summary in plain torch, as the reference does in XLA; a bit
 map without a summary (`occ=None`, raw planes) folds its planes instead, and
 its bit x bit count runs CUDA kernel K7. The rest of the swept-volume domain
-(sv_offset != 0, windows 25..31) runs the plain full-domain check. Methods
-of the reference that are not ported yet raise NotImplementedError naming
-the ROADMAP item that brings them.
+(sv_offset != 0, windows 25..31) runs the plain full-domain check.
 """
 from __future__ import annotations
 
-import logging
 from dataclasses import dataclass
 from dataclasses import replace as _dc_replace
 from typing import Optional, Tuple
@@ -45,10 +42,11 @@ from ..ops import collide as collide_ops
 from ..ops import collide_cuda
 from ..ops import insert as insert_ops
 from ..ops import raycast
-from ..utils import FACADE, not_ported, resolve_device, to_device
+from ..utils import resolve_device, to_device
 from ..utils.io import DiskIO
+from ..utils.logging import log_stream
 
-_log = logging.getLogger(__name__)
+_log = log_stream("voxelmap")
 
 Dims = Tuple[int, int, int]
 
@@ -73,6 +71,7 @@ class _DenseMap(DiskIO):
     data: torch.Tensor
     dims: Dims
     side_length: float
+    _default_value = 0  # the "empty" voxel value print_voxel_map_data skips
 
     @property
     def voxelmap_size(self) -> int:
@@ -133,7 +132,26 @@ class _DenseMap(DiskIO):
         cur.position = np.asarray(sensor.position, np.float32)
         cur.orientation_rpy = np.asarray(sensor.orientation_rpy, np.float32)
 
-    print_voxel_map_data = not_ported("print_voxel_map_data", FACADE)
+    def print_voxel_map_data(self, max_entries: int = 32) -> str:
+        """printVoxelMapData (TemplateVoxelMap.hpp:282-286): a readable dump
+        of the first non-default voxels, printed and returned, as the
+        reference's. One host read of the whole map; values print as the
+        reference's dtypes (uint32 bit planes and packed distances)."""
+        arr = self.data.cpu().numpy()
+        if arr.dtype == np.int32:
+            arr = arr.view(np.uint32)
+        changed = arr != self._default_value
+        nz = np.flatnonzero(changed if arr.ndim == 1 else changed.any(axis=0))[:max_entries]
+        dx, dy, _ = self.dims
+        lines = [f"VoxelMap dump ({type(self).__name__} {self.dims}):"]
+        for i in nz:
+            x = int(i) % dx
+            y = (int(i) // dx) % dy
+            z = int(i) // (dx * dy)
+            lines.append(f"  ({x},{y},{z}) = {arr[..., int(i)]}")
+        out = "\n".join(lines)
+        print(out)
+        return out
 
 
 @dataclass(frozen=True, eq=False)
@@ -141,6 +159,7 @@ class ProbVoxelMap(_DenseMap):
     """Dense probabilistic map; voxels are int8 log-odds, UNKNOWN = -128."""
 
     map_type = MapType.MT_PROBAB_VOXELMAP
+    _default_value = UNKNOWN_PROBABILITY  # print_voxel_map_data skips these
 
     @staticmethod
     def create(dims: Dims, side_length: float = 1.0, device=None) -> "ProbVoxelMap":
@@ -166,7 +185,7 @@ class ProbVoxelMap(_DenseMap):
     def insert_depth_image(self, depth, sensor, carve_pool: int = 1) -> "ProbVoxelMap":
         """Projective sensor update from a depth image and a Sensor: hits plus
         the exact visibility carve (ops/raycast.insert_depth_image; kernel K3
-        on CUDA). carve_pool > 1 (the pooled carve, K6) is not ported yet."""
+        on CUDA), or with carve_pool > 1 the pooled conservative carve (K6)."""
         new = raycast.insert_depth_image(
             self.data, depth, sensor.pose(),
             float(sensor.fx), float(sensor.fy), float(sensor.cx), float(sensor.cy),

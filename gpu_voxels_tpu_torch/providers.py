@@ -5,9 +5,9 @@ live apps drive maps through a common contract: init / visualize / collide /
 waitForNewData / newSensorData / setCollideWith, with NTreeProvider /
 VoxelMapProvider / OctomapProvider implementations. Here one generic
 implementation wraps any map kind; sensor data arrives from a DepthSource
-(sensors module) instead of a live Kinect. The visualisation side
-(`visualize`, `finish_visualization`, `live_vis=True`) needs vis/provider.py
-and raises NotImplementedError until ROADMAP Queue 1 item 12 brings it.
+(sensors module) instead of a live Kinect. `visualize` publishes through a
+VisProvider, or with `live_vis=True` through an AsyncVisPublisher whose
+worker thread extracts and writes while the sense loop goes on.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .sensors import DepthSource, Sensor
-from .utils import FACADE, not_ported
+from .vis.provider import AsyncVisPublisher, VisProvider
 
 # map class -> whether its collide_with accepts coll_threshold (see
 # Provider._collide_kwargs)
@@ -33,15 +33,21 @@ class Provider:
         """carve_pool=1 fuses depth frames with the exact per-pixel carve
         (reference semantics, CUDA kernel K3); carve_pool=P > 1 selects the
         pooled conservative carve (kernel K6), the fast live-sensor
-        configuration. live_vis and vis_max_cubes belong to the
-        visualisation side, which is not ported yet: setting either raises."""
-        if live_vis or vis_max_cubes is not None:
-            not_ported("Provider(live_vis=True) / Provider(vis_max_cubes=...)", FACADE)()
+        configuration. live_vis=True publishes through the AsyncVisPublisher
+        (latest-wins worker thread) so visualize() costs the sense loop O(1)
+        — the reference's cheap IPC-handle publish. vis_max_cubes bounds a
+        dense map's extraction (the compaction's capacity)."""
         self.name = name
         self.map = None
         self.carve_pool = int(carve_pool)
         self.collide_with_provider: Optional["Provider"] = None
         self.coll_threshold = 1.0
+        if live_vis:
+            self._vis_async = AsyncVisPublisher(name, max_cubes=vis_max_cubes)
+            self._vis = self._vis_async.provider
+        else:
+            self._vis_async = None
+            self._vis = VisProvider(name, max_cubes=vis_max_cubes)
         self._last_data_time = 0.0
 
     def init(self, initial_map) -> None:
@@ -114,5 +120,15 @@ class Provider:
         self.new_sensor_data(frame, sensor)
         return True
 
-    visualize = not_ported("Provider.visualize", FACADE)
-    finish_visualization = not_ported("Provider.finish_visualization", FACADE)
+    def visualize(self, force_repaint: bool = True) -> bool:
+        if self._vis_async is not None:
+            self._vis_async.publish(self.map)
+            return True
+        return self._vis.visualize(self.map, force_repaint)
+
+    def finish_visualization(self, timeout_s: float = 60.0) -> int:
+        """Drain the async publisher; returns the snapshots actually painted."""
+        if self._vis_async is None:
+            return 0
+        self._vis_async.flush(timeout_s)
+        return self._vis_async.frames_painted

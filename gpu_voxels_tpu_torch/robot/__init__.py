@@ -1,10 +1,11 @@
 """Robots and swept volumes: DH kinematic chains, the UR presets, the
-swept-volume inserts, `.traj` trajectory files and the schedule fitter
-(`robot.fitter`). URDF robots are not ported yet (ROADMAP Queue 1 item 12)."""
+swept-volume inserts, `.traj` trajectory files, the schedule fitter
+(`robot.fitter`) and URDF robots (`robot.urdf`)."""
 from .dh import DHJointType, DHParameters, KinematicChain
 from .fitter import deconflict_slot, fit_orderings, fit_schedule
 from .robot import JointValueMap, RobotInterface, interpolate_linear
 from .trajectory import Trajectory, load_trajectories
+from .urdf import UrdfRobot
 
 __all__ = [
     "DHJointType",
@@ -13,6 +14,7 @@ __all__ = [
     "KinematicChain",
     "RobotInterface",
     "Trajectory",
+    "UrdfRobot",
     "deconflict_slot",
     "fit_orderings",
     "fit_schedule",

@@ -3,20 +3,6 @@ from __future__ import annotations
 
 import torch
 
-# ROADMAP Queue 1 items that bring what this slice leaves out
-URDF = "ROADMAP Queue 1 item 12: URDF robots, with the binvox reader of geometry/files.py"
-FACADE = "ROADMAP Queue 1 item 12: IO, visualization and the facade"
-
-
-def not_ported(name: str, item: str):
-    """A stand-in that raises NotImplementedError naming the ROADMAP item."""
-
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet ({item})")
-
-    fn.__name__ = name
-    return fn
-
 
 def default_device() -> torch.device:
     """The device of every entry point that is given none: the CUDA card.

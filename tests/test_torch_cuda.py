@@ -458,8 +458,9 @@ def test_k5_k6_raise_on_inputs_they_do_not_take(cuda_device):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the octree tiers included, imports without
-    JAX or the JAX package (the card's machine has neither)."""
+    """Every module of the port, the octree tiers and the IO / visualization
+    modules included, imports without JAX or the JAX package (the card's
+    machine has neither)."""
     import subprocess
     import sys
 
@@ -467,7 +468,8 @@ def test_port_imports_no_jax():
             "for m in pkgutil.walk_packages(p.__path__, 'gpu_voxels_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "bad = [n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'gpu_voxels_tpu.'))]\n"
-            "assert not bad and 'gpu_voxels_tpu_torch.maps.paged' in sys.modules, bad\n")
+            "assert not bad and {'gpu_voxels_tpu_torch.maps.paged', 'gpu_voxels_tpu_torch.vis.extract',\n"
+            "                    'gpu_voxels_tpu_torch.robot.urdf', 'gpu_voxels_tpu_torch.compat'} <= set(sys.modules), bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=str(kernels.BUILD_DIR.parent.parent))
 
 
@@ -558,3 +560,65 @@ def test_paged_tier_and_checker_on_card_match_cpu(cuda_device, prob):
     counts = [HierarchicalValidityChecker(maps[k], Translated(maps[k].device)).batch_colliding_voxels(states)
               for k in ("cuda", "cpu")]
     assert np.array_equal(*counts) and counts[0].sum() > 0
+
+
+@pytest.mark.cuda
+def test_compaction_and_extraction_on_the_card(cuda_device):
+    """The device compaction and extract_cubes (a bit map with meanings on
+    bit 31 of a plane, a prob map, the dense pyramid's multi-level cubes) on
+    the card equal the same calls on the CPU."""
+    from gpu_voxels_tpu_torch.maps.hierarchical import HierarchicalBitMap
+    from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+    from gpu_voxels_tpu_torch.ops.compact import compacted_nonzero
+    from gpu_voxels_tpu_torch.vis.extract import extract_cubes, extract_multilevel_cubes
+
+    rng = np.random.default_rng(12)
+    mask = rng.random(1 << 22) < 0.01
+    for cap in (None, 5, 1 << 20):
+        got = compacted_nonzero(torch.from_numpy(mask).to(cuda_device), capacity=cap)
+        assert np.array_equal(got, np.flatnonzero(mask)[:cap])
+    dims = (96, 80, 64)
+    pts = (np.floor(rng.uniform(0, 1, (20000, 3)) * np.asarray(dims)) + 0.5).astype(np.float32)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        b = BitVectorVoxelMap.create(dims, 0.5, device=dev)
+        for k, meaning in enumerate((31, 63, 255, 7)):
+            b = b.insert_point_cloud(pts[k * 5000:(k + 1) * 5000] * 0.5, meaning)
+        p = ProbVoxelMap.create(dims, 0.5, device=dev).insert_point_cloud(pts * 0.5)
+        h = HierarchicalBitMap.create((64, 64, 64), device=dev).insert_point_cloud(pts[:3000] % 64)
+        out[dev.type] = [extract_cubes(b), extract_cubes(p, 0.5, max_cubes=1000), extract_multilevel_cubes(h)]
+    for a, b in zip(out["cuda"], out["cpu"], strict=True):
+        for x, y in zip(a, b, strict=True):
+            assert np.array_equal(x, y)
+    assert {31, 63, 255, 7} <= set(out["cuda"][0][1].tolist())
+
+
+@pytest.mark.cuda
+def test_facade_round_trip_on_the_card(cuda_device, tmp_path):
+    """save_map on the card writes the CPU copy's file byte for byte, and
+    load_map brings it back to the card equal; visualize_map publishes the
+    same layer file as the CPU's."""
+    from gpu_voxels_tpu_torch.api import GpuVoxels
+    from gpu_voxels_tpu_torch.constants import MapType
+    from gpu_voxels_tpu_torch.vis.provider import VisProvider
+
+    pts = np.random.default_rng(13).uniform(0.5, 63.5, (5000, 3)).astype(np.float32)
+    files = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        g = GpuVoxels()
+        g.initialize(64, 64, 64, 1.0, device=dev)
+        for mt in (MapType.MT_BITVECTOR_VOXELMAP, MapType.MT_PROBAB_MORTON_VOXELLIST, MapType.MT_PROBAB_OCTREE):
+            g.add_map(mt, mt.name)
+            g.insert_point_cloud_into_map(pts, mt.name)
+            path = tmp_path / f"{dev.type}_{mt.name}.bin"
+            g.save_map(mt.name, path)
+            files.setdefault(mt.name, []).append(path.read_bytes())
+            g.load_map("back", path)
+            back = tmp_path / f"{dev.type}_{mt.name}_back.bin"
+            g.save_map("back", back)
+            assert back.read_bytes() == path.read_bytes() and g.get_map("back").device.type == dev.type
+            assert VisProvider(mt.name, tmp_path / dev.type).visualize(g.get_map(mt.name))
+    for name, (card, cpu) in files.items():
+        assert card == cpu, name
+    for f in (tmp_path / "cpu").glob("*.cubes.json"):
+        assert (tmp_path / "cuda" / f.name).read_bytes() == f.read_bytes(), f.name

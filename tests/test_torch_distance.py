@@ -175,8 +175,8 @@ def test_distance_map_methods_match_reference():
     same(tm.clear_voxel_meaning(BitVoxelMeaning.eBVM_COLLISION), jm.clear_voxel_meaning(BitVoxelMeaning.eBVM_COLLISION))
     same(tm.clear_voxel_meaning(BitVoxelMeaning.eBVM_OCCUPIED), jm.clear_voxel_meaning(BitVoxelMeaning.eBVM_OCCUPIED))
     assert (u32(tm.fill_pba_uninit().data) == PBA_UNINITIALISED_PACKED).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.print_voxel_map_data()
+    # printVoxelMapData (item 12): the packed coordinates print as the reference's uint32
+    assert tm.print_voxel_map_data() == jm.print_voxel_map_data()
 
 
 def test_jump_flood_routes_like_reference(monkeypatch):

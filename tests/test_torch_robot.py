@@ -8,6 +8,8 @@ counts) must be equal; forward kinematics differs between the frameworks
 by ulps (F4), so FK points are held with rtol 1e-6 and atol 1e-6, and maps
 built from FK points use fixtures at least 1e-3 voxel from cell boundaries.
 """
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -276,8 +278,14 @@ def test_facade_robot_calls_match_reference():
     arm = tg.get_robot("ur10")
     assert arm.clouds.cloud_size(arm.clouds.cloud_index("tool0")) == 4
     assert arm.get_transformed_clouds().points.shape == (arm.clouds.accumulated_size, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.add_robot("arm", "arm.urdf")
+    # URDF robots (item 12): the pan/tilt unit's link cloud through FK, as the reference's
+    urdf = Path(__file__).resolve().parent.parent / "examples" / "models" / "pan_tilt.urdf"
+    jg.add_robot("pt", urdf)
+    tg.add_robot("pt", urdf)
+    for g in (jg, tg):
+        g.set_robot_configuration("pt", {"pan_joint": 0.3, "tilt_joint": -0.2})
+    np.testing.assert_allclose(tg.get_robot("pt").get_transformed_clouds().points.numpy(),
+                               np.asarray(jg.get_robot("pt").get_transformed_clouds().points), rtol=1e-6, atol=1e-6)
 
 
 def test_prob_meta_insert_later_subcloud_wins():

@@ -293,7 +293,7 @@ def test_socket_depth_source_roundtrip():
         server.close()
 
 
-def test_provider_contract():
+def test_provider_contract(tmp_path):
     """tests/test_aux.py:267 through both packages, plus the async count,
     the pooled carve and a map without insert_depth_image."""
     kw = dict(position=np.array([8.0, 8.0, 0.2], np.float32), data_width=16, data_height=12,
@@ -344,8 +344,14 @@ def test_provider_contract():
     jbits.init(JBit.create(dims, 1.0))
     jbits.new_sensor_data(frame, jsensor)
     np.testing.assert_array_equal(interop.to_numpy(bits.map)[1], np.asarray(jbits.map.occ))
-    # the visualisation side names the item that brings it
-    for call in (tenv.visualize, tenv.finish_visualization, lambda: tprov.Provider("v", live_vis=True),
-                 lambda: tprov.Provider("v", vis_max_cubes=10)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-            call()
+    # the visualisation side (item 12): the fused map's files equal the
+    # reference provider's, synchronously and through the live publisher
+    for name, prov, live in (("port", tenv, tprov.Provider("env", live_vis=True, vis_max_cubes=10)),
+                             ("ref", jenv, jprov.Provider("env", live_vis=True, vis_max_cubes=10))):
+        prov._vis.out_dir = live._vis.out_dir = tmp_path / name
+        assert prov.visualize() and prov.finish_visualization() == 0
+        live.init(prov.map)
+        assert live.visualize() and live.finish_visualization() >= 1
+        live._vis_async.stop()
+    for fname in ("env.ply", "env.html", "env.cubes.json"):
+        assert (tmp_path / "port" / fname).read_bytes() == (tmp_path / "ref" / fname).read_bytes(), fname
