@@ -12,7 +12,9 @@ non-zero and prints no result. Phases, each an assert or an exception:
    size, exact equality: K1/K2 (prob x prob count / count-and-mark) on two
    random int8 512^3 maps over thresholds x offsets, incl. misaligned views;
    K3 (exact projective carve) at 256^3 on a 640x480 frame under 3 poses,
-   and on a grid whose rows are ragged (dx = 250);
+   on a grid whose rows are ragged (dx = 250), and on 32-deep z-slabs of
+   the 256^3 grid (z_index_offset 0, 32, 224; the eight slabs stacked equal
+   the whole grid's mask);
    K4 (swept-volume types collide) on 256^3 bit maps over margins
    {0, 1, 4, 8, 24} x mark, dense-random and sparse (with the bit-0-only
    hazard voxel) fixtures and a length that is not a multiple of the block;
@@ -33,7 +35,7 @@ non-zero and prints no result. Phases, each an assert or an exception:
    set only in plane 7's bit 31, which must) over the offsets, a length
    that is not a multiple of 4, the all-zero map, and one pair at 512^3
    (8.6 GB of planes);
-3. eight paths through the public entry points, on the card, with torch's
+3. nine paths through the public entry points, on the card, with torch's
    sync debug mode set to raise (the paths never wait for the device), each
    driven with every launch count set to 0 just before it and read just
    after; each kernel of a path must have launched in it:
@@ -135,6 +137,24 @@ non-zero and prints no result. Phases, each an assert or an exception:
      compacted_nonzero reads the device twice and print_voxel_map_data once.
      The files, the paged allocations and the publishes read the device on
      purpose;
+   - the multi-device path (K1, K3, K4, K5, K7): 8 logical z-slabs on the
+     card (the default mesh: slabs round-robin over the visible cards),
+     world 2 x z 4 for the cycle: the 512^3 cycle of path 1's clouds (two
+     scenes), the 256^3 sensor cycle of a Kinect frame against the fused
+     environment (K3 per slab with its z_index_offset), the 256^3 bit cycle
+     (K7), BASELINE #4's exact EDT at 512^3 (K5 per slab and pass: the
+     packed grid equal to path 3's) and the 256^3 JFA on path 3's camera
+     map (both repairs run to their fixpoint), BASELINE #5's 126,000 probes into the dense pyramid, the paged
+     snapshot and as a voxel list, path 1's 512^3 prob maps and the robot
+     path's 256^3 bit maps as slab-sharded values (collides at four
+     offsets, K1; an insert through the value; the types collide at window
+     5, K4, the marked map still sharded), a 4096^3 ShardedPagedWorld over
+     4 slabs taking a Kinect frame whose rays cross a slab floor, and the
+     facade's mesh= (a 4096^3 prob octree as a world, a 256^3 prob map as
+     a sharded value) with save_map -> load_map: every answer equal to the
+     single-device call on the card, the files to the single maps'. The
+     JFA's repair flags, the paged allocations and the files read the
+     device on purpose;
    every count, meanings vector, map, distance and payload grid must equal
    the same scene run through the plain route, and the 512^3 EDT must equal
    a brute-force minimum over the obstacles at 4,096 sampled voxels;
@@ -158,7 +178,8 @@ non-zero and prints no result. Phases, each an assert or an exception:
    the facade path: the 8x8 matrix's pairs (total and slowest), extract_cubes
    of the fused 256^3 map and of a 512^3 bit map, one publish per tier,
    save_map / load_map per tier and a URDF add_robot + insert + collide
-   (host clock where the work is on the host).
+   (host clock where the work is on the host); and each path-9 call
+   sharded beside its single-device call.
 
 Output: progress lines, the card's `name, power.limit` line, one JSON line
 {"kernels": [...]} (each kernel with its launches on the paths, its largest
@@ -189,7 +210,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from gpu_voxels_tpu_torch import bitops, converters, interop
 from gpu_voxels_tpu_torch.api import GpuVoxels
-from gpu_voxels_tpu_torch.constants import SV_START, BitVoxelMeaning, MapType
+from gpu_voxels_tpu_torch.constants import SV_START, BitVoxelMeaning, MapType, float_to_probability
 from gpu_voxels_tpu_torch.geometry import files, generation, transforms
 from gpu_voxels_tpu_torch.geometry.pointcloud import MetaPointCloud
 from gpu_voxels_tpu_torch.maps.distance_map import DistanceVoxelMap
@@ -201,6 +222,12 @@ from gpu_voxels_tpu_torch.maps.voxellist import (VoxelList, bit_vector_morton_vo
 from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
 from gpu_voxels_tpu_torch.ops import collide_cuda, edt, edt_cuda, edt_envelope, raycast, raycast_cuda
 from gpu_voxels_tpu_torch.ops.compact import compacted_nonzero
+from gpu_voxels_tpu_torch.parallel import (ShardedPagedWorld, assert_sharded, build_sharded_bit_cycle, build_sharded_cycle,
+                                           build_sharded_hier_probe, build_sharded_list_collide,
+                                           build_sharded_paged_probe, build_sharded_sensor_cycle, make_grid_mesh,
+                                           shard_map_value)
+from gpu_voxels_tpu_torch.parallel.sharded_edt import build_sharded_edt
+from gpu_voxels_tpu_torch.parallel.sharded_edt_exact import build_sharded_parallel_banding
 from gpu_voxels_tpu_torch.planning import (GvlValidityChecker, HierarchicalValidityChecker, JointSpace, MotionValidator,
                                            PathSimplifier, RRTConnect)
 from gpu_voxels_tpu_torch.providers import Provider
@@ -225,6 +252,7 @@ SV_DIMS, SV_SIDE, SV_BASE = (256, 256, 256), 0.02, (2.56, 2.56, 0.5)
 SV_TRAJ = np.linspace([0.3, -0.5, 0.5, 0, 0, 0], [-1.2, -0.2, 1.0, 0.4, 0.3, 0], 64).astype(np.float32)
 OBSTACLE_STEPS = (12, 31, 50)  # env obstacles carry these steps' SV bits
 K4_MARGINS = (0, 1, 4, 8, 24)
+K3_SLAB, K3_OFFSETS = 32, (0, 32, 224)  # K3 on z-slabs: the multi-device carve (path 9)
 # BASELINE config #4 (bench.py:364-394): 20,000 random obstacle voxels in a
 # 512^3 DistanceVoxelMap at 1.0 m, the exact EDT and proximity queries
 EDT_DIMS, EDT_OBSTACLES = (512, 512, 512), 20000
@@ -428,6 +456,7 @@ def check_kernels(dev: torch.device) -> dict:
         err["projective_free_space_exact"] = max(err["projective_free_space_exact"], int(diff > 0))
         assert diff == 0 and int(got.sum()) > 0, (name, dims, diff)
         log(f"  K3 pose={name} dims={dims}: {int(got.sum())} free voxels, mask equal to plain bit for bit")
+    check_k3_offsets(dev, depth, poses, err)
     del depth, got, ref
 
     n = SV_DIMS[0] * SV_DIMS[1] * SV_DIMS[2]
@@ -453,6 +482,29 @@ def check_kernels(dev: torch.device) -> dict:
     check_k7(dev, g, err)
     torch.cuda.synchronize()
     return err
+
+
+def check_k3_offsets(dev: torch.device, depth: torch.Tensor, poses: dict, err: dict) -> None:
+    """K3 on 32-deep z-slabs of the 256^3 grid (the multi-device carve):
+    at z_index_offset 0, 32 and 224 bit-identical to the plain form, and the
+    eight slabs stacked equal to the whole grid's mask, under the 3 poses."""
+    depth_slab = K3_SLAB
+    slab = (FUSION_DIMS[0], FUSION_DIMS[1], depth_slab)
+    for name, pose in poses.items():
+        p = torch.as_tensor(pose, device=dev)
+        whole = raycast_cuda.projective_free_space_exact(depth, p, *INTR, FUSION_SIDE, FUSION_DIMS)
+        for z0 in K3_OFFSETS:
+            got = raycast_cuda.projective_free_space_exact(depth, p, *INTR, FUSION_SIDE, slab, z_index_offset=z0)
+            ref = raycast_cuda.projective_free_space_plain(depth, p, *INTR, FUSION_SIDE, slab, z_index_offset=z0)
+            diff = int((got != ref).sum())
+            err["projective_free_space_exact"] = max(err["projective_free_space_exact"], int(diff > 0))
+            assert diff == 0, (name, z0, diff)
+        stacked = torch.cat([raycast_cuda.projective_free_space_exact(depth, p, *INTR, FUSION_SIDE, slab,
+                                                                      z_index_offset=z0)
+                             for z0 in range(0, FUSION_DIMS[2], depth_slab)])
+        assert torch.equal(stacked, whole), name
+        log(f"  K3 pose={name} on {depth_slab}-deep slabs: offsets {K3_OFFSETS} equal to plain bit for bit, "
+            f"{FUSION_DIMS[2] // depth_slab} slabs stacked == the whole grid's mask ({int(whole.sum())} free)")
 
 
 def check_k7(dev: torch.device, g: torch.Generator, err: dict) -> None:
@@ -1063,7 +1115,7 @@ def same_types(x, y) -> bool:
     return int(x[0]) == int(y[0]) and torch.equal(x[1], y[1]) and same_map(x[2], y[2])
 
 
-def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, dict]:
+def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, dict, dict]:
     log("  sense -> insert -> collide (K1, K2, K3, K6 through the pooled Provider)")
     out, launches = drive(main_path, {"count_prob_prob", "count_and_mark_prob", "projective_free_space_exact",
                                       "projective_free_space_pooled", "min_pool_depth"}, dev)
@@ -1158,7 +1210,15 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, di
     fp["frames"] = out["frames"]
     log(f"  path 8 launched K1 {fp_launches['count_prob_prob']} and K7 {fp_launches['count_bit_bit']} times")
     check_facade_path(fp, dev)
-    return out, robot, dist, fit, lp, plan, oc, fp, launches
+
+    log("  multi-device: z-slab meshes on the card, sharded cycles, EDTs, probes, values, world, facade "
+        "(K1, K3, K4, K5, K7)")
+    md, md_launches = drive(multidevice_path, {"count_prob_prob", "projective_free_space_exact",
+                                               "collide_types_bit_bit", "envelope_pass", "count_bit_bit"},
+                            dev, out, robot, dist, oc)
+    add_launches(launches, md_launches)
+    check_multidevice_path(md, dev, out, robot, dist, oc)
+    return out, robot, dist, fit, lp, plan, oc, fp, md, launches
 
 
 def check_live_sensing(out: dict, dev: torch.device) -> None:
@@ -2331,7 +2391,359 @@ def facade_timings(dev: torch.device, smi: str, fp: dict) -> None:
             f"{(time.perf_counter() - t0) * 1e3:.4f} ms (host clock)  [{smi}]")
 
 
+# -- path 9 -------------------------------------------------------------------
+MD_SLABS = 8  # path 9's z mesh; the cycle's is world 2 x z 4
+MD_WORLD_SLABS = 4  # the 4096^3 ShardedPagedWorld's slabs (1024 voxels deep)
+# its camera sits 1,000 voxels (20 m) up, looking +z: the hits land 1.8-4 m
+# (90-200 voxels) further, past slab 1's floor at 1,024 voxels, and the
+# 128-step rays cross it
+MD_CAMERA_VOXELS = 1000
+# path 1's offsets and (-2, -2, -2), which lines m1 up with m3 = m1 + 2 voxels
+# across every slab boundary
+MD_OFFSETS = OFFSETS + ((-2, -2, -2),)
+MD_JFA_STEPS = (8, 4, 2, 1, 1)  # the sharded JFA's fine rounds (the reference's sharded default)
+# the single-device repair's cap on path 9: one it must not reach, so that it
+# runs to its fixpoint as the sharded repair (no cap) does
+MD_JFA_MAX_ROUNDS = 4096
+
+
+def md_meshes(dev: torch.device) -> tuple:
+    """Path 9's meshes: z 8, and world 2 x z 4 for the cycle. On the card the
+    default (every visible card, slabs round-robin: all on cuda:0 here)."""
+    if dev.type == "cuda":
+        return make_grid_mesh(MD_SLABS), make_grid_mesh(MD_SLABS, world=2)
+    return make_grid_mesh(MD_SLABS, devices=[dev]), make_grid_mesh(MD_SLABS, world=2, devices=[dev])
+
+
+def md_world_sensor() -> PosedSensor:
+    pose = carve_poses()["bench"].copy()
+    pose[2, 3] = MD_CAMERA_VOXELS * FUSION_SIDE
+    return PosedSensor(pose)
+
+
+def md_cycle_clouds(pts: torch.Tensor) -> tuple:
+    """The cycle's two scenes: path 1's pair (pts, pts + 1: count 0) and pts
+    against pts moved 2 voxels along x (an overlap)."""
+    shift = to_device(np.asarray([2.0, 0.0, 0.0], np.float32), torch.float32, pts.device)
+    return torch.stack([pts, pts]), torch.stack([pts + 1.0, pts + shift])
+
+
+def md_probe_coords(c5: dict, dev: torch.device) -> torch.Tensor:
+    """BASELINE #5's 315 states x 400 robot points as int32 voxel coords
+    (126,000: 15,750 a slab)."""
+    cells = c5["robot"][None, :, :] + c5["states"][:, None, :]
+    return to_device(np.floor(cells).reshape(-1, 3).astype(np.int32), torch.int32, dev)
+
+
+def multidevice_path(dev: torch.device, out: dict, robot: dict, dist: dict, oc: dict) -> dict:
+    """Path 9: the multi-device builders, sharded map values, the sharded
+    paged world and the facade's mesh, every slab on the card (8 logical
+    slabs on one card). The JFA's repair flags, the paged allocations and
+    the files read the device on purpose."""
+    md = {}
+    mesh, cycle_mesh = md_meshes(dev)
+    md["mesh"] = mesh
+    pts = out["cycle_pts"]
+    # (a) the 512^3 cycle, two scenes over world 2 x z 4 (K1 per slab)
+    md["cycle"] = build_sharded_cycle(cycle_mesh, CYCLE_DIMS, 1.0, 0.5)(*md_cycle_clouds(pts))
+    # (b) the sensor cycle: a Kinect frame carved per slab (K3 with the
+    # slab's z_index_offset) against the fused 256^3 environment (K1)
+    depth = to_device(out["frames"][0], torch.float32, dev)
+    pose = to_device(kinect_sensor().pose(), torch.float32, dev)
+    md["sensor"] = build_sharded_sensor_cycle(mesh, FUSION_DIMS, FUSION_SIDE, *INTR, 0.55)(depth, pose, out["env"].data)
+    # (c) the bit cycle at 256^3: the frame's rays against themselves moved a voxel (K7)
+    rays = out["rays"]
+    md["bit"] = build_sharded_bit_cycle(mesh, FUSION_DIMS, FUSION_SIDE)(rays, rays + FUSION_SIDE)
+    # (d) BASELINE #4's exact EDT at 512^3 over 8 slabs (K5 per slab and pass)
+    packed = DistanceVoxelMap.create(EDT_DIMS, 1.0, device=dev).insert_point_cloud(
+        (edt_obstacles() + 0.5).astype(np.float32)).data
+    md["edt_in"] = packed
+    md["edt"] = build_sharded_parallel_banding(mesh, EDT_DIMS)(packed)
+    # (e) the JFA at 256^3 on path 3's merged camera map, its repair run to
+    # its fixpoint (one host read a round); timed here, as it takes seconds
+    with host_reads():
+        md["jfa"], md["jfa_ms"] = timed_once(
+            lambda: build_sharded_edt(mesh, FUSION_DIMS, fine_steps=MD_JFA_STEPS)(dist["merged"].data))
+    # (f) BASELINE #5's probes at 1024^3: the dense pyramid (level 0 split),
+    # the paged snapshot (queries split) and the env as a voxel list
+    c5 = oc["c5"]
+    coords = md_probe_coords(c5, dev)
+    md["coords"] = coords
+    dense, paged = c5["dense"], c5["paged"]
+    md["hier"] = build_sharded_hier_probe(mesh, dense.levels, dense.padded_dims)(
+        dense.pyramid[0], tuple(dense.pyramid[1:]), coords)
+    md["paged"] = build_sharded_paged_probe(mesh)(paged.snapshot(), coords)
+    env_list = bit_vector_voxel_list(C5_DIMS, 1.0, device=dev).insert_point_cloud(c5["env"])
+    robot_list = bit_vector_voxel_list(C5_DIMS, 1.0, device=dev).insert_coordinates(coords)
+    md["lists"] = env_list, robot_list
+    md["list"] = build_sharded_list_collide(mesh)(env_list, robot_list)
+    # (g) path 1's 512^3 prob maps and the robot path's 256^3 bit maps as
+    # slab-sharded values: collides at path 1's offsets (K1), an insert
+    # through the sharded value, the types collide at window 5 (K4)
+    m1 = ProbVoxelMap.create(CYCLE_DIMS, 1.0, device=dev).insert_point_cloud(pts)
+    m3 = ProbVoxelMap.create(CYCLE_DIMS, 1.0, device=dev).insert_point_cloud(pts + 2.0)
+    s1, s3 = shard_map_value(m1, mesh), shard_map_value(m3, mesh)
+    md["prob_maps"] = m1, m3
+    md["prob"] = [s1.collide_with(s3, 0.5, off) for off in MD_OFFSETS]
+    md["prob_inserted"] = s1.insert_point_cloud(pts + 1.0)
+    md["prob"].append(md["prob_inserted"].collide_with(m3, 0.5))
+    sweep, env = shard_map_value(robot["sweep"], mesh), shard_map_value(robot["env"], mesh)
+    md["sharded_bits"] = sweep, env
+    md["types"] = sweep.collide_with_types(env, 1.0, 5)
+    # (h) a 4096^3 ShardedPagedWorld over 4 slabs and the single paged map,
+    # one Kinect frame each, its rays crossing slab 1's floor
+    frame = oc["paged_inputs"]["frame"]
+    sensor = md_world_sensor()
+    with host_reads():
+        world = ShardedPagedWorld(PAGED_DIMS, FUSION_SIDE, devices=[dev] * MD_WORLD_SLABS)
+        world.insert_depth_image(frame, sensor, max_steps=128)
+        single = PagedHierarchicalMap(PAGED_DIMS, FUSION_SIDE, device=dev).insert_depth_image(frame, sensor,
+                                                                                              max_steps=128)
+        md["world_tiles"] = [m.n_tiles() for m in world.shards], single.n_tiles()
+        md["world_ok"] = world.check_tree()
+        # probes: path 7's, and the world's occupied voxels moved a voxel along x
+        occupied = single.extract_occupied_coords() + np.asarray([1, 0, 0], np.int32)
+    probes = torch.cat([oc["paged_inputs"]["probes"], to_device(occupied, torch.int32, dev)])
+    moved = bit_vector_morton_voxel_list(PAGED_DIMS, FUSION_SIDE, device=dev).insert_coordinates(
+        to_device(occupied, torch.int32, dev))
+    md["world"] = world, single
+    md["world_answers"] = [(world.probe_status(probes), single.probe_status(probes)),
+                           (world.collide_with_coords(probes), single.collide_with_coords(probes)),
+                           (world.collide_with(moved, offset=(-1, 0, 0)), single.collide_with(moved, offset=(-1, 0, 0)))]
+    # (i) the facade's mesh: a paged octree as a world, a dense map as a
+    # sharded value, each saved and loaded back
+    md["facade"] = facade_mesh_answers(dev, mesh, frame, sensor, rays, oc["paged_inputs"]["probes"])
+    return md
+
+
+def facade_mesh_answers(dev: torch.device, mesh, frame, sensor, rays, probes) -> dict:
+    """add_map(mesh=...) for a 4096^3 prob octree (a ShardedPagedWorld over
+    the mesh's first 4 slabs) and a 256^3 prob map (a sharded value), a frame
+    or the rays into each, save_map -> load_map of both."""
+    ans = {}
+    world_mesh = make_grid_mesh(MD_WORLD_SLABS, devices=list(mesh.devices.reshape(-1)))
+    with tempfile.TemporaryDirectory() as tmp, host_reads():
+        GpuVoxels._instance = None
+        gvl = GpuVoxels.get_instance()
+        gvl.initialize(*PAGED_DIMS, FUSION_SIDE, device=dev)
+        w = gvl.add_map(MapType.MT_PROBAB_OCTREE, "world", mesh=world_mesh)
+        w.insert_depth_image(frame, sensor, max_steps=128)
+        w.assert_distributed()
+        path = os.path.join(tmp, "world.bin")
+        gvl.save_map("world", path)
+        ans["world_digest"] = digest(path)
+        gvl.load_map("world", path)
+        back = gvl.get_map("world")
+        ans["world"] = (type(w).__name__, type(back).__name__, w.n_tiles(), back.n_tiles(),
+                        torch.equal(w.probe_occupancy(probes), back.probe_occupancy(probes)))
+        single = PagedHierarchicalMap(PAGED_DIMS, FUSION_SIDE, probabilistic=True, device=dev).insert_depth_image(
+            frame, sensor, max_steps=128)
+        io.write_map(single, os.path.join(tmp, "single.bin"))
+        ans["world_single_digest"] = digest(os.path.join(tmp, "single.bin"))
+        GpuVoxels._instance = None
+        gvl = GpuVoxels.get_instance()
+        gvl.initialize(*FUSION_DIMS, FUSION_SIDE, device=dev)
+        gvl.add_map(MapType.MT_PROBAB_VOXELMAP, "env", mesh=mesh)
+        gvl.insert_point_cloud_into_map(rays, "env")
+        assert_sharded(gvl.get_map("env"), mesh)
+        path = os.path.join(tmp, "env.bin")
+        gvl.save_map("env", path)
+        ans["env_digest"] = digest(path)
+        gvl.load_map("env", path)
+        assert_sharded(gvl.get_map("env"), mesh)  # re-pinned
+        plain = ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev).insert_point_cloud(rays)
+        io.write_map(plain, os.path.join(tmp, "plain.bin"))
+        ans["env_single_digest"] = digest(os.path.join(tmp, "plain.bin"))
+        ans["env"] = torch.equal(gvl.get_map("env").gather().data, plain.data)
+        GpuVoxels._instance = None
+    return ans
+
+
+def check_multidevice_path(md: dict, dev: torch.device, out: dict, robot: dict, dist: dict, oc: dict) -> None:
+    """Every sharded answer of path 9 against the single-device call on the
+    same card."""
+    mesh = md["mesh"]
+    assert mesh.z_devices() == [dev] * MD_SLABS, mesh
+    pts = out["cycle_pts"]
+    pa, pb = md_cycle_clouds(pts)
+    single = [ProbVoxelMap.create(CYCLE_DIMS, 1.0, device=dev).insert_point_cloud(pa[w]).collide_with(
+        ProbVoxelMap.create(CYCLE_DIMS, 1.0, device=dev).insert_point_cloud(pb[w]), 0.5) for w in (0, 1)]
+    got = md["cycle"].tolist()
+    assert got == [int(c) for c in single] and got[0] == int(out["cycle"]) == 0 and got[1] > 0, (got, single)
+    log(f"  (a) 512^3 cycle over world 2 x z 4: counts {got} == single-device (scene 0 == path 1's count)")
+
+    depth = torch.as_tensor(out["frames"][0], device=dev)
+    pose = to_device(kinect_sensor().pose(), torch.float32, dev)
+    unknown = ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev)
+    sensed = raycast.insert_depth_image(unknown.data, depth, pose, *INTR, FUSION_SIDE, FUSION_DIMS)
+    t = float_to_probability(0.55)
+    want = int(collide_cuda.count_prob_prob(sensed, out["env"].data, t, t))
+    assert int(md["sensor"]) == want > 0, (int(md["sensor"]), want)
+    log(f"  (b) sensor cycle at 256^3 over 8 slabs: count {want} == single-device")
+
+    rays = out["rays"]
+    b1 = BitVectorVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev).insert_point_cloud(rays)
+    b2 = BitVectorVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev).insert_point_cloud(rays + FUSION_SIDE)
+    want = int(b1.collide_with(b2))
+    assert int(md["bit"]) == want > 0, (int(md["bit"]), want)
+    log(f"  (c) bit cycle at 256^3 over 8 slabs: count {want} == single-device")
+
+    whole = dist["edt"].data
+    assert all(torch.equal(s, p) for s, p in zip(md["edt"], torch.chunk(whole, MD_SLABS))), "sharded exact EDT"
+    assert torch.equal(edt_envelope.parallel_banding(md["edt_in"], EDT_DIMS), whole)
+    log(f"  (d) exact EDT at 512^3 over 8 slabs: the packed grid == path 3's, bit for bit")
+
+    merged = dist["merged"].data
+    d_sh = edt.squared_distance_grid(torch.cat(md["jfa"]), FUSION_DIMS)
+    with host_reads():
+        # the single-device repair with the same fine steps, run to its
+        # fixpoint as the sharded one is: a cap it does not reach
+        (single, rounds), md["jfa_single_ms"] = timed_once(lambda: edt.jump_flood_multires_with_stats(
+            merged, FUSION_DIMS, fine_steps=MD_JFA_STEPS, max_iters=MD_JFA_MAX_ROUNDS))
+        d_single = edt.squared_distance_grid(single, FUSION_DIMS)
+        differ = int((d_sh != d_single).sum())
+        exact = edt.squared_distance_grid(edt_envelope.parallel_banding(merged, FUSION_DIMS), FUSION_DIMS)
+        off_exact = int((d_sh != exact).sum())
+        below_exact = int((d_sh < exact).sum())
+    assert rounds < MD_JFA_MAX_ROUNDS, f"the single-device repair did not converge in {rounds} rounds"
+    assert differ == 0, f"sharded JFA d2 differs from the single-device fixpoint at {differ} voxels"
+    assert below_exact == 0, f"the JFA is below the exact EDT at {below_exact} voxels"
+    log(f"  (e) JFA at 256^3 over 8 slabs: squared distances == jump_flood_multires_with_stats run to its fixpoint "
+        f"({rounds} repair rounds, past the 64-round default cap: {rounds > 64}); {off_exact} voxels above the "
+        f"exact EDT, none below")
+
+    c5, coords = oc["c5"], md["coords"]
+    want_hier = int(c5["dense"].probe(coords)[0].sum())
+    assert int(md["hier"]) == want_hier > 0, (int(md["hier"]), want_hier)
+    e_occ, e_unk = c5["paged"].collide_with_counting_unknown_coords(coords)
+    occ, unk = md["paged"]
+    assert (int(occ), int(unk)) == (int(e_occ), int(e_unk)) and int(occ) == want_hier, (int(occ), int(e_occ))
+    env_list, robot_list = md["lists"]
+    want_list = int(env_list.collide_with(robot_list))
+    assert int(md["list"]) == want_list > 0, (int(md["list"]), want_list)
+    log(f"  (f) BASELINE #5 at 1024^3, {coords.shape[0]} probes over 8 slabs: hier {want_hier}, paged "
+        f"({int(occ)}, {int(unk)}), list {want_list} == single-device")
+
+    m1, m3 = md["prob_maps"]
+    want = [int(m1.collide_with(m3, 0.5, off)) for off in MD_OFFSETS]
+    want.append(int(m1.insert_point_cloud(pts + 1.0).collide_with(m3, 0.5)))
+    got = [int(c) for c in md["prob"]]
+    assert got == want and max(got) > 0, (got, want)
+    assert_sharded(md["prob_inserted"], mesh)
+    assert torch.equal(md["prob_inserted"].gather().data, m1.insert_point_cloud(pts + 1.0).data)
+    cnt, meanings, marked = md["types"]
+    w_cnt, w_meanings, w_marked = robot["sweep"].collide_with_types(robot["env"], 1.0, 5)
+    assert int(cnt) == int(w_cnt) > 0 and torch.equal(meanings, w_meanings)
+    assert_sharded(marked, mesh)
+    assert same_map(marked.gather(), w_marked)
+    log(f"  (g) sharded values: 512^3 prob collides {got} (K1) and the 256^3 types collide (K4) count "
+        f"{int(cnt)}, meanings, marked map (still sharded) == single-device")
+
+    (world, single), (slab_tiles, single_tiles) = md["world"], md["world_tiles"]
+    assert sum(slab_tiles) == single_tiles and sum(1 for n in slab_tiles if n) >= 2 and md["world_ok"], slab_tiles
+    for got, want in md["world_answers"]:
+        assert torch.equal(got, want) if got.ndim else int(got) == int(want) > 0, (got, want)
+    log(f"  (h) {PAGED_DIMS[0]}^3 ShardedPagedWorld over {MD_WORLD_SLABS} slabs: tiles {slab_tiles} (sum "
+        f"{single_tiles} == single), probes, the coords collide {int(md['world_answers'][1][0])} and the morton "
+        f"list collide {int(md['world_answers'][2][0])} == single")
+
+    fa = md["facade"]
+    assert fa["world"][:2] == ("ShardedPagedWorld", "ShardedPagedWorld") and fa["world"][2] == fa["world"][3] > 0
+    assert fa["world"][4] and fa["world_digest"] == fa["world_single_digest"], fa["world"]
+    assert fa["env"] and fa["env_digest"] == fa["env_single_digest"]
+    log(f"  (i) the facade's mesh: a {PAGED_DIMS[0]}^3 prob octree as a ShardedPagedWorld and a 256^3 prob map "
+        f"as a sharded value, save_map -> load_map: files == the single-device maps', reloaded equal")
+
+
+def multidevice_timings(dev: torch.device, smi: str, md: dict, out: dict, robot: dict, dist: dict, oc: dict) -> None:
+    """Phase 4's times of path 9 (printed, never asserted): each sharded call
+    beside its single-device call on the same card (CUDA events; the host
+    clock where the host allocates)."""
+    mesh, cycle_mesh = md_meshes(dev)
+    pts = out["cycle_pts"]
+    pa, pb = md_cycle_clouds(pts)
+    rows = []
+
+    def cycle_single():
+        return [ProbVoxelMap.create(CYCLE_DIMS, 1.0, device=dev).insert_point_cloud(pa[w]).collide_with(
+            ProbVoxelMap.create(CYCLE_DIMS, 1.0, device=dev).insert_point_cloud(pb[w]), 0.5) for w in (0, 1)]
+
+    fn = build_sharded_cycle(cycle_mesh, CYCLE_DIMS, 1.0, 0.5)
+    rows.append(("512^3 cycle, 2 scenes (world 2 x z 4)", time_ms(lambda: fn(pa, pb), 5), time_ms(cycle_single, 5)))
+    depth = torch.as_tensor(out["frames"][0], device=dev)
+    pose = to_device(kinect_sensor().pose(), torch.float32, dev)
+    env = out["env"].data
+    fn = build_sharded_sensor_cycle(mesh, FUSION_DIMS, FUSION_SIDE, *INTR, 0.55)
+    unknown = ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev).data
+    t = float_to_probability(0.55)
+    rows.append(("256^3 sensor cycle", time_ms(lambda: fn(depth, pose, env), 10), time_ms(
+        lambda: collide_cuda.count_prob_prob(raycast.insert_depth_image(unknown, depth, pose, *INTR, FUSION_SIDE,
+                                                                        FUSION_DIMS), env, t, t), 10)))
+    rays = out["rays"]
+    fn = build_sharded_bit_cycle(mesh, FUSION_DIMS, FUSION_SIDE)
+    rows.append(("256^3 bit cycle (K7 per slab; single: occupancy summaries)", time_ms(
+        lambda: fn(rays, rays + FUSION_SIDE), 10), time_ms(
+        lambda: BitVectorVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev).insert_point_cloud(rays).collide_with(
+            BitVectorVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev).insert_point_cloud(rays + FUSION_SIDE)),
+        10)))
+    fn = build_sharded_parallel_banding(mesh, EDT_DIMS)
+    packed = md["edt_in"]
+    rows.append(("512^3 exact EDT", time_ms(lambda: fn(packed), 3, warmup=1),
+                 time_ms(lambda: edt_envelope.parallel_banding(packed, EDT_DIMS), 3, warmup=1)))
+    # path 9's own calls, one each: each repair runs to its fixpoint and takes seconds
+    rows.append(("256^3 JFA to the repair's fixpoint (one host read a round)", md["jfa_ms"], md["jfa_single_ms"]))
+    c5, coords = oc["c5"], md["coords"]
+    dense, paged = c5["dense"], c5["paged"]
+    fn = build_sharded_hier_probe(mesh, dense.levels, dense.padded_dims)
+    rows.append((f"1024^3 hier probe, {coords.shape[0]} coords", time_ms(
+        lambda: fn(dense.pyramid[0], tuple(dense.pyramid[1:]), coords), 10), time_ms(
+        lambda: dense.probe(coords)[0].sum(), 10)))
+    fn = build_sharded_paged_probe(mesh)
+    snap = paged.snapshot()
+    rows.append((f"1024^3 paged probe, {coords.shape[0]} coords", time_ms(lambda: fn(snap, coords), 10),
+                 time_ms(lambda: paged.collide_with_counting_unknown_coords(coords), 10)))
+    fn = build_sharded_list_collide(mesh)
+    la, lb = md["lists"]
+    rows.append((f"list x list, {la.capacity} x {lb.capacity} entries", time_ms(lambda: fn(la, lb), 10),
+                 time_ms(lambda: la.collide_with(lb), 10)))
+    m1, m3 = md["prob_maps"]
+    s1, s3 = shard_map_value(m1, mesh), shard_map_value(m3, mesh)
+    rows.append(("512^3 sharded prob collide, offset (3, -2, 1) (K1)", time_ms(
+        lambda: s1.collide_with(s3, 0.5, (3, -2, 1)), 10), time_ms(lambda: m1.collide_with(m3, 0.5, (3, -2, 1)), 10)))
+    sweep, env_bits = md["sharded_bits"]
+    rows.append(("256^3 sharded types collide, window 5 (K4)", time_ms(
+        lambda: sweep.collide_with_types(env_bits, 1.0, 5), 10), time_ms(
+        lambda: robot["sweep"].collide_with_types(robot["env"], 1.0, 5), 10)))
+    frame = oc["paged_inputs"]["frame"]
+    sensor = md_world_sensor()
+    with host_reads():
+        for label, make in ((f"{PAGED_DIMS[0]}^3 paged frame, allocating ({MD_WORLD_SLABS} slabs)",
+                             lambda: ShardedPagedWorld(PAGED_DIMS, FUSION_SIDE, devices=[dev] * MD_WORLD_SLABS)),
+                            ("", lambda: PagedHierarchicalMap(PAGED_DIMS, FUSION_SIDE, device=dev))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            make().insert_depth_image(frame, sensor, max_steps=128)
+            torch.cuda.synchronize()
+            rows.append((label, (time.perf_counter() - t0) * 1e3, None))
+    (label, w_ms, _), (_, s_ms, _) = rows.pop(-2), rows.pop(-1)
+    rows.append((label + " (host clock)", w_ms, s_ms))
+    for label, sharded_ms, single_ms in rows:
+        log(f"  path 9 {label}: sharded {sharded_ms:.4f} ms, single-device {single_ms:.4f} ms  [{smi}]")
+
+
 # -- phase 4 ------------------------------------------------------------------
+def timed_once(fn):
+    """(fn(), its time in ms by CUDA events): one call, no warm-up, for the
+    calls that take seconds and whose result a check reads."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return result, start.elapsed_time(end)
+
+
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -2597,12 +3009,13 @@ def main() -> int:
     log("phase 2: kernels against their plain versions (exact)")
     err = check_kernels(dev)
     log("phase 3: the paths through the entry points")
-    out, robot, dist, fit, lp, plan, oc, fp, launches = drive_main_path(dev)
+    out, robot, dist, fit, lp, plan, oc, fp, md, launches = drive_main_path(dev)
     log("phase 4: times (CUDA events)")
     t, bounds = timings(dev, smi, out, robot, dist, fit)
     list_timings(dev, smi, lp, plan)
     octree_timings(dev, smi, oc)
     facade_timings(dev, smi, fp)
+    multidevice_timings(dev, smi, md, out, robot, dist, oc)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],

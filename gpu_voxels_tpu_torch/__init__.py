@@ -40,9 +40,11 @@ primitive arrays, the cube extraction over every tier and its exporters and
 publishers (`vis`, with the device compaction of `ops.compact`), the
 facade's `save_map` / `load_map` / `visualize_map`, the config, logging,
 perf-monitor and tf helpers (`utils`) and the camelCase aliases (`compat`).
-Around them: the `GpuVoxels` facade and interop with the JAX package. The
-multi-device branch (ShardedPagedWorld, the facade's `mesh`) raises
-NotImplementedError naming ROADMAP Queue 1 item 13.
+Around them: the `GpuVoxels` facade and interop with the JAX package. And
+multi-device scaling (`parallel`): z-slab grids over a `GridMesh` of
+devices (several slabs may share one card), the sharded cycles, probes and
+EDTs, slab-sharded map values and the `ShardedPagedWorld`, which the
+facade's `mesh` argument builds.
 
 The package imports torch and numpy only. Entry points run on the CUDA
 card unless the caller passes `device="cpu"`. Kernels build with nvcc at

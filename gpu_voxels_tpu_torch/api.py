@@ -12,9 +12,11 @@ GpuVoxelsMap::m_mutex (GpuVoxelsMap.h:269).
 Every map, robot and primitive array lives on the device given to
 `initialize` (the card when none is given). `add_map` builds every MapType:
 the three dense map types, the five voxel-list types and the two octree
-types (a dense hierarchy up to 1024 per axis, the paged tier past it). The
-reference's multi-device branch (its `mesh` argument, ShardedPagedWorld)
-raises NotImplementedError naming ROADMAP Queue 1 item 13.
+types (a dense hierarchy up to 1024 per axis, the paged tier past it).
+With `mesh` (a parallel.GridMesh) a map is laid over the mesh's z slabs:
+the dense types and the dense hierarchies as slab-sharded values
+(parallel.shard_map_value), re-pinned after every update; a paged-size
+octree as a parallel.ShardedPagedWorld, one slab map per device.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from .maps.hierarchical import HierarchicalBitMap, HierarchicalProbMap
 from .maps.paged import PagedHierarchicalMap
 from .maps.voxellist import KIND_BIT, KIND_COUNT, KIND_PROB, VoxelList
 from .maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+from .parallel import ShardedPagedWorld, reshard_like, shard_map_value
 from .primitive_array import PrimitiveArray, PrimitiveType
 from .robot.dh import KinematicChain
 from .robot.robot import JointValueMap, RobotInterface
@@ -64,6 +67,7 @@ class GpuVoxels:
         self._robots: Dict[str, RobotInterface] = {}
         self._prim_arrays: Dict[str, PrimitiveArray] = {}
         self._vis: Dict[str, VisProvider] = {}
+        self._meshes: Dict[str, object] = {}
 
     # -- lifecycle -----------------------------------------------------------
     @classmethod
@@ -86,11 +90,14 @@ class GpuVoxels:
     # -- map registry ----------------------------------------------------------
     def add_map(self, map_type: MapType, map_name: str, capacity: int = DEFAULT_LIST_CAPACITY, mesh=None):
         """addMap factory (GpuVoxels.cpp:164-270) over every MapType;
-        `capacity` is a list's initial capacity. A `mesh` (the reference's
-        multi-device layout) raises NotImplementedError: ROADMAP Queue 1
-        item 13."""
-        if mesh is not None:
-            raise NotImplementedError("add_map(mesh=...) is not ported yet (ROADMAP Queue 1 item 13: multi-device)")
+        `capacity` is a list's initial capacity.
+
+        `mesh` (a parallel.GridMesh) opts the map into multi-device z-slab
+        sharding: a paged-size octree is built directly as a
+        ShardedPagedWorld over the mesh's devices; the other dense types and
+        hierarchies become slab-sharded values, and every facade update
+        re-pins the layout. Voxel lists take no mesh (as in the reference,
+        where they have no sharding layout)."""
         if self._dims is None:
             raise RuntimeError("Call initialize() first")
         if map_name in self._maps:
@@ -106,41 +113,55 @@ class GpuVoxels:
             kind, id_mode = _LISTS[mt]
             m = VoxelList.create(self._dims, self._side_length, kind, capacity, id_mode, device=self._device)
         elif mt in (MapType.MT_PROBAB_OCTREE, MapType.MT_BITVECTOR_OCTREE):
-            m = self._octree(mt == MapType.MT_PROBAB_OCTREE)
+            m = self._octree(mt == MapType.MT_PROBAB_OCTREE, mesh)
         else:
             raise NotImplementedError(f"map type {mt.name}")
+        if mesh is not None and not isinstance(m, ShardedPagedWorld):
+            m = shard_map_value(m, mesh)
+            self._meshes[map_name] = mesh
         self._maps[map_name] = m
         self._locks[map_name] = threading.RLock()
         self._vis[map_name] = VisProvider(map_name)
         return m
 
-    def _octree(self, prob: bool):
+    def _octree(self, prob: bool, mesh=None):
         """Both octree types (Octree.cu:24-72): the dense status pyramid up to
         1024 per axis; past that, when every dim is a multiple of 64, the
-        paged sparse tier."""
+        paged sparse tier, over a mesh a ShardedPagedWorld built directly in
+        sharded form (the host-stateful tier shards as one slab map, pool
+        and allocator per device)."""
         d, s = self._dims, self._side_length
         if max(d) > 1024 and all(v % 64 == 0 for v in d):
+            if mesh is not None:
+                return ShardedPagedWorld(d, s, prob, devices=list(mesh.devices.reshape(-1)))
             return PagedHierarchicalMap(d, s, probabilistic=prob, device=self._device)
         cls = HierarchicalProbMap if prob else HierarchicalBitMap
         return cls.create(d, s, device=self._device)
 
     def del_map(self, map_name: str) -> bool:
-        for d in (self._maps, self._locks, self._vis):
+        for d in (self._maps, self._locks, self._vis, self._meshes):
             d.pop(map_name, None)
         return True
 
     def get_map(self, map_name: str):
         return self._maps[map_name]
 
+    def _pinned(self, map_name: str, m):
+        """A mesh-registered map re-pinned to its slab layout (the value
+        itself when it already is)."""
+        mesh = self._meshes.get(map_name)
+        return m if mesh is None else reshard_like(m, mesh)
+
     def set_map(self, map_name: str, new_map) -> None:
-        """Rebind a name after a functional update."""
+        """Rebind a name after a functional update (re-pins mesh layouts)."""
         with self._locks[map_name]:
-            self._maps[map_name] = new_map
+            self._maps[map_name] = self._pinned(map_name, new_map)
 
     def update_map(self, map_name: str, fn):
-        """Atomically apply a map -> map function; returns the new map."""
+        """Atomically apply a map -> map function; returns the new map,
+        re-pinned to its slab layout when the map was added with a mesh."""
         with self._locks[map_name]:
-            new = fn(self._maps[map_name])
+            new = self._pinned(map_name, fn(self._maps[map_name]))
             self._maps[map_name] = new
             return new
 
@@ -270,8 +291,14 @@ class GpuVoxels:
     def load_map(self, map_name: str, path) -> bool:
         """Map readFromDisk through the facade: the file's MapType decides
         the tier (utils/io.read_map), the map lands on the facade's device
-        and is bound to `map_name`."""
-        self._maps[map_name] = map_io.read_map(path, device=self._device)
+        and is bound to `map_name`. A sharded paged world reloads
+        distributed over its own devices; a mesh-registered map is
+        re-pinned to its slab layout."""
+        cur = self._maps.get(map_name)
+        if isinstance(cur, ShardedPagedWorld):
+            self._maps[map_name] = cur.read_from_disk(path)
+            return True
+        self._maps[map_name] = self._pinned(map_name, map_io.read_map(path, device=self._device))
         self._locks.setdefault(map_name, threading.RLock())
         self._vis.setdefault(map_name, VisProvider(map_name))
         return True

@@ -4,8 +4,8 @@ Users migrating from the CUDA GPU-Voxels can keep their method spelling:
 `gvl.addMap(...)`, `map.insertPointCloud(...)`, `map.collideWith(...)` etc.
 resolve to the snake_case implementations. Counterpart of
 gpu_voxels_tpu/compat.py: the same alias tables, installed by
-gpu_voxels_tpu_torch.api at its import on the port's classes (the
-multi-device ShardedPagedWorld is ROADMAP Queue 1 item 13).
+gpu_voxels_tpu_torch.api at its import on the port's classes, the
+multi-device ShardedPagedWorld included.
 """
 from __future__ import annotations
 
@@ -112,6 +112,7 @@ def install() -> None:
     from .maps.paged import PagedHierarchicalMap
     from .maps.voxellist import VoxelList
     from .maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
+    from .parallel.paged_world import ShardedPagedWorld
 
     _apply(GpuVoxels, _FACADE_ALIASES)
     for cls in (
@@ -121,6 +122,7 @@ def install() -> None:
         HierarchicalProbMap,
         HierarchicalBitMap,
         PagedHierarchicalMap,
+        ShardedPagedWorld,
     ):
         _apply(cls, _MAP_ALIASES)
     _apply(VoxelList, _LIST_ALIASES)

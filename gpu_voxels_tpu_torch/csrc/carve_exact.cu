@@ -35,6 +35,11 @@
 // threshold keeps the spec's form sz < d - eps, with eps = f32(eps_vox) *
 // f32(side) folded on the host.
 //
+// A z-slab of a larger grid (the multi-device carve, parallel/sharded.py)
+// passes its first global z row z0: the row's global index z + z0 is formed
+// as an integer and then converted to f32, as the spec does, which is exact
+// below 2^24. z0 = 0 is the whole grid.
+//
 // The launcher returns cudaGetLastError(); the caller raises on non-zero.
 
 #include <cuda_runtime.h>
@@ -49,10 +54,10 @@ namespace {
 __global__ void __launch_bounds__(carve::kThreads)
 carve_exact_kernel(const float* __restrict__ depth, int h, int w, const float* __restrict__ pose,
                    float fx, float fy, float cx, float cy, float side, float eps, float invalid,
-                   int dx, int dy, int tiles_x, int tiles_y, uint8_t* __restrict__ out) {
+                   int dx, int dy, int z0, int tiles_x, int tiles_y, uint8_t* __restrict__ out) {
   const carve::RowThread t = carve::row_thread(tiles_x, tiles_y);
   if (t.x0 >= dx || t.y >= dy) return;
-  const carve::Row row = carve::project_row(pose, side, t.y, t.z);
+  const carve::Row row = carve::project_row(pose, side, t.y, t.z + z0);
   uint64_t carved = 0;  // byte i: voxel x0 + i
 #pragma unroll
   for (int i = 0; i < carve::kX; ++i) {
@@ -68,10 +73,11 @@ carve_exact_kernel(const float* __restrict__ depth, int h, int w, const float* _
 
 }  // namespace
 
-// out[i] = 1 where voxel i is carved free, for a [dz, dy, dx] grid (x fastest).
+// out[i] = 1 where voxel i is carved free, for a [dz, dy, dx] grid (x fastest)
+// whose z index k is global row k + z0.
 extern "C" int gv_carve_exact(const void* depth, int h, int w, const void* pose, float fx, float fy,
                               float cx, float cy, float side, float eps, float invalid, int dx,
-                              int dy, int dz, void* out, void* stream) {
+                              int dy, int dz, int z0, void* out, void* stream) {
   const int64_t n = static_cast<int64_t>(dx) * dy * dz;
   if (n <= 0) return cudaGetLastError();
   if (n > INT32_MAX) return cudaErrorInvalidValue;
@@ -79,6 +85,6 @@ extern "C" int gv_carve_exact(const void* depth, int h, int w, const void* pose,
   if (g.blocks > INT_MAX) return cudaErrorInvalidValue;
   carve_exact_kernel<<<static_cast<unsigned>(g.blocks), g.block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(depth), h, w, static_cast<const float*>(pose), fx, fy, cx, cy,
-      side, eps, invalid, dx, dy, g.tiles_x, g.tiles_y, static_cast<uint8_t*>(out));
+      side, eps, invalid, dx, dy, z0, g.tiles_x, g.tiles_y, static_cast<uint8_t*>(out));
   return cudaGetLastError();
 }

@@ -249,12 +249,21 @@ def jump_flood_multires(packed_flat: torch.Tensor, dims: Dims, coarse_factor: in
                         fine_steps=(8, 4, 2, 1, 1, 1)) -> torch.Tensor:
     """Multi-resolution jump flooding: a full JFA on a 1/c^3 grid whose
     cells keep the site closest to their block centre seeds the fine grid,
-    which then runs only short-range rounds and the fixpoint repair.
-    Grids not divisible by c take the flat `jump_flood`."""
+    which then runs only short-range rounds and the fixpoint repair (capped
+    at 64 rounds, as the reference's). Grids not divisible by c take the
+    flat `jump_flood`."""
+    return jump_flood_multires_with_stats(packed_flat, dims, coarse_factor, fine_steps)[0]
+
+
+def jump_flood_multires_with_stats(packed_flat: torch.Tensor, dims: Dims, coarse_factor: int = 4,
+                                   fine_steps=(8, 4, 2, 1, 1, 1), max_iters: int = 64):
+    """jump_flood_multires plus the repair's telemetry: (packed,
+    repair_iters), where repair_iters == max_iters means the repair hit its
+    cap unconverged; a cap it does not reach gives the repair's fixpoint."""
     dx, dy, dz = dims
     c = coarse_factor
     if dx % c or dy % c or dz % c:
-        return jump_flood(packed_flat, dims)
+        return jump_flood_with_stats(packed_flat, dims, max_iters=max_iters)
     dev = packed_flat.device
     grid = packed_flat.reshape(dz, dy, dx)
     d2 = squared_distance_grid(packed_flat, dims)
@@ -303,8 +312,8 @@ def jump_flood_multires(packed_flat: torch.Tensor, dims: Dims, coarse_factor: in
     # short-range fine refinement and the fixpoint repair
     for s in fine_steps:
         grid, d2 = _jfa_round(grid, d2, s, dims)
-    grid, d2, _ = _converge_step1(grid, d2, dims)
-    return grid.reshape(-1)
+    grid, d2, iters = _converge_step1(grid, d2, dims, max_iters)
+    return grid.reshape(-1), iters
 
 
 def _floor_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

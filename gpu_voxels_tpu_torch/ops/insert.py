@@ -58,9 +58,14 @@ def linear_offset(offset: Tuple[int, int, int], dims: Dims) -> int:
     return int(offset[2]) * dx * dy + int(offset[1]) * dx + int(offset[0])
 
 
-def voxelize(points: torch.Tensor, side_length: float, dims: Dims):
-    """Returns (int64 linear idx with out-of-map points sent to N, any_outside)."""
+def voxelize(points: torch.Tensor, side_length: float, dims: Dims, z_offset: int = 0):
+    """Returns (int64 linear idx with out-of-map points sent to N, any_outside).
+    With `z_offset` z0 the grid is the z-slab [z0, z0 + dims[2]) of a larger
+    one: points are voxelized in the global frame and shifted by z0 as
+    integers, so the slab takes exactly its cells of the global decision."""
     coords = map_to_voxels(points, side_length)
+    if z_offset:
+        coords = shifted(coords, (0, 0, z_offset), -1)
     valid = in_map(coords, dims)
     n = dims[0] * dims[1] * dims[2]
     idx = torch.where(valid, linear_index(coords, dims), n)
@@ -86,10 +91,11 @@ def clamp_coords(coords: torch.Tensor, dims: Dims) -> torch.Tensor:
     return torch.stack([coords[..., i].clamp(0, int(dims[i]) - 1) for i in range(3)], dim=-1)
 
 
-def insert_prob(data: torch.Tensor, points: torch.Tensor, side_length: float, dims: Dims, meaning):
+def insert_prob(data: torch.Tensor, points: torch.Tensor, side_length: float, dims: Dims, meaning,
+                z_offset: int = 0):
     """ProbVoxelMap point insert: voxel occupancy SET to the meaning's value
     (ProbabilisticVoxel::insert, a store not an update). Returns (new, outside)."""
-    idx, outside = voxelize(points, side_length, dims)
+    idx, outside = voxelize(points, side_length, dims, z_offset)
     out = data.new_empty(data.shape[0] + 1)  # slot N takes the dropped points
     out[:-1] = data
     out.index_fill_(0, idx, meaning_to_probability(meaning))
@@ -102,7 +108,8 @@ def occupancy_mask(idx: torch.Tensor, n: int) -> torch.Tensor:
     return hits.index_fill_(0, idx, 1)[:n]
 
 
-def insert_bit(planes: torch.Tensor, points: torch.Tensor, side_length: float, dims: Dims, meaning: int):
+def insert_bit(planes: torch.Tensor, points: torch.Tensor, side_length: float, dims: Dims, meaning: int,
+               z_offset: int = 0):
     """BitVoxelMap point insert: set bit `meaning` in every hit voxel.
 
     A one-hot set builds the hit word, then one OR merges it into the target
@@ -110,7 +117,7 @@ def insert_bit(planes: torch.Tensor, points: torch.Tensor, side_length: float, d
     1 for voxels this insert made !noneButEmpty. Inserting eBVM_FREE (bit 0,
     masked out of noneButEmpty) contributes nothing to it.
     """
-    idx, outside = voxelize(points, side_length, dims)
+    idx, outside = voxelize(points, side_length, dims, z_offset)
     n = planes.shape[1]
     delta = torch.zeros(n + 1, dtype=planes.dtype, device=planes.device)
     delta = delta.index_fill_(0, idx, as_int32(bit_word(meaning)))[:n]
@@ -189,14 +196,14 @@ def self_collision_clash(robot_links, side_length: float, dims: Dims) -> torch.T
     return clash
 
 
-def insert_count(data: torch.Tensor, points: torch.Tensor, side_length: float, dims: Dims):
+def insert_count(data: torch.Tensor, points: torch.Tensor, side_length: float, dims: Dims, z_offset: int = 0):
     """CountingVoxel insert: +1 per inserted point (CountingVoxel.hpp:69-72).
 
     The reference counter is a raw int8 ``m_count++``: it wraps past 127
     rather than saturating. The sum runs in int32 and the cast back to int8
     truncates mod 256 (127 + 1 -> -128, 255 -> -1), as the list tier's
     wrap-add reduce does (CountingVoxel.hpp:75-80). Returns (new, outside)."""
-    idx, outside = voxelize(points, side_length, dims)
+    idx, outside = voxelize(points, side_length, dims, z_offset)
     counts = torch.zeros(data.shape[0] + 1, dtype=torch.int32, device=data.device)  # slot N: dropped points
     counts[:-1] = data
     counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))

@@ -27,23 +27,25 @@ from .. import probability
 from ..constants import SENSOR_MODEL_FREE, SENSOR_MODEL_OCCUPIED
 from ..geometry import transforms
 from ..utils import to_device
-from .insert import floor_to_int32, in_map, linear_index, map_to_voxels
+from .insert import floor_to_int32, in_map, linear_index, map_to_voxels, shifted
 
 Dims = Tuple[int, int, int]
 F32 = torch.float32
 
 
-def _project(dev, pose, fx, fy, cx, cy, side_length: float, dims: Dims, h: int, w: int):
+def _project(dev, pose, fx, fy, cx, cy, side_length: float, dims: Dims, h: int, w: int, z_index_offset: int = 0):
     """Per voxel of a [Z, Y, X] grid, its centre's camera-frame depth sz,
     its pixel (u, v) and whether it lies in front and inside the h x w
-    image: the carves' shared projection (csrc/carve_projection.cuh)."""
+    image: the carves' shared projection (csrc/carve_projection.cuh).
+    Voxel z index k of the grid is global index k + z_index_offset, added
+    as an integer and then converted to f32 (exact below 2^24)."""
     pose = to_device(pose, F32, dev)
     rot_t = pose[:3, :3].T
     origin = pose[:3, 3]
 
     dx, dy, dz = dims
     side = float(np.float32(side_length))
-    zi = torch.arange(dz, dtype=F32, device=dev).view(dz, 1, 1)
+    zi = (torch.arange(dz, dtype=torch.int32, device=dev) + int(z_index_offset)).to(F32).view(dz, 1, 1)
     yi = torch.arange(dy, dtype=F32, device=dev).view(1, dy, 1)
     xi = torch.arange(dx, dtype=F32, device=dev).view(1, 1, dx)
     wx = (xi + 0.5) * side - origin[0]
@@ -71,6 +73,7 @@ def projective_free_space(
     dims: Dims,
     invalid_value: float = 0.0,
     eps_vox: float = 1.0,
+    z_index_offset: int = 0,
 ) -> torch.Tensor:
     """bool[N]: voxels observed free by a depth camera (visibility carving).
 
@@ -79,9 +82,14 @@ def projective_free_space(
     eps_vox voxels closer than the measurement: sz < d - eps_vox * side.
     Every f32 operation is one torch op, rounded on its own, in the order of
     the reference expression (gpu_voxels_tpu/ops/raycast.py:109-139).
+
+    `z_index_offset` carves a z-slab of a larger grid in the global frame:
+    the grid's z index k is global index k + z_index_offset, and the pose is
+    the global one (a slab never translates the pose: see
+    parallel/sharded.py).
     """
     h, w = depth.shape
-    sz, u, v, in_fov = _project(depth.device, pose, fx, fy, cx, cy, side_length, dims, h, w)
+    sz, u, v, in_fov = _project(depth.device, pose, fx, fy, cx, cy, side_length, dims, h, w, z_index_offset)
     ui = u.clamp(0, w - 1).to(torch.int64)
     vi = v.clamp(0, h - 1).to(torch.int64)
     d = depth.reshape(-1)[vi * w + ui]
@@ -184,6 +192,7 @@ def insert_depth_image(
     cut_real_robot: bool = False,
     robot_occupied_mask=None,
     carve_pool: int = 1,
+    z_index_offset: int = 0,
 ) -> torch.Tensor:
     """Full projective sensor update of an int8 log-odds map: every
     measurement adds SENSOR_MODEL_OCCUPIED (+72) to its voxel, and every voxel
@@ -194,9 +203,16 @@ def insert_depth_image(
     (`raycast_cuda.projective_free_space_pooled`, kernel K6): conservative,
     it never frees a voxel the exact carve keeps. Each takes its plain spec
     on CPU tensors.
+
+    With `z_index_offset` z0, `data` is the z-slab [z0, z0 + dims[2]) of a
+    larger grid: hits are voxelized in the global frame and shifted by z0
+    as integers, and the exact carve takes the same offset (the pooled
+    carve takes none).
     """
     from . import raycast_cuda
 
+    if z_index_offset and carve_pool > 1:
+        raise ValueError("the pooled carve takes no z_index_offset; carve a slab with carve_pool=1")
     depth = to_device(depth, F32, data.device)
     pose = to_device(pose, F32, data.device)
     pts = depth_image_to_point_cloud(depth, fx, fy, cx, cy, invalid_value)
@@ -204,6 +220,8 @@ def insert_depth_image(
     n = dims[0] * dims[1] * dims[2]
     finite = torch.all(torch.isfinite(world), dim=-1)
     coords = map_to_voxels(torch.where(finite[:, None], world, -1.0), side_length)
+    if z_index_offset:
+        coords = shifted(coords, (0, 0, z_index_offset), -1)
     inside = finite & in_map(coords, dims)
     idx = torch.where(inside, linear_index(coords, dims), n)
     hit_counts = torch.zeros(n + 1, dtype=torch.int32, device=data.device)
@@ -216,7 +234,7 @@ def insert_depth_image(
         )
     else:
         free = raycast_cuda.projective_free_space_exact(
-            depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value
+            depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, z_index_offset=z_index_offset
         )
     carved = (free & (hit_counts == 0)).to(torch.int32)
     delta = hit_counts * SENSOR_MODEL_OCCUPIED + carved * SENSOR_MODEL_FREE

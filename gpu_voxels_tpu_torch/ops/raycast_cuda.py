@@ -74,21 +74,26 @@ def projective_free_space_exact(
     dims,
     invalid_value: float = 0.0,
     eps_vox: float = 1.0,
+    z_index_offset: int = 0,
 ) -> torch.Tensor:
     """bool[dz*dy*dx] exact free-space mask, bit-identical to
-    `projective_free_space` (K3 on CUDA)."""
+    `projective_free_space` (K3 on CUDA). With `z_index_offset` z0 the grid
+    is the z-slab [z0, z0 + dz) of a larger one, carved in the global frame."""
     if depth.device.type == "cpu":
         return projective_free_space_plain(
-            depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, eps_vox
+            depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, eps_vox, z_index_offset
         )
     pose, (dx, dy, dz) = _checked(depth, pose, dims, "carve")
+    z0 = int(z_index_offset)
+    if abs(z0) + dz > 2**24:
+        raise ValueError(f"the carve's global z indices must stay within +-2^24 (exact in f32), got {z0} + {dz}")
     h, w = depth.shape
     out = torch.empty(dx * dy * dz, dtype=torch.bool, device=depth.device)
     stream = torch.cuda.current_stream(depth.device).cuda_stream
     with torch.cuda.device(depth.device):
         err = kernels.library().gv_carve_exact(
             depth.data_ptr(), h, w, pose.data_ptr(), fx, fy, cx, cy, side_length, _eps(eps_vox, side_length),
-            invalid_value, dx, dy, dz, out.data_ptr(), stream,
+            invalid_value, dx, dy, dz, z0, out.data_ptr(), stream,
         )
     kernels.check(err, "projective_free_space_exact")
     launches["projective_free_space_exact"] += 1

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..constants import MapType
-from . import resolve_device
+from . import resolve_device, to_device
 
 _HEADER = np.dtype([("map_type", "<i4"), ("side_length", "<f4"), ("dims", "<u4", 3)])
 
@@ -220,9 +220,10 @@ def write_paged_map(m, path, ascii: bool = False) -> None:
         pool.tofile(f)
 
 
-def _paged_from_tiles(map_type, dims, side: float, slot_block: np.ndarray, pool: np.ndarray, device):
+def _paged_from_tiles(map_type, dims, side: float, slot_block: np.ndarray, pool, device):
     """A paged map holding these tiles: allocating the blocks in file (slot)
-    order gives back the written slot and page numbering."""
+    order gives back the written slot and page numbering. `pool` is a host
+    array or a tensor."""
     from ..maps.hierarchical import _status_from_occupancy
     from ..maps.paged import PagedHierarchicalMap
 
@@ -231,7 +232,8 @@ def _paged_from_tiles(map_type, dims, side: float, slot_block: np.ndarray, pool:
     n = slot_block.shape[0]
     if n:
         m._allocate(slot_block)
-        body = torch.from_numpy(np.ascontiguousarray(pool).astype(np.int8 if prob else np.uint8)).to(m.device)
+        dtype = torch.int8 if prob else torch.uint8
+        body = to_device(pool if isinstance(pool, torch.Tensor) else np.ascontiguousarray(pool), dtype, m.device)
         if prob:
             m.occ_pool = m.occ_pool.clone()
             m.occ_pool[:n] = body
@@ -307,20 +309,26 @@ def read_hierarchical_map(path, device=None):
 
 def write_map(m, path) -> None:
     """writeToDisk of any ported map (GpuVoxelsMap.h:200-204): each type to
-    its reference format. The multi-device ShardedPagedWorld is not ported
-    yet (ROADMAP Queue 1 item 13)."""
+    its reference format. A ShardedPagedWorld writes the single-device paged
+    format (its slabs gathered, as the reference's io.py:397-401 does); a
+    slab-sharded map value writes its gathered single-device map, the bytes
+    the reference writes of its sharded arrays."""
     from ..maps.hierarchical import _PyramidQueries
     from ..maps.paged import PagedHierarchicalMap
     from ..maps.voxellist import VoxelList
+    from ..parallel.paged_world import ShardedPagedWorld
+    from ..parallel.shard_value import _ShardedValue
 
+    if isinstance(m, _ShardedValue):
+        m = m.gather()
     if isinstance(m, VoxelList):
         write_voxel_list(m, path)
+    elif isinstance(m, ShardedPagedWorld):
+        write_paged_map(m.to_paged_map(), path)
     elif isinstance(m, PagedHierarchicalMap):
         write_paged_map(m, path)
     elif isinstance(m, _PyramidQueries):
         write_hierarchical_map(m, path)
-    elif type(m).__name__ == "ShardedPagedWorld":
-        raise NotImplementedError("ShardedPagedWorld is not ported yet (ROADMAP Queue 1 item 13: multi-device)")
     else:
         write_voxel_map(m, path)
 

@@ -52,10 +52,10 @@ SIGNATURES = {
     "gv_collide_types_bit_bit": (_P, _P, _P, _I64, _I32, _P, _P, _P),
     # (a, b, n, a_start, b_start, len, count, stream)
     "gv_count_bit_bit": (_P, _P, _I64, _I64, _I64, _I64, _P, _P),
-    # (depth, h, w, pose, fx, fy, cx, cy, side, eps, invalid, dx, dy, dz, out, stream)
+    # (depth, h, w, pose, fx, fy, cx, cy, side, eps, invalid, dx, dy, dz, z0, out, stream)
     "gv_carve_exact": (
         _P, _I32, _I32, _P, _F32, _F32, _F32, _F32, _F32, _F32, _F32,
-        _I32, _I32, _I32, _P, _P,
+        _I32, _I32, _I32, _I32, _P, _P,
     ),
     # (pm, ph, pw, pool, h, w, pose, fx, fy, cx, cy, side, eps, dx, dy, dz, out, stream)
     "gv_carve_pooled": (

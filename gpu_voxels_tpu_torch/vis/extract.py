@@ -24,9 +24,6 @@ from ..maps.hierarchical import NS_COLLISION, NS_FREE, NS_OCCUPIED, NS_UNKNOWN, 
 from ..ops.compact import compacted_nonzero
 from ..utils import to_device
 
-SHARDED = "ROADMAP Queue 1 item 13: multi-device (ShardedPagedWorld)"
-
-
 def _host_index(a: np.ndarray, device) -> torch.Tensor:
     return to_device(np.ascontiguousarray(a), torch.int64, device)
 
@@ -205,9 +202,10 @@ def extract_multilevel_cubes(
     non-PART node at its own level; min_level stops the descent early,
     emitting (possibly mixed) nodes at that level (Extract.cuh:163-178).
 
-    Works on HierarchicalProbMap / HierarchicalBitMap (dense status pyramid)
-    and PagedHierarchicalMap (coarse page pyramid -> block summaries -> tile
-    pool): a paged world extracts in O(allocated surface) cubes, not
+    Works on HierarchicalProbMap / HierarchicalBitMap (dense status pyramid),
+    PagedHierarchicalMap (coarse page pyramid -> block summaries -> tile
+    pool) and ShardedPagedWorld (per slab, corners moved into the global
+    frame): a paged world extracts in O(allocated surface) cubes, not
     O(volume).
 
     Returns (corners int64[K,3] fine-voxel coords of the cube's min corner,
@@ -218,14 +216,33 @@ def extract_multilevel_cubes(
     """
     from ..maps.hierarchical import _PyramidQueries
     from ..maps.paged import PagedHierarchicalMap
+    from ..parallel.paged_world import ShardedPagedWorld
 
+    if isinstance(m, ShardedPagedWorld):
+        return _world_multilevel(m, min_level, occupied, free, unknown, max_cubes)
     if isinstance(m, PagedHierarchicalMap):
         return _paged_multilevel(m, min_level, occupied, free, unknown, max_cubes)
     if isinstance(m, _PyramidQueries):
         return _dense_multilevel(m, min_level, occupied, free, unknown, max_cubes)
-    if type(m).__name__ == "ShardedPagedWorld":
-        raise NotImplementedError(f"ShardedPagedWorld is not ported yet ({SHARDED})")
     raise TypeError(f"multi-level extraction needs a hierarchical map, got {type(m)}")
+
+
+def _world_multilevel(m, min_level, occupied, free, unknown, max_cubes):
+    """Per-slab extraction (each read is local to its slab's device), the
+    corners moved into the global frame; the coarsest-first truncation
+    applies to the combined set, as the single map's sink does. The UNKNOWN
+    cubes are the slabs' own: a slab never spans another's space."""
+    parts = [_paged_multilevel(s, min_level, occupied, free, unknown, max_cubes) for s in m.shards]
+    corners = [c.copy() for c, _, _ in parts]
+    for z0, c in zip(m.z0s, corners):
+        c[:, 2] += z0
+    corners = np.concatenate(corners, axis=0)
+    sizes = np.concatenate([s for _, s, _ in parts], axis=0)
+    types = np.concatenate([t for _, _, t in parts], axis=0)
+    if max_cubes is not None and corners.shape[0] > max_cubes:
+        order = np.argsort(-sizes.astype(np.int64), kind="stable")[:max_cubes]
+        corners, sizes, types = corners[order], sizes[order], types[order]
+    return corners, sizes, types
 
 
 def _top_coords(level: torch.Tensor) -> np.ndarray:

@@ -52,10 +52,14 @@ class VisProvider:
         from ..maps.distance_map import DistanceVoxelMap
         from ..maps.hierarchical import _PyramidQueries
         from ..maps.paged import PagedHierarchicalMap
+        from ..parallel.paged_world import ShardedPagedWorld
+        from ..parallel.shard_value import _ShardedValue
 
         self.out_dir.mkdir(parents=True, exist_ok=True)
+        if isinstance(m, _ShardedValue):
+            m = m.gather()  # a slab-sharded value is drawn from its one-device copy
         # extract once, feed all three writers
-        if isinstance(m, (PagedHierarchicalMap, _PyramidQueries)):
+        if isinstance(m, (PagedHierarchicalMap, _PyramidQueries, ShardedPagedWorld)):
             corners, sizes, types = extract_multilevel_cubes(
                 m, max_cubes=self.MAX_CUBES
             )

@@ -119,6 +119,105 @@ def test_k3_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("z0", [0, 8, 40, 56])
+def test_k3_z_index_offset_matches_plain_on_card(cuda_device, z0):
+    """K3 on a z-slab of a larger grid (z_index_offset): bit for bit the
+    plain version with the same offset, and eight 8-deep slabs stacked equal
+    the whole 64^3 grid's mask."""
+    slab = (64, 64, 8)
+    for i, (depth, pose) in enumerate(_carve_scenes(cuda_device)):
+        args = (depth, pose, 52.0, 52.0, 32.0, 24.0, 1.0)
+        got = raycast_cuda.projective_free_space_exact(*args, slab, z_index_offset=z0)
+        assert torch.equal(got, raycast_cuda.projective_free_space_plain(*args, slab, z_index_offset=z0)), i
+        whole = raycast_cuda.projective_free_space_exact(*args, (64, 64, 64))
+        stacked = torch.cat([raycast_cuda.projective_free_space_exact(*args, slab, z_index_offset=k)
+                             for k in range(0, 64, 8)])
+        assert torch.equal(stacked, whole), i
+
+
+@pytest.mark.cuda
+def test_sharded_builders_match_single_device_on_card(cuda_device):
+    """Every multi-device builder with its 8 slabs on the card (the default
+    mesh: slabs round-robin over the visible cards) equals the single-device
+    call on the card, and launches its kernels (K1, K3, K5, K7)."""
+    from gpu_voxels_tpu_torch.constants import float_to_probability
+    from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+    from gpu_voxels_tpu_torch.ops import edt, edt_envelope, raycast
+    from gpu_voxels_tpu_torch.parallel import (build_sharded_bit_cycle, build_sharded_cycle,
+                                               build_sharded_sensor_cycle, make_grid_mesh, shard_map_value)
+    from gpu_voxels_tpu_torch.parallel.sharded_edt import build_sharded_edt
+    from gpu_voxels_tpu_torch.parallel.sharded_edt_exact import build_sharded_parallel_banding
+
+    mesh = make_grid_mesh(8)
+    assert mesh.z_devices()[0].type == "cuda"
+    dims = (64, 64, 64)
+    rng = np.random.default_rng(3)
+    pa = torch.tensor(rng.uniform(0, 64, (4000, 3)).astype(np.float32), device=cuda_device)
+    pb = torch.cat([pa[:1500], torch.tensor(rng.uniform(0, 64, (2000, 3)).astype(np.float32), device=cuda_device)])
+    before = {k: dict(m.launches) for k, m in (("c", collide_cuda), ("r", raycast_cuda), ("e", edt_cuda))}
+    a = ProbVoxelMap.create(dims, device=cuda_device).insert_point_cloud(pa)
+    b = ProbVoxelMap.create(dims, device=cuda_device).insert_point_cloud(pb)
+    assert int(build_sharded_cycle(mesh, dims, 1.0, 0.5)(pa, pb)) == int(a.collide_with(b, 0.5)) > 0
+    bits = [BitVectorVoxelMap.create(dims, device=cuda_device).insert_point_cloud(p) for p in (pa, pb)]
+    assert int(build_sharded_bit_cycle(mesh, dims, 1.0)(pa, pb)) == int(bits[0].collide_with(bits[1])) > 0
+    sa = shard_map_value(a, mesh)
+    for off in ((0, 0, 0), (1, -2, 9), (0, 0, -13)):
+        assert int(sa.collide_with(b, 0.5, off)) == int(a.collide_with(b, 0.5, off))
+    for depth, pose in _carve_scenes(cuda_device):
+        unknown = ProbVoxelMap.create(dims, device=cuda_device).data
+        sensed = raycast.insert_depth_image(unknown, depth, pose, 52.0, 52.0, 32.0, 24.0, 1.0, dims)
+        t = float_to_probability(0.6)
+        want = int(collide_cuda.count_prob_prob(sensed, b.data, t, t))
+        got = build_sharded_sensor_cycle(mesh, dims, 1.0, 52.0, 52.0, 32.0, 24.0, 0.6)(depth, pose, b.data)
+        assert int(got) == want, (int(got), want)
+    mask = torch.tensor(rng.random(64**3) < 0.002, device=cuda_device)
+    packed = edt.init_from_obstacle_mask(mask, dims)
+    slabs = build_sharded_parallel_banding(mesh, dims)(packed)
+    assert torch.equal(torch.cat(slabs), edt_envelope.parallel_banding(packed, dims))
+    jfa = torch.cat(build_sharded_edt(mesh, dims)(packed))
+    # the sharded repair runs to its fixpoint: so does the single-device one
+    # here, with the same fine steps and a cap it does not reach
+    fixpoint, rounds = edt.jump_flood_multires_with_stats(packed, dims, fine_steps=(8, 4, 2, 1, 1), max_iters=4096)
+    assert rounds < 4096
+    assert torch.equal(edt.squared_distance_grid(jfa, dims), edt.squared_distance_grid(fixpoint, dims))
+    torch.cuda.synchronize()
+    assert collide_cuda.launches["count_prob_prob"] > before["c"]["count_prob_prob"]
+    assert collide_cuda.launches["count_bit_bit"] > before["c"]["count_bit_bit"]
+    assert raycast_cuda.launches["projective_free_space_exact"] > before["r"]["projective_free_space_exact"]
+    assert edt_cuda.launches["envelope_pass"] >= before["e"]["envelope_pass"] + 16
+
+
+@pytest.mark.cuda
+def test_sharded_world_and_values_match_single_device_on_card(cuda_device):
+    """A ShardedPagedWorld of 4 slabs on the card against the single paged
+    map, and a sharded bit map's types collide (K4) against the single one."""
+    from gpu_voxels_tpu_torch.maps.paged import PagedHierarchicalMap
+    from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap
+    from gpu_voxels_tpu_torch.parallel import ShardedPagedWorld, assert_sharded, make_grid_mesh, shard_map_value
+
+    rng = np.random.default_rng(5)
+    pts = (rng.uniform(0, 1, (3000, 3)) * np.asarray([64, 64, 512])).astype(np.float32)
+    world = ShardedPagedWorld((64, 64, 512), 1.0, devices=[cuda_device] * 4)
+    single = PagedHierarchicalMap((64, 64, 512), 1.0, device=cuda_device)
+    for m in (world, single):
+        m.insert_point_cloud_with_free_space(pts, (32.5, 32.5, 100.5), max_steps=256)
+    world.assert_distributed()
+    q = torch.tensor(rng.integers([0, 0, 0], [64, 64, 512], (4096, 3)).astype(np.int32), device=cuda_device)
+    assert world.n_tiles() == single.n_tiles() and torch.equal(world.probe_status(q), single.probe_status(q))
+    assert int(world.collide_with_coords(q)) == int(single.collide_with_coords(q))
+    mesh = make_grid_mesh(8)
+    a = BitVectorVoxelMap.create((64, 64, 64), device=cuda_device).insert_point_cloud(pts[:, :3] % 64, 40)
+    b = BitVectorVoxelMap.create((64, 64, 64), device=cuda_device).insert_point_cloud(pts[::-1] % 64, 42)
+    before = collide_cuda.launches["collide_types_bit_bit"]
+    cnt, meanings, marked = shard_map_value(a, mesh).collide_with_types(b, 1.0, 5)
+    w_cnt, w_meanings, w_marked = a.collide_with_types(b, 1.0, 5)
+    assert int(cnt) == int(w_cnt) and torch.equal(meanings, w_meanings)
+    assert_sharded(marked, mesh)
+    assert torch.equal(marked.gather().data, w_marked.data)
+    assert collide_cuda.launches["collide_types_bit_bit"] == before + 9  # 8 slabs, then the single call
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dims", [(3, 40, 30), (250, 64, 12), (1, 40, 70), (130, 33, 40)])
 def test_k3_ragged_rows_match_plain_on_card(cuda_device, dims):
     """K3's row kernel where a row is no multiple of a thread's 8 voxels (the
@@ -469,7 +568,9 @@ def test_port_imports_no_jax():
             "    importlib.import_module(m.name)\n"
             "bad = [n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'gpu_voxels_tpu.'))]\n"
             "assert not bad and {'gpu_voxels_tpu_torch.maps.paged', 'gpu_voxels_tpu_torch.vis.extract',\n"
-            "                    'gpu_voxels_tpu_torch.robot.urdf', 'gpu_voxels_tpu_torch.compat'} <= set(sys.modules), bad\n")
+            "                    'gpu_voxels_tpu_torch.robot.urdf', 'gpu_voxels_tpu_torch.compat',\n"
+            "                    'gpu_voxels_tpu_torch.parallel.paged_world',\n"
+            "                    'gpu_voxels_tpu_torch.parallel.sharded_edt_exact'} <= set(sys.modules), bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=str(kernels.BUILD_DIR.parent.parent))
 
 

@@ -382,7 +382,14 @@ def test_camelcase_alias_tables():
 
 
 def test_multi_device_branch_names_item_13():
+    """The facade's mesh (item 13) builds a slab-sharded value; what that
+    value has no slab form for raises naming ROADMAP item 13b."""
+    from gpu_voxels_tpu_torch.parallel import assert_sharded, make_grid_mesh
+
     g = _port_gvl((8, 8, 8), 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        g.add_map(MapType.MT_PROBAB_OCTREE, "sharded", mesh=object())
+    mesh = make_grid_mesh(8, devices=["cpu"])
+    sharded = g.add_map(MapType.MT_PROBAB_OCTREE, "sharded", mesh=mesh)
+    assert_sharded(sharded, mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13b"):
+        sharded.collide_with(sharded)  # octree x octree has no slab form
     assert isinstance(g.add_map(MapType.MT_PROBAB_OCTREE, "h"), _PyramidQueries)

@@ -163,11 +163,14 @@ def test_write_map_and_read_map_dispatch(tmp_path):
     paged_as_dense = maps["bit octree"].read_from_disk(tmp_path / "paged.bin")  # either body of the MapType
     assert isinstance(paged_as_dense, TP.PagedHierarchicalMap)
 
-    class ShardedPagedWorld:
-        pass
+    # a sharded paged world writes the single-device paged format (its
+    # slabs gathered), which reads back as a PagedHierarchicalMap
+    from gpu_voxels_tpu_torch.parallel import ShardedPagedWorld
 
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tio.write_map(ShardedPagedWorld(), tmp_path / "x.bin")
+    world = ShardedPagedWorld.from_paged_map(maps["paged"], ["cpu"] * 2)
+    tio.write_map(world, tmp_path / "x.bin")
+    assert _bytes(tmp_path / "x.bin") == _bytes(tmp_path / "paged.bin")
+    assert isinstance(tio.read_map(tmp_path / "x.bin", device="cpu"), TP.PagedHierarchicalMap)
 
 
 @pytest.mark.parametrize("dims", [(1024, 8, 8), (1030, 8, 8), (1088, 64, 64), (4096, 4096, 4096)])

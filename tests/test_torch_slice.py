@@ -197,8 +197,9 @@ def test_left_out_methods_raise(tmp_path, monkeypatch):
     m = TProb.create((4, 4, 4), device="cpu")
     b = TBit.create((4, 4, 4), device="cpu")
     # what item 12 brought: URDF robots, the map dump, the facade's and the
-    # Provider's visualization, each as the reference's; only the
-    # multi-device branch still raises (item 13)
+    # Provider's visualization, each as the reference's; item 13 the
+    # facade's mesh, whose sharded values raise (item 13b) where a method
+    # has no slab form
     monkeypatch.setenv("GPU_VOXELS_VIS_DIR", str(tmp_path / "vis"))
     urdf = pathlib.Path(__file__).resolve().parent.parent / "examples" / "models" / "pan_tilt.urdf"
     tg, jg = TGvl(), JGvl()
@@ -214,8 +215,11 @@ def test_left_out_methods_raise(tmp_path, monkeypatch):
     prov = Provider("p")
     prov.init(m)
     assert prov.visualize() and prov.finish_visualization() == 0 and (tmp_path / "vis" / "p.cubes.json").exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        tg.add_map(MapType.MT_PROBAB_OCTREE, "sharded", mesh=object())
+    from gpu_voxels_tpu_torch.parallel import make_grid_mesh
+
+    sharded = tg.add_map(MapType.MT_PROBAB_VOXELMAP, "sharded", mesh=make_grid_mesh(4, devices=["cpu"]))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13b"):
+        sharded.insert_sensor_data(pts, sensor_origin=(0.5, 0.5, 0.5))
     # what earlier slices left out and the dense-map tier now has: the disk
     # files (item 9) among them
     assert b.write_to_disk(tmp_path / "b.bin") and torch.equal(b.read_from_disk(tmp_path / "b.bin").data, b.data)
