@@ -35,10 +35,11 @@ non-zero and prints no result. Phases, each an assert or an exception:
    set only in plane 7's bit 31, which must) over the offsets, a length
    that is not a multiple of 4, the all-zero map, and one pair at 512^3
    (8.6 GB of planes);
-3. nine paths through the public entry points, on the card, with torch's
-   sync debug mode set to raise (the paths never wait for the device), each
-   driven with every launch count set to 0 just before it and read just
-   after; each kernel of a path must have launched in it:
+3. ten paths through the public entry points, on the card, with torch's
+   sync debug mode set to raise (the paths never wait for the device; path
+   10's programs read it on purpose), each driven with every launch count
+   set to 0 just before it and read just after; each kernel of a path must
+   have launched in it:
    - the sense -> insert -> collide path (K1, K2, K3, K6): the facade linkage
      scene (count == 8000), Kinect fusion (5 frames of 640x480 into 256^3),
      a transformed sphere robot collided with the fused and a box
@@ -155,6 +156,28 @@ non-zero and prints no result. Phases, each an assert or an exception:
      single-device call on the card, the files to the single maps'. The
      JFA's repair flags, the paged allocations and the files read the
      device on purpose;
+   - the examples path (K1, K3, K4, K5, K6): the 19 programs of
+     gpu_voxels_tpu_torch/examples/ through their main() at their own sizes
+     (robot_vs_environment's live loop at 256^3 with 640x480 frames from a
+     60 Hz source, swept_fitter at 256^3, ompl_planner_app's three rounds,
+     sharded_world_demo over every visible card), each program's launches
+     counted alone and the host waits the sync debug mode reports (it
+     warns: the programs read the card on purpose) counted. The 13 programs
+     whose scene does not depend on the device and that place no point by
+     FK or a rotation return exactly what their CPU copies return;
+     full_pipeline_demo, distance_kinect_demo and the three FK programs
+     (swept_volume_vs_environment, urdf_loader, tf_interface_demo) run
+     again through the plain route on the card, and their returns and inner
+     values, kept by wrapping their helpers (full_pipeline_demo's pooled-
+     carve map, swept map, types collide, hierarchical probes and distance
+     map with its clearance; distance_kinect_demo's map and distance map of
+     every frame; the FK programs' collides and maps), equal it bit for
+     bit; robot_vs_environment's frame_step over its 8-frame recording,
+     with the sync debug mode raising, equals the plain route (maps and
+     counts); swept_fitter's orderings and start delay equal the plain
+     route's searches over the same swept maps; every solution of the
+     planner is clear of a numpy set oracle of the scene's boxes, and its
+     solution list holds the oracle's count of distinct voxels;
    every count, meanings vector, map, distance and payload grid must equal
    the same scene run through the plain route, and the 512^3 EDT must equal
    a brute-force minimum over the obstacles at 4,096 sampled voxels;
@@ -179,7 +202,11 @@ non-zero and prints no result. Phases, each an assert or an exception:
    of the fused 256^3 map and of a 512^3 bit map, one publish per tier,
    save_map / load_map per tier and a URDF add_robot + insert + collide
    (host clock where the work is on the host); and each path-9 call
-   sharded beside its single-device call.
+   sharded beside its single-device call; and each example program's wall
+   time (host clock) and host waits, the live loop's processed frames and
+   sustained rate at its defaults and under the accelerator contract of
+   tests_tpu/test_examples_tpu.py:38-56 (90 frames, the async publish,
+   >= 30 Hz; reported as held or missed).
 
 Output: progress lines, the card's `name, power.limit` line, one JSON line
 {"kernels": [...]} (each kernel with its launches on the paths, its largest
@@ -192,6 +219,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import importlib
 import json
 import math
 import os
@@ -200,6 +228,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from dataclasses import replace
 from pathlib import Path
 
@@ -238,6 +267,7 @@ from gpu_voxels_tpu_torch.robot.swept_volume import insert_swept_volume_batched
 from gpu_voxels_tpu_torch.robot.trajectory import load_trajectories
 from gpu_voxels_tpu_torch.sensors import Sensor, StreamingDepthSource, SyntheticDepthSource
 from gpu_voxels_tpu_torch.utils import io, kernels, to_device
+from gpu_voxels_tpu_torch.vis import export as vis_export
 from gpu_voxels_tpu_torch.vis import extract as vis_extract
 from gpu_voxels_tpu_torch.vis.provider import VisProvider
 
@@ -1115,7 +1145,7 @@ def same_types(x, y) -> bool:
     return int(x[0]) == int(y[0]) and torch.equal(x[1], y[1]) and same_map(x[2], y[2])
 
 
-def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, dict, dict]:
+def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, dict, dict, dict]:
     log("  sense -> insert -> collide (K1, K2, K3, K6 through the pooled Provider)")
     out, launches = drive(main_path, {"count_prob_prob", "count_and_mark_prob", "projective_free_space_exact",
                                       "projective_free_space_pooled", "min_pool_depth"}, dev)
@@ -1218,7 +1248,14 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, di
                             dev, out, robot, dist, oc)
     add_launches(launches, md_launches)
     check_multidevice_path(md, dev, out, robot, dist, oc)
-    return out, robot, dist, fit, lp, plan, oc, fp, md, launches
+
+    log("  the example programs: all 19 at their own sizes, each against its CPU copy, an oracle or the plain route "
+        "(K1, K3, K4, K5, K6)")
+    ex, ex_launches = drive_examples(dev)
+    add_launches(launches, ex_launches)
+    log(f"  launches on the path: { {name: count for name, count in ex_launches.items() if count} }")
+    check_examples_path(ex, dev)
+    return out, robot, dist, fit, lp, plan, oc, fp, md, ex, launches
 
 
 def check_live_sensing(out: dict, dev: torch.device) -> None:
@@ -2406,6 +2443,49 @@ MD_JFA_STEPS = (8, 4, 2, 1, 1)  # the sharded JFA's fine rounds (the reference's
 # runs to its fixpoint as the sharded repair (no cap) does
 MD_JFA_MAX_ROUNDS = 4096
 
+# path 10: the 19 programs of gpu_voxels_tpu_torch/examples/ at their own sizes
+# on the card (the reference's accelerator scene where it picks by platform),
+# beside CPU copies at tests/test_examples.py's sizes
+EX_FIT = {"dims": (256, 256, 256), "side": 0.015}  # swept_fitter's defaults, its documented scale
+EX_PLAN_ROUNDS = 3  # ompl_planner_app's default
+# the live loop's 30 Hz contract on the accelerator (tests_tpu/test_examples_tpu.py:38-56):
+# 90 frames from a 60 Hz source with the async publish, >= 80 processed at >= 30 Hz
+EX_CONTRACT = {"frames": 90, "live_vis": True}
+# the kernels each program must launch on the card (their maps' own routes:
+# bit x prob and bit x bit collides of maps with occupancy summaries read the
+# summaries, the lists, octrees, planners and the paged world run plain torch)
+EX_KERNELS = {
+    "batch_worlds_demo": set(),
+    "collisions": {"count_prob_prob", "collide_types_bit_bit"},
+    "counting_voxel_list": set(),
+    "distance_kinect_demo": {"projective_free_space_exact", "envelope_pass"},
+    "distance_voxel_test": {"envelope_pass"},
+    "full_pipeline_demo": {"projective_free_space_pooled", "min_pool_depth", "envelope_pass", "collide_types_bit_bit"},
+    "heightmap_demo": set(),
+    "maps_demo": set(),
+    "octree_bench": set(),
+    "ompl_planner_app": set(),
+    "ompl_planning_demo": set(),
+    "primitive_array_test": set(),
+    "robot_vs_environment": {"projective_free_space_exact"},
+    "sharded_world_demo": set(),
+    "shift_vs_transform": {"count_prob_prob"},
+    "swept_fitter": {"collide_types_bit_bit"},
+    "swept_volume_vs_environment": {"collide_types_bit_bit"},
+    "tf_interface_demo": set(),
+    "urdf_loader": set(),
+}
+# the programs whose scene or depth depends on the device: the rest but
+# EX_FK return on the card exactly what their CPU copies return
+EX_SIZED_BY_DEVICE = ("ompl_planner_app", "robot_vs_environment", "swept_fitter")
+# the programs whose inner values are held against a plain_route() run of the
+# same program on the card (kernel against plain, same inputs); the FK and
+# rotation programs only there, since FK on the card may put a point in
+# another cell than on the CPU (H4)
+EX_FK = ("swept_volume_vs_environment", "tf_interface_demo", "urdf_loader")
+EX_HELD_PLAIN = ("distance_kinect_demo", "full_pipeline_demo") + EX_FK
+EX_REPLAY_BASES = ((2.56, 2.56, 2.56), (1.7, 2.3, 2.605))  # the loop's base; in the box face (z 2.6 m)
+EX_KERNELS_REPLAY = {"projective_free_space_exact"}
 
 def md_meshes(dev: torch.device) -> tuple:
     """Path 9's meshes: z 8, and world 2 x z 4 for the cycle. On the card the
@@ -2731,6 +2811,296 @@ def multidevice_timings(dev: torch.device, smi: str, md: dict, out: dict, robot:
         log(f"  path 9 {label}: sharded {sharded_ms:.4f} ms, single-device {single_ms:.4f} ms  [{smi}]")
 
 
+
+def example(name: str):
+    return importlib.import_module(f"gpu_voxels_tpu_torch.examples.{name}")
+
+
+def run_example(name: str, dev: torch.device, count_syncs: bool = True, **kwargs) -> tuple:
+    """One program's main(device=dev) on a fresh facade singleton: (its
+    return value, its wall time in s, every kernel's launches in it, the
+    host waits for the card that torch's sync debug mode reported in it).
+    The programs read the card on purpose (their prints and returns), so
+    the mode warns and the warnings are counted; without count_syncs (a
+    program whose worker thread reads too) the mode stays at its default."""
+    for kname, module, *_ in KERNELS:
+        module.launches[kname] = 0
+    GpuVoxels._instance = None
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if cuda and count_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            out = example(name).main(device=dev, **kwargs)
+            if cuda:
+                torch.cuda.synchronize()
+        finally:
+            wall = time.perf_counter() - t0
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught) if cuda and count_syncs else None
+    return out, wall, {kname: module.launches[kname] for kname, module, *_ in KERNELS}, syncs
+
+
+@contextlib.contextmanager
+def vis_dir():
+    """The publishers write into a temporary directory inside the block."""
+    before = os.environ.get("GPU_VOXELS_VIS_DIR")
+    path = tempfile.mkdtemp()
+    os.environ["GPU_VOXELS_VIS_DIR"] = path
+    try:
+        yield path
+    finally:
+        if before is None:
+            os.environ.pop("GPU_VOXELS_VIS_DIR", None)
+        else:
+            os.environ["GPU_VOXELS_VIS_DIR"] = before
+        shutil.rmtree(path, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def wrapped(module, attr: str, keep):
+    """module.attr replaced by keep(real, *args, **kwargs) inside the block:
+    the examples' own helpers hand their inner values to the checks."""
+    real, own = getattr(module, attr), attr in vars(module)
+    setattr(module, attr, lambda *args, **kwargs: keep(real, *args, **kwargs))
+    try:
+        yield
+    finally:
+        if own:
+            setattr(module, attr, real)
+        else:  # an inherited method
+            delattr(module, attr)
+
+
+def keeping(name: str, kept: list) -> contextlib.ExitStack:
+    """The wrappers that keep a program's inner values in `kept`, in the
+    order the program makes them: full_pipeline_demo's hierarchical probe,
+    types collide, distance map with its clearance and the maps it draws;
+    distance_kinect_demo's map and distance map of every frame; the FK
+    programs' types collide, collides and drawn map. An empty stack for the
+    other programs."""
+    stack = contextlib.ExitStack()
+
+    def keep_result(real, *args, **kwargs):
+        kept.append(real(*args, **kwargs))
+        return kept[-1]
+
+    def keep_self(real, obj, *args, **kwargs):
+        kept.append(obj)
+        return keep_result(real, obj, *args, **kwargs)
+
+    def keep_arg(real, obj, other, *args, **kwargs):
+        kept.append(other)
+        return real(obj, other, *args, **kwargs)
+
+    wraps = {
+        "full_pipeline_demo": ((vis_export, "write_html", lambda real, path, maps, *a, **k:
+                                kept.append(dict(maps)) or real(path, maps, *a, **k)),
+                               (HierarchicalValidityChecker, "colliding_voxels_device", keep_result),
+                               (BitVectorVoxelMap, "collide_with_types", keep_result),
+                               (DistanceVoxelMap, "min_distance_to", keep_self)),
+        "distance_kinect_demo": ((DistanceVoxelMap, "merge_occupied", keep_arg),
+                                 (DistanceVoxelMap, "min_distance_to", keep_self)),
+        "swept_volume_vs_environment": ((BitVectorVoxelMap, "collide_with_types", keep_result),),
+        "urdf_loader": ((BitVectorVoxelMap, "collide_with", keep_self),),
+        "tf_interface_demo": ((GpuVoxels, "visualize_map", lambda real, gvl, map_name, *a, **k:
+                               kept.append(gvl.get_map(map_name)) or real(gvl, map_name, *a, **k)),),
+    }
+    for module, attr, keep in wraps.get(name, ()):
+        stack.enter_context(wrapped(module, attr, keep))
+    return stack
+
+
+def same_values(x, y) -> bool:
+    """Two kept values are equal bit for bit: tensors, maps (their data and
+    occupancy tensors), and lists, tuples and dicts of them."""
+    if isinstance(x, torch.Tensor):
+        return isinstance(y, torch.Tensor) and torch.equal(x, y)
+    if isinstance(x, (list, tuple)):
+        return len(x) == len(y) and all(same_values(a, b) for a, b in zip(x, y))
+    if isinstance(x, dict):
+        return x.keys() == y.keys() and all(same_values(x[k], y[k]) for k in x)
+    if hasattr(x, "data") and isinstance(x.data, torch.Tensor):
+        return type(x) is type(y) and same_values(x.data, y.data) and same_values(getattr(x, "occ", None),
+                                                                                  getattr(y, "occ", None))
+    return x == y
+
+
+def replay_frames(dev: torch.device, base) -> tuple:
+    """robot_vs_environment's recording (8 frames) through frame_step, one
+    after the other, with the loop's joint values: (env, rob, counts)."""
+    ex = example("robot_vs_environment")
+    dims, side, sensor, _, _ = ex.scene(dev)
+    frames = ex.make_frames(sensor, device=dev)
+    robot = ex.make_robot(0.45 * dims[0] * side, device=dev)
+    base = to_device(np.asarray(base, np.float32), torch.float32, dev)
+    joints = to_device(np.array([[i * 0.1, i * 0.05] for i in range(len(frames))], np.float32), torch.float32, dev)
+    env, counts = ProbVoxelMap.create(dims, side, device=dev), []
+    for i, depth in enumerate(frames):
+        env, rob, cnt = ex.frame_step(env, depth, joints[i], sensor, robot, base, dims, side)
+        counts.append(cnt)
+    return env, rob, torch.stack(counts)
+
+
+def box_keys(side: float, dims) -> np.ndarray:
+    """The planner scene's box voxels (the facade's inserts: points every
+    half voxel), as sorted linear keys: a numpy set oracle."""
+    keys = []
+    for lo, hi in PLAN_BOXES:
+        cells = np.floor(generation.create_box_of_points(lo, hi, side / 2) * np.float32(1.0 / side)).astype(np.int64)
+        keys.append(cell_keys(cells, dims))
+    return np.unique(np.concatenate(keys))
+
+
+def cell_keys(cells: np.ndarray, dims) -> np.ndarray:
+    inside = ((cells >= 0) & (cells < np.asarray(dims))).all(axis=1)
+    c = cells[inside]
+    return (c[:, 2] * dims[1] + c[:, 1]) * dims[0] + c[:, 0]
+
+
+def examples_path(dev: torch.device) -> dict:
+    """Path 10: every program of gpu_voxels_tpu_torch/examples/ on the card
+    through its main(), its launches counted alone; the inner values the
+    checks need are kept by wrapping the programs' own helpers."""
+    ex = {"runs": {}, "launches": {}, "kept": {}}
+    with vis_dir():
+        for name in sorted(EX_KERNELS):
+            kwargs, kept = {}, []
+            if name == "swept_fitter":
+                kwargs = dict(EX_FIT, verbose=False)
+                ctx = wrapped(example(name), "fit", lambda real, robots, *a, **k: kept.append(
+                    (robots, real(robots, *a, **k))) or kept[-1][1])
+            elif name == "ompl_planner_app":
+                kwargs = {"rounds": EX_PLAN_ROUNDS}
+
+                def keep_solution(real, gvl, robot, states):
+                    n = real(gvl, robot, states)
+                    kept.append({"env": gvl.get_map("myEnvironmentMap"), "robot": robot, "states": states,
+                                 "solution": int(gvl.get_map("mySolutionMap").count)})
+                    return n
+
+                ctx = wrapped(example(name), "visualize_solution", keep_solution)
+            else:
+                ctx = keeping(name, kept)
+            with ctx:
+                out, wall, launches, syncs = run_example(name, dev, **kwargs)
+            ex["runs"][name] = {"out": out, "wall": wall, "syncs": syncs}
+            ex["launches"][name] = launches
+            ex["kept"][name] = kept
+        for kname, module, *_ in KERNELS:
+            module.launches[kname] = 0
+        torch.cuda.set_sync_debug_mode("error")  # the frame itself never waits for the device
+        try:
+            ex["replay"] = [replay_frames(dev, base) for base in EX_REPLAY_BASES]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ex["launches"]["frame_step replay"] = {kname: module.launches[kname] for kname, module, *_ in KERNELS}
+    return ex
+
+
+def drive_examples(dev: torch.device) -> tuple[dict, dict]:
+    """Path 10 with its launches: each program's counted alone (its kernels
+    must launch), the replay's by drive()'s rule; the path's total."""
+    ex = examples_path(dev)
+    total = {name: 0 for name, *_ in KERNELS}
+    for name, launches in ex["launches"].items():
+        add_launches(total, launches)
+        missing = EX_KERNELS.get(name, EX_KERNELS_REPLAY) - {k for k, n in launches.items() if n}
+        assert not missing, f"{name} launched none of {missing}"
+    for kname, module, *_ in KERNELS:
+        module.launches[kname] = 0
+    with plain_route():
+        ex["replay_plain"] = [replay_frames(dev, base) for base in EX_REPLAY_BASES]
+        ex["plain"] = {}
+        for name in EX_HELD_PLAIN:
+            kept = []
+            with keeping(name, kept):
+                ex["plain"][name] = (run_example(name, dev)[0], kept)
+    return ex, total
+
+
+def check_examples_path(ex: dict, dev: torch.device) -> None:
+    cpu = torch.device("cpu")
+    runs = ex["runs"]
+    for name in sorted(set(EX_KERNELS) - set(EX_SIZED_BY_DEVICE) - set(EX_FK)):
+        out = runs[name]["out"]
+        cpu_out, runs[name]["cpu_wall"], _, _ = run_example(name, cpu)
+        assert out == cpu_out, (name, out, cpu_out)
+        log(f"  (ex) {name}: card {out!r} == CPU copy")
+    for name in EX_HELD_PLAIN:
+        out, kept = runs[name]["out"], ex["kept"][name]
+        plain, plain_kept = ex["plain"][name]
+        assert out == plain and len(kept) > 0 and same_values(kept, plain_kept), name
+        log(f"  (ex) {name}: card {out!r} and its {len(kept)} inner values (maps, counts, distances) == the plain "
+            f"route on the card, bit for bit")
+
+    # the live loop at its card scene, and its frame replayed
+    out = runs["robot_vs_environment"]["out"]
+    assert out["processed"] >= 1 and len(out["counts"]) == out["processed"], out
+    dims, _, sensor, n_frames, _ = example("robot_vs_environment").scene(dev)
+    for (env, rob, counts), (p_env, p_rob, p_counts) in zip(ex["replay"], ex["replay_plain"]):
+        assert torch.equal(env.data, p_env.data) and same_map(rob, p_rob) and torch.equal(counts, p_counts)
+    counts = [c.tolist() for _, _, c in ex["replay"]]
+    assert dev.type != "cuda" or min(counts[1]) > 0, counts  # in the box face the arm collides every frame
+    log(f"  (ex) robot_vs_environment: {out['processed']} of {n_frames} frames of {sensor.data_width}x"
+        f"{sensor.data_height} into {dims[0]}^3 processed; frame_step over the 8-frame recording (sync debug mode "
+        f"'error') == plain route, maps and counts {counts}")
+
+    # swept_fitter at 256^3: the searches again on the same maps, plain route
+    n_solutions, delay = runs["swept_fitter"]["out"]
+    (robots, solutions), = ex["kept"]["swept_fitter"]
+    centres = [dict(maps)[t] for (_, maps), t in zip(robots, ("A_reach_center", "B_reach_center"))]
+    with plain_route():
+        p_solutions = fit_orderings(robots, all_solutions=True)
+        p_delays = deconflict_slot(centres, margin=2, stride=4)
+    assert n_solutions == len(solutions) == 2 and delay > 0 and p_solutions == solutions and p_delays == [0, delay]
+    log(f"  (ex) swept_fitter at {EX_FIT['dims'][0]}^3: orderings {solutions}, start delay {delay} == plain route")
+
+    # ompl_planner_app, three rounds: every solution against a numpy set oracle
+    successes = runs["ompl_planner_app"]["out"]
+    kept = ex["kept"]["ompl_planner_app"]
+    assert successes == len(kept) >= 1, (successes, len(kept))
+    dims, side = PLAN_DIMS, PLAN_SIDE
+    boxes = box_keys(side, dims)
+    for k in kept:
+        assert np.array_equal(np.flatnonzero(k["env"].occupied_mask(0.7).cpu().numpy()), boxes)
+        pts = k["robot"].transformed_clouds_for(to_device(k["states"], torch.float32, dev)).points.cpu().numpy()
+        keys = [cell_keys(np.floor(p * np.float32(1.0 / side)).astype(np.int64), dims) for p in pts]
+        assert not any(np.isin(kk, boxes).any() for kk in keys)
+        assert k["solution"] == len(np.unique(np.concatenate(keys)))
+    log(f"  (ex) ompl_planner_app: {successes} of {EX_PLAN_ROUNDS} rounds solved; every interpolated state "
+        f"({[len(k['states']) for k in kept]}) clear of the boxes' voxels and the solution lists "
+        f"({[k['solution'] for k in kept]} voxels) == a numpy set oracle")
+
+
+
+def examples_timings(dev: torch.device, smi: str, ex: dict) -> None:
+    """Path 10's wall times (host clock, one run each, the card's beside the
+    CPU copy's where there is one) and the live loop's rates: at its
+    defaults (60 frames from a 60 Hz source) from phase 3, and under the
+    accelerator contract of tests_tpu/test_examples_tpu.py:38-56 (90 frames,
+    the async publish) here. Printed, never asserted."""
+    for name, run in sorted(ex["runs"].items()):
+        cpu = f", CPU copy {run['cpu_wall'] * 1e3:.1f} ms" if "cpu_wall" in run else ""
+        log(f"  path 10 {name}: {run['wall'] * 1e3:.1f} ms on the card{cpu} (host clock); {run['syncs']} host waits "
+            f"for the card reported by the sync debug mode  [{smi}]")
+    out = ex["runs"]["robot_vs_environment"]["out"]
+    n_frames = example("robot_vs_environment").scene(dev)[3]
+    log(f"  path 10 robot_vs_environment at its defaults: {out['processed']} of {n_frames} frames processed, "
+        f"{out['sustained_hz']:.2f} Hz sustained  [{smi}]")
+    with vis_dir():
+        out = run_example("robot_vs_environment", dev, count_syncs=False, **EX_CONTRACT)[0]
+    held = out["processed"] >= 80 and out["sustained_hz"] >= 30.0 and len(out["counts"]) == out["processed"]
+    log(f"  path 10 robot_vs_environment, the 30 Hz contract (90 frames, 60 Hz source, live_vis): "
+        f"{out['processed']} processed, {out['sustained_hz']:.2f} Hz sustained; contract (>= 80 frames at >= 30 Hz) "
+        f"{'holds' if held else 'MISSED'}  [{smi}]")
+
+
 # -- phase 4 ------------------------------------------------------------------
 def timed_once(fn):
     """(fn(), its time in ms by CUDA events): one call, no warm-up, for the
@@ -3009,13 +3379,14 @@ def main() -> int:
     log("phase 2: kernels against their plain versions (exact)")
     err = check_kernels(dev)
     log("phase 3: the paths through the entry points")
-    out, robot, dist, fit, lp, plan, oc, fp, md, launches = drive_main_path(dev)
+    out, robot, dist, fit, lp, plan, oc, fp, md, ex, launches = drive_main_path(dev)
     log("phase 4: times (CUDA events)")
     t, bounds = timings(dev, smi, out, robot, dist, fit)
     list_timings(dev, smi, lp, plan)
     octree_timings(dev, smi, oc)
     facade_timings(dev, smi, fp)
     multidevice_timings(dev, smi, md, out, robot, dist, oc)
+    examples_timings(dev, smi, ex)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],

@@ -206,6 +206,35 @@ def axis_angle_np(axis, angle) -> np.ndarray:
     return np.stack([np.stack([np.asarray(e, dtype=np.float32) for e in r], axis=-1) for r in rows], axis=-2)
 
 
+def to_rpy_np(matrix, solution: int = 1) -> np.ndarray:
+    """Matrix3f::toRPY (cuda_matrices.h:285-326) on the host: a 3x3 or 4x4
+    rotation (batched) -> float32 (roll, pitch, yaw), computed as the
+    reference's ``to_rpy(..., xp=np)``. `solution` 1 or 2 picks the branch;
+    where ``1 - |a31| < 1e-5`` (gimbal lock) both give yaw 0 and pitch
+    +-pi/2."""
+    r = np.asarray(matrix, dtype=np.float32)[..., :3, :3]
+    a11, a12, a13 = r[..., 0, 0], r[..., 0, 1], r[..., 0, 2]
+    a21 = r[..., 1, 0]
+    a31, a32, a33 = r[..., 2, 0], r[..., 2, 1], r[..., 2, 2]
+
+    singular = (1.0 - np.abs(a31)) < np.float32(1e-5)
+    y1 = -np.arcsin(np.clip(a31, -1.0, 1.0))
+    y = y1 if solution == 1 else np.float32(np.pi) - y1
+    cy = np.cos(y)
+    safe = np.where(singular, np.ones_like(cy), cy)
+    x = np.arctan2(a32 / safe, a33 / safe)
+    z = np.arctan2(a21 / safe, a11 / safe)
+
+    locked_down = a31 < 0  # pitch = +pi/2 (cuda_matrices.h:297-304)
+    xs = np.where(locked_down, np.arctan2(a12, a13), np.arctan2(-a12, -a13))
+    ys = np.where(locked_down, np.float32(np.pi / 2), np.float32(-np.pi / 2))
+
+    roll = np.where(singular, xs, x)
+    pitch = np.where(singular, ys, y)
+    yaw = np.where(singular, np.zeros_like(z), z)
+    return np.stack([roll, pitch, yaw], axis=-1).astype(np.float32)
+
+
 def invert_np(matrix: np.ndarray) -> np.ndarray:
     """Host rigid-transform inverse (the reference's ``invert(..., xp=np)``)."""
     rt = np.swapaxes(matrix[..., :3, :3], -1, -2)

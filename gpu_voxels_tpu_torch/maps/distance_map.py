@@ -90,8 +90,14 @@ class DistanceVoxelMap(_DenseMap):
         dim divisible by 4) take the exact envelope sweeps (K5) on a CUDA
         map, the reference's TPU route, and the multi-resolution JFA on a
         CPU map, its CPU route; small or non-divisible grids, and
-        extra_rounds > 1, take the flat JFA with its fixpoint repair. Every
-        route is exact in squared distance."""
+        extra_rounds > 1, take the flat JFA with its step-1 repair. The CUDA
+        route is exact. The two JFA routes stop their repair at 64 rounds,
+        as the reference's do (gpu_voxels_tpu/ops/edt.py:189-203): where the
+        cap binds, voxels keep a site farther than the nearest, and the
+        result is the reference's, not the exact EDT.
+        `ops.edt.jump_flood_multires_with_stats` and `jump_flood_with_stats`
+        return the repair's round count (64: the cap was reached) and take
+        a larger `max_iters`."""
         if extra_rounds == 1 and min(self.dims) >= 128 and all(d % 4 == 0 for d in self.dims):
             if self.data.is_cuda:
                 return self.parallel_banding()

@@ -193,6 +193,25 @@ def test_jump_flood_routes_like_reference(monkeypatch):
                      ("flat", (128, 64, 128), 1), ("flat", (128, 128, 128), 2)]
 
 
+def test_cpu_jump_flood_repair_stops_at_its_cap():
+    """The CPU route's multiresolution JFA (and the flat one) stop the
+    step-1 repair at 64 rounds, as the reference's do; only the CUDA route
+    (K5) is exact. Two sites share a coarse block; the one nearer the block
+    centre seeds the whole coarse grid, so the other's cell (x >= 3 along
+    128 voxels) is repaired one voxel a round: the cap binds and the result
+    differs from the exact EDT; run to its fixpoint the repair takes 108
+    rounds and is exact."""
+    dims = (128, 4, 32)
+    m = TDist.create(dims, device="cpu").insert_point_cloud(np.array([[1.5, 0.5, 0.5], [3.5, 0.5, 0.5]], np.float32))
+    exact = m.parallel_banding().squared_distances()
+    capped, rounds = tedt.jump_flood_multires_with_stats(m.data, dims)
+    assert rounds == 64
+    assert not torch.equal(tedt.squared_distance_grid(capped, dims), exact)
+    assert int((tedt.squared_distance_grid(capped, dims) < exact).sum()) == 0  # never nearer than the nearest
+    fixpoint, rounds = tedt.jump_flood_multires_with_stats(m.data, dims, max_iters=1000)
+    assert rounds == 108 and torch.equal(tedt.squared_distance_grid(fixpoint, dims), exact)
+
+
 def test_converters_match_reference():
     pts = _obstacles()
     jd = JDist.create(DIMS, SIDE).insert_point_cloud(pts).parallel_banding()

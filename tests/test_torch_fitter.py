@@ -135,13 +135,16 @@ def _box_cloud(lo, hi):
 
 def _swept_map(home_lo, shared_steps):
     """tests/test_fitter.py:30: a private home box at steps 0..4 plus the
-    shared box (10..13)^3 during `shared_steps`; built by the reference."""
-    m = JBit.create(DIMS, 1.0)
+    shared box (10..13)^3 during `shared_steps`; built by the port's inserts
+    and carried to the reference, whose insert compiles a program per
+    meaning (68 here). Both fitters search the same planes."""
+    m = TBit.create(DIMS, 1.0, device="cpu")
     for s in range(5):
         m = m.insert_point_cloud(_box_cloud(home_lo, tuple(c + 3 for c in home_lo)), SV + s)
     for s in shared_steps:
         m = m.insert_point_cloud(_box_cloud((10, 10, 10), (13, 13, 13)), SV + s)
-    return m
+    planes, occ = interop.to_numpy(m)
+    return JBit(jnp.asarray(planes), m.dims, m.side_length, occ=jnp.asarray(occ))
 
 
 def _carry(jm, with_occ: bool) -> TBit:

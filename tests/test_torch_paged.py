@@ -54,6 +54,15 @@ def pair(prob=False, dims=DIMS, side=1.0):
         dims, side, probabilistic=prob, device="cpu")
 
 
+def equal(got, want, err_msg=""):
+    """np.testing.assert_array_equal, whose element-wise report (several
+    passes over the arrays) runs only where np.array_equal finds them
+    unequal: the 32768^3 map's finest pyramid level has 2^27 cells."""
+    want = np.asarray(want)
+    if not (np.shape(got) == want.shape and np.array_equal(got, want)):
+        np.testing.assert_array_equal(got, want, err_msg=err_msg)
+
+
 def same(t, j):
     """The port's paged map holds the reference map's whole state."""
     assert (t.dims, t.side_length, t.levels, t.fine_levels, int(t.map_type)) == (
@@ -64,9 +73,9 @@ def same(t, j):
         if want is None:
             assert state[name] is None, name
         else:
-            np.testing.assert_array_equal(state[name], np.asarray(want), err_msg=name)
+            equal(state[name], want, err_msg=name)
     for got, want in zip(state["pyramid"], j.pyramid, strict=True):
-        np.testing.assert_array_equal(got, np.asarray(want))
+        equal(got, want)
     assert (state["n_pages"], state["n_slots"], t.n_tiles()) == (j._n_pages, j._n_slots, j.n_tiles())
     assert state["page_of"] == j._page_of and state["slot_of"] == j._slot_of
     assert t.memory_usage() == j.memory_usage()
@@ -255,30 +264,53 @@ def test_insert_depth_image_matches_reference(prob):
     assert t.n_tiles() > 0 and int(TH.decode_status_flags(t.pool[:t.n_tiles()])[0].sum()) > 0
 
 
+def ref_of(t):
+    """The reference's map over a copy of the port map's arrays, as
+    tests/test_torch_vis.py builds it: the same content without the
+    reference's inserts, whose conformance the `world` fixture (paged) and
+    the hierarchical, list and dense files hold; the collide programs are
+    under test here."""
+    if isinstance(t, TP.PagedHierarchicalMap):
+        j = JP.PagedHierarchicalMap(t.dims, t.side_length, probabilistic=t.probabilistic)
+        state = interop.to_numpy(t)
+        for name in interop.PAGED_ARRAYS:
+            setattr(j, name, None if state[name] is None else jnp.asarray(state[name]))
+        j.pyramid = tuple(jnp.asarray(a) for a in state["pyramid"])
+        j._n_pages, j._n_slots, j._page_of, j._slot_of = (state[k] for k in ("n_pages", "n_slots", "page_of", "slot_of"))
+        same(t, j)
+        return j
+    if isinstance(t, TL.VoxelList):
+        ids, ids_hi, payload, count = interop.to_numpy(t)
+        return JL.VoxelList(jnp.asarray(ids), jnp.asarray(ids_hi), jnp.asarray(payload), jnp.asarray(count, jnp.int32),
+                            t.dims, t.side_length, t.kind, t.id_mode, t.map_type)
+    if isinstance(t, TH.HierarchicalBitMap):
+        _, pyramid = interop.to_numpy(t)
+        return JH.HierarchicalBitMap(tuple(jnp.asarray(a) for a in pyramid), t.dims, t.side_length, t.levels)
+    if isinstance(t, TBit):
+        planes, occ = interop.to_numpy(t)
+        return JBit(jnp.asarray(planes), t.dims, t.side_length, occ=jnp.asarray(occ))
+    return JProb(jnp.asarray(interop.to_numpy(t)), t.dims, t.side_length)
+
+
 @pytest.fixture(scope="module")
 def scene():
     """A paged env (det), a second paged map, a dense hierarchy, a bit list
-    and dense maps over one point set, in both packages."""
+    and dense maps over one point set, built by the port and carried to the
+    reference (ref_of)."""
     near = clusters(10, 60, centres=2, lo=4.0, hi=50.0)  # inside the 64^3 dense maps
     env = np.concatenate([clusters(7, 60, centres=3, spread=10.0), near])
     other = np.concatenate([env[:30], near[:30], clusters(8, 60, centres=2)])
-    je, te = pair()
-    je.insert_point_cloud(env)
+    te = TP.PagedHierarchicalMap(DIMS, 1.0, device="cpu")
     te.insert_point_cloud(env)
-    jo, to = pair()
-    jo.insert_point_cloud(other)
+    to = TP.PagedHierarchicalMap(DIMS, 1.0, device="cpu")
     to.insert_point_cloud(other)
-    jh = JH.HierarchicalBitMap.create(DIMS).insert_point_cloud(other)
     th = TH.HierarchicalBitMap.create(DIMS, device="cpu").insert_point_cloud(other)
-    jl = JL.bit_vector_voxel_list(DIMS).insert_point_cloud(other, 50)
     tl = TL.bit_vector_voxel_list(DIMS, device="cpu").insert_point_cloud(other, 50)
     dense = (64, 64, 64)
-    jp = JProb.create(dense).insert_point_cloud(other)
     tp = TProb.create(dense, device="cpu").insert_point_cloud(other)
-    jb = JBit.create(dense).insert_point_cloud(other, 0)  # eBVM_FREE only: !isZero counts it
-    tb = TBit.create(dense, device="cpu").insert_point_cloud(other, 0)
-    return {"env": (je, te), "paged": (jo, to), "hier": (jh, th), "list": (jl, tl), "prob": (jp, tp),
-            "bit": (jb, tb)}
+    tb = TBit.create(dense, device="cpu").insert_point_cloud(other, 0)  # eBVM_FREE only: !isZero counts it
+    return {key: (ref_of(t), t) for key, t in (("env", te), ("paged", to), ("hier", th), ("list", tl), ("prob", tp),
+                                                  ("bit", tb))}
 
 
 def test_collide_programs_match_reference(scene):
