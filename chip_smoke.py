@@ -18,6 +18,12 @@ non-zero and prints no result. Phases, each an assert or an exception:
    K4 (swept-volume types collide) on 256^3 bit maps over margins
    {0, 1, 4, 8, 24} x mark, dense-random and sparse (with the bit-0-only
    hazard voxel) fixtures and a length that is not a multiple of the block;
+   and gated by both maps' occupancy summaries (the live-voxel rule of
+   k4_live_mask holding every hit) on tests/test_collide_pallas.py's
+   hazard fixtures at densities 0, 0.002 and 0.2 at 256^3 and at a ragged
+   length (margins 0, 3, 4, 8), a conservative summary, all-dead maps,
+   summaries one byte off a 16-byte boundary and a list's match mask,
+   with a mark and count only, one launch a call;
    K5 (the EDT's min-plus envelope) at 256^3 along Y and X on random, empty,
    single-site, 50 %-dense, ragged (250x200x130), tie and dense g = 0
    fixtures, lines of 1,024 and of 1 position, on distances and payloads,
@@ -182,7 +188,10 @@ non-zero and prints no result. Phases, each an assert or an exception:
    the same scene run through the plain route, and the 512^3 EDT must equal
    a brute-force minimum over the obstacles at 4,096 sampled voxels;
 4. times with CUDA events (printed, never asserted): each kernel beside its
-   plain version (K5 per pass at 512^3 and 256^3, with the share of
+   plain version (K4 at the main path's data, the UR10 sweep against its
+   environment gated by their summaries, with a mark and count only,
+   beside its gated bound, and on dense random maps; the
+   fitter's bit check gated and on raw planes; K5 per pass at 512^3 and 256^3, with the share of
    positions that hold a site; K6 at P = 8 as its pool, its carve alone on a
    prebuilt table and the two in turn; the pool, a few microseconds of
    device work under its wrapper's host time, by torch.profiler's device
@@ -192,7 +201,8 @@ non-zero and prints no result. Phases, each an assert or an exception:
    512^3, the fitter's ordering search and one deconflict_slot, one DDA
    insert_sensor_data frame, and the list and planning paths: a Kinect
    frame into a bit list, the 64-step swept list insert, list x list, the
-   bit check (K4 on the list payload beside the whole call), list x dense,
+   bit check (K4 on the list payload with the match mask beside the whole
+   call and the single-launch floor), list x dense,
    a disk round trip of the swept list, batch_colliding_voxels of 256
    states, one check_motion and one solve with its host reads; and the
    octree path: BASELINE #5's batch on the dense and the paged tier, the
@@ -205,8 +215,8 @@ non-zero and prints no result. Phases, each an assert or an exception:
    sharded beside its single-device call; and each example program's wall
    time (host clock) and host waits, the live loop's processed frames and
    sustained rate at its defaults and under the accelerator contract of
-   tests_tpu/test_examples_tpu.py:38-56 (90 frames, the async publish,
-   >= 30 Hz; reported as held or missed).
+   tests_tpu/test_examples_tpu.py:38-56 (90 frames, the async publish:
+   asserted, >= 80 frames at >= 30 Hz with both providers painting).
 
 Output: progress lines, the card's `name, power.limit` line, one JSON line
 {"kernels": [...]} (each kernel with its launches on the paths, its largest
@@ -282,6 +292,7 @@ SV_DIMS, SV_SIDE, SV_BASE = (256, 256, 256), 0.02, (2.56, 2.56, 0.5)
 SV_TRAJ = np.linspace([0.3, -0.5, 0.5, 0, 0, 0], [-1.2, -0.2, 1.0, 0.4, 0.3, 0], 64).astype(np.float32)
 OBSTACLE_STEPS = (12, 31, 50)  # env obstacles carry these steps' SV bits
 K4_MARGINS = (0, 1, 4, 8, 24)
+K4_RAGGED_N = 100_003  # no multiple of the 512-voxel chunk nor of 16
 K3_SLAB, K3_OFFSETS = 32, (0, 32, 224)  # K3 on z-slabs: the multi-device carve (path 9)
 # BASELINE config #4 (bench.py:364-394): 20,000 random obstacle voxels in a
 # 512^3 DistanceVoxelMap at 1.0 m, the exact EDT and proximity queries
@@ -505,7 +516,8 @@ def check_kernels(dev: torch.device) -> dict:
             assert int(cnt) == int(ref_c) and same, (name, margin, mark)
             assert mark == (new.data_ptr() != a.data_ptr()), "the marked map must be new, the unmarked one a"
         log(f"  K4 {name} N={a.shape[1]} margin={margin:2d}: count {int(cnt)} == plain, meanings and "
-            f"marked map equal (mark True/False)")
+            f"marked map equal (with a mark and count only)")
+    check_k4_gated(dev, g, dense, err)
     del dense, k4_cases, ragged, a, b, new, ref_new
     check_k5(dev, g, err)
     check_k6(dev, err)
@@ -735,6 +747,82 @@ def edge_projections(dev: torch.device) -> dict:
     return counts
 
 
+def hazard_bits(dev: torch.device, n: int, seed: int = 11) -> dict:
+    """tests/test_collide_pallas.py:91-127's fixtures at length n: {density:
+    (a, b)}, single random bits at densities 0, 0.002 and 0.2, and voxel 5
+    holding only eBVM_FREE in a (summary 0) where b holds SV bit 6."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for density in (0.0, 0.002, 0.2):
+        maps = []
+        k = max(1, int(n * density))
+        idx = [rng.choice(n, k, replace=False) for _ in range(2)]
+        for i in idx:
+            w = np.zeros((8, n), np.uint32)
+            w[rng.integers(0, 8, k), i] = np.uint32(1) << rng.integers(0, 32, k).astype(np.uint32)
+            maps.append(w)
+        maps[0][0, 5] = 1
+        maps[1][0, 5] = 1 << 6
+        out[density] = tuple(torch.from_numpy(w.view(np.int32)).to(dev) for w in maps)
+    return out
+
+
+def occupancy(planes: torch.Tensor) -> torch.Tensor:
+    """The maintained summary of raw planes: uint8 !noneButEmpty."""
+    return bitops.occupied(planes).to(torch.uint8)
+
+
+def k4_gated_cases(dev: torch.device, g: torch.Generator, dense) -> list:
+    """(name, a, b, margin, occ_a, occ_b, b_valid): K4's gated and list
+    forms on the hazard fixtures at 256^3 and at a ragged length, a
+    conservative summary (ones), an all-dead map, summaries that start off
+    a 16-byte boundary, the dense fixture and a list's match mask."""
+    n = SV_DIMS[0] * SV_DIMS[1] * SV_DIMS[2]
+    cases = []
+    for length in (n, K4_RAGGED_N):
+        for density, (a, b) in hazard_bits(dev, length).items():
+            for m in (0, 3, 4, 8):
+                cases.append((f"hazard {density} N={length}", a, b, m, occupancy(a), occupancy(b), None))
+    a, b = dense
+    ones = torch.ones(n, dtype=torch.uint8, device=dev)
+    cases.append(("dense, conservative summaries", a, b, 5, ones, ones, None))
+    cases.append(("dense", a, b, 5, occupancy(a), occupancy(b), None))
+    dead = torch.zeros_like(a)
+    cases.append(("all-dead a", dead, b, 8, occupancy(dead), occupancy(b), None))
+    cases.append(("all-dead b", a, dead, 8, occupancy(a), occupancy(dead), None))
+    # summaries of a[:, 1:]: views one byte into their storage
+    sa, sb = a[:, 1:].contiguous(), b[:, 1:].contiguous()
+    cases.append(("misaligned summaries", sa, sb, 4, occupancy(a)[1:], occupancy(b)[1:], None))
+    valid = torch.rand(n, device=dev, generator=g) < 0.3
+    cases.append(("list mask", a, b, 5, None, None, valid))
+    cases.append(("list mask, gated", a, b, 4, occupancy(a), occupancy(b), valid))
+    return cases
+
+
+def check_k4_gated(dev: torch.device, g: torch.Generator, dense, err: dict) -> None:
+    """K4 gated by summaries and with a list's mask against its plain
+    version (which reads every voxel), with a mark and count only, one
+    launch a call."""
+    for name, a, b, margin, occ_a, occ_b, valid in k4_gated_cases(dev, g, dense):
+        ref_c, ref_m, ref_new = collide_cuda.collide_types_bit_bit_plain(a, b, margin, True, b_valid=valid)
+        live = torch.ones(a.shape[1], dtype=torch.bool, device=dev) if occ_a is None else \
+            collide_cuda.k4_live_mask(a, occ_a, occ_b, margin)
+        hit, _ = bitops.bit_margin_collision_check_packed(a, b, margin)
+        if valid is not None:
+            live, hit = live & valid, hit & valid
+        assert not bool((hit & ~live).any()), (name, margin, "a hit outside the live mask")
+        before = collide_cuda.launches["collide_types_bit_bit"]
+        got = [collide_cuda.collide_types_bit_bit(a, b, margin, mark, occ_a, occ_b, b_valid=valid)
+               for mark in (True, False)]
+        assert collide_cuda.launches["collide_types_bit_bit"] == before + 2
+        for (cnt, meanings, new), mark in zip(got, (True, False)):
+            same = torch.equal(meanings, ref_m) and torch.equal(new, ref_new if mark else a)
+            err["collide_types_bit_bit"] = max(err["collide_types_bit_bit"], abs(int(cnt) - int(ref_c)), int(not same))
+            assert int(cnt) == int(ref_c) and same, (name, margin, mark)
+        log(f"  K4 gated, {name}, margin={margin}: count {int(ref_c)} == plain, meanings and marked map equal "
+            f"(with a mark and count only); {int(live.sum())} live voxels of {a.shape[1]}")
+
+
 def dense_bits(dev: torch.device, n: int, g: torch.Generator) -> torch.Tensor:
     """Dense-random words, bit 31 included, with whole voxels zeroed with p = 0.7
     (tests/test_collide_pallas.py:45-55)."""
@@ -887,6 +975,21 @@ class PlacedArm:
         return replace(clouds, points=clouds.points + self.base)
 
 
+def sweep_scene(dev: torch.device, chain) -> dict:
+    """BASELINE #3's 64-step UR10 swept volume in a fresh 256^3 bit map
+    (`sweep`), and an environment whose obstacles carry the SV bits of a
+    few steps where the wrist is then (`env`): K4's main-path data."""
+    placed = PlacedArm(chain, dev)
+    cfgs = to_device(SV_TRAJ, torch.float32, dev)
+    sweep = insert_swept_volume_batched(BitVectorVoxelMap.create(SV_DIMS, SV_SIDE, device=dev), placed, cfgs)
+    steps = placed.transformed_clouds_for(cfgs).points  # [64, P, 3]: the sweep's own FK
+    wrist = chain.clouds.offsets[-3]  # the wrist_3 and tool0 clouds
+    env = BitVectorVoxelMap.create(SV_DIMS, SV_SIDE, device=dev)
+    for k in OBSTACLE_STEPS:
+        env = env.insert_point_cloud(steps[k, wrist::5], SV_START + k)
+    return {"placed": placed, "cfgs": cfgs, "sweep": sweep, "env": env}
+
+
 def robot_path(dev: torch.device, fused_env: ProbVoxelMap) -> dict:
     """The robot -> swept volume -> types-collide path through the public
     entry points (BASELINE config #3)."""
@@ -913,15 +1016,8 @@ def robot_path(dev: torch.device, fused_env: ProbVoxelMap) -> dict:
 
     # (f) the 64-step UR10 swept volume into a fresh 256^3 bit map, and an
     # environment whose obstacles sit where the wrist is at a few steps
-    placed = PlacedArm(chain, dev)
-    cfgs = to_device(SV_TRAJ, torch.float32, dev)
-    sweep = insert_swept_volume_batched(BitVectorVoxelMap.create(SV_DIMS, SV_SIDE, device=dev), placed, cfgs)
-    steps = placed.transformed_clouds_for(cfgs).points  # [64, P, 3]: the sweep's own FK
-    wrist = chain.clouds.offsets[-3]  # the wrist_3 and tool0 clouds
-    env = BitVectorVoxelMap.create(SV_DIMS, SV_SIDE, device=dev)
-    for k in OBSTACLE_STEPS:
-        env = env.insert_point_cloud(steps[k, wrist::5], SV_START + k)
-    out.update(placed=placed, cfgs=cfgs, sweep=sweep, env=env)
+    out.update(sweep_scene(dev, chain))
+    sweep, env = out["sweep"], out["env"]
 
     # (g) the collides: K4 with marking, K4 count only, bit x prob (plain),
     # after a time shift, and the collision flags cleared again
@@ -1692,15 +1788,21 @@ def list_timings(dev: torch.device, smi: str, lp: dict, plan: dict) -> None:
     check_ms = time_ms(lambda: sv.collide_with_bitcheck(obstacles, 5), 20, warmup=0)
     k4_calls = collide_cuda.launches["collide_types_bit_bit"] - before
     mask, partner = sv.find_matching(obstacles)
-    partner = torch.where(mask[None, :], partner, 0)
-    k4_ms, k4_plain = in_turns(lambda: collide_cuda.collide_types_bit_bit(sv.payload, partner, 5, False),
-                               lambda: collide_cuda.collide_types_bit_bit_plain(sv.payload, partner, 5, False), 20)
+    k4_ms, k4_plain = in_turns(
+        lambda: collide_cuda.collide_types_bit_bit(sv.payload, partner, 5, False, b_valid=mask),
+        lambda: collide_cuda.collide_types_bit_bit_plain(sv.payload, partner, 5, False, b_valid=mask), 20)
+    k4_dev = device_ms(lambda: collide_cuda.collide_types_bit_bit(sv.payload, partner, 5, False, b_valid=mask), 20)
     c = sv.capacity
-    k4_bound = bound(64 * c + 40, c * (32 * window_rounds(5) + 35))
+    k4_b = k4_bound(sv.payload, partner, 5, False, b_valid=mask)
+    # the single-launch floor: the same kernel on one voxel
+    one = sv.payload[:, :1].contiguous(), partner[:, :1].contiguous(), mask[:1].contiguous()
+    floor_dev = device_ms(lambda: collide_cuda.collide_types_bit_bit(one[0], one[1], 5, False, b_valid=one[2]), 20)
     dense_ms = time_ms(lambda: kinect.collide_with_dense(env, 0.55), 20)
     log(f"  list x list collide ({kinect.capacity} x {sv.capacity} entries): {pair_ms:.4f} ms; collide_with_bitcheck "
-        f"margin 5: {check_ms:.4f} ms ({k4_calls} K4 launches in 20 calls); K4 alone on the list payload (C = {c}): "
-        f"{k4_ms:.4f} ms, plain torch {k4_plain:.4f} ms, bound {k4_bound[0]:.4f} ms ({k4_bound[1]}); list x dense "
+        f"margin 5: {check_ms:.4f} ms ({k4_calls} K4 launches in 20 calls); K4 alone on the list payload (C = {c}, "
+        f"{int(mask.sum())} matched, the mask as b_valid): {k4_ms:.4f} ms by events over back-to-back calls, "
+        f"{k4_dev:.4f} ms device time, plain torch {k4_plain:.4f} ms, bound {k4_b[0]:.4f} ms ({k4_b[1]}); "
+        f"the single-launch floor (K4 on one voxel) {floor_dev:.4f} ms device time; list x dense "
         f"(Kinect list x fused 256^3 map): {dense_ms:.4f} ms  [{smi}]")
     with tempfile.TemporaryDirectory() as tmp, host_reads():
         path = os.path.join(tmp, "sweep.bin")
@@ -3084,7 +3186,8 @@ def examples_timings(dev: torch.device, smi: str, ex: dict) -> None:
     CPU copy's where there is one) and the live loop's rates: at its
     defaults (60 frames from a 60 Hz source) from phase 3, and under the
     accelerator contract of tests_tpu/test_examples_tpu.py:38-56 (90 frames,
-    the async publish) here. Printed, never asserted."""
+    the async publish) here, which is asserted: >= 80 frames processed at
+    >= 30 Hz, each provider painting in the loop."""
     for name, run in sorted(ex["runs"].items()):
         cpu = f", CPU copy {run['cpu_wall'] * 1e3:.1f} ms" if "cpu_wall" in run else ""
         log(f"  path 10 {name}: {run['wall'] * 1e3:.1f} ms on the card{cpu} (host clock); {run['syncs']} host waits "
@@ -3095,10 +3198,11 @@ def examples_timings(dev: torch.device, smi: str, ex: dict) -> None:
         f"{out['sustained_hz']:.2f} Hz sustained  [{smi}]")
     with vis_dir():
         out = run_example("robot_vs_environment", dev, count_syncs=False, **EX_CONTRACT)[0]
-    held = out["processed"] >= 80 and out["sustained_hz"] >= 30.0 and len(out["counts"]) == out["processed"]
     log(f"  path 10 robot_vs_environment, the 30 Hz contract (90 frames, 60 Hz source, live_vis): "
-        f"{out['processed']} processed, {out['sustained_hz']:.2f} Hz sustained; contract (>= 80 frames at >= 30 Hz) "
-        f"{'holds' if held else 'MISSED'}  [{smi}]")
+        f"{out['processed']} processed, {out['sustained_hz']:.2f} Hz sustained, snapshots painted in the loop "
+        f"(env, robot) {out['painted']}  [{smi}]")
+    assert out["processed"] >= 80 and out["sustained_hz"] >= 30.0, f"the live loop's 30 Hz contract is missed: {out}"
+    assert len(out["counts"]) == out["processed"] and min(out["painted"]) >= 1, out
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -3160,6 +3264,55 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     """The least time the card could take, in ms, and what bounds it."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / ALU_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k4_bound(a, b, margin: int, mark: bool, occ_a=None, occ_b=None, b_valid=None) -> tuple[float, str]:
+    """K4's least time on these inputs: the gates read once (1 B a voxel
+    each); a's and b's 32 B for every live voxel (k4_live_mask and the
+    mask), and a's plane-0 word for the voxels whose liveness waits on a's
+    eBVM_FREE bit; with a mark a is read and the new map written whole (32
+    B each a voxel), b's words for the live voxels only. The window's ops
+    count for the live voxels."""
+    n = a.shape[1]
+    live = torch.ones(n, dtype=torch.bool, device=a.device)
+    gates, free_only = 0, 0
+    if occ_a is not None:
+        live = collide_cuda.k4_live_mask(a, occ_a, occ_b, margin)
+        gates += 2
+        if margin >= 4:
+            free_only = int(((occ_b != 0) & (occ_a == 0)).sum())
+    if b_valid is not None:
+        live = live & b_valid
+        gates += 1
+    n_live = int(live.sum())
+    planes = 64 * n + 32 * n_live if mark else 64 * n_live + 4 * free_only
+    return bound(gates * n + planes + 40, n_live * (32 * window_rounds(margin) + 35))
+
+
+def k4_timings(smi: str, robot: dict) -> tuple[tuple[float, float], tuple[float, str]]:
+    """K4 at the main path's data: the UR10 sweep against its environment at
+    256^3, window 5, gated by both summaries: with a mark (beside the copy
+    of a alone, its floor), count only, and the same calls without the
+    summaries. Returns the marking call's (kernel, plain) times and its
+    bound."""
+    a, b, oa, ob = robot["sweep"].data, robot["env"].data, robot["sweep"].occ, robot["env"].occ
+    live = int(collide_cuda.k4_live_mask(a, oa, ob, 5).sum())
+    mark = in_turns(lambda: collide_cuda.collide_types_bit_bit(a, b, 5, True, oa, ob),
+                    lambda: collide_cuda.collide_types_bit_bit_plain(a, b, 5, True), 10)
+    copy_alone = time_ms(lambda: a.clone(), 10)
+    count = in_turns(lambda: collide_cuda.collide_types_bit_bit(a, b, 5, False, oa, ob),
+                     lambda: collide_cuda.collide_types_bit_bit_plain(a, b, 5, False), 20)
+    count_dev = device_ms(lambda: collide_cuda.collide_types_bit_bit(a, b, 5, False, oa, ob), 20)
+    ungated = (time_ms(lambda: collide_cuda.collide_types_bit_bit(a, b, 5, True), 10),
+               time_ms(lambda: collide_cuda.collide_types_bit_bit(a, b, 5, False), 20))
+    mark_bound, count_bound = k4_bound(a, b, 5, True, oa, ob), k4_bound(a, b, 5, False, oa, ob)
+    log(f"  collide_types_bit_bit at the UR10 sweep x environment ({SV_DIMS[0]}^3, window 5, {live} live voxels of "
+        f"{a.shape[1]}, gated by the summaries): mark kernel {mark[0]:.4f} ms (the copy, then the gated pass; the "
+        f"copy alone {copy_alone:.4f} ms), plain torch {mark[1]:.4f} ms, gated bound {mark_bound[0]:.4f} ms "
+        f"({mark_bound[1]}); count only kernel {count[0]:.4f} ms (device time {count_dev:.4f} ms), plain torch "
+        f"{count[1]:.4f} ms, gated bound {count_bound[0]:.4f} ms ({count_bound[1]}); without the summaries: mark "
+        f"{ungated[0]:.4f} ms, count only {ungated[1]:.4f} ms  [{smi}]")
+    return mark, mark_bound
 
 
 def window_rounds(margin: int) -> int:
@@ -3237,15 +3390,27 @@ def timings(dev: torch.device, smi: str, out: dict, robot: dict, dist: dict, fit
     bounds["projective_free_space_exact"] = bound(nf + depth.numel() * 4 + 64, 33 * nf)
 
     ns = SV_DIMS[0] * SV_DIMS[1] * SV_DIMS[2]
+    # K4 at the main path's data (the UR10 sweep against its environment,
+    # gated by both summaries; the JSON line's row), then on dense random maps
+    t["collide_types_bit_bit"], bounds["collide_types_bit_bit"] = k4_timings(smi, robot)
+    # the fitter's bit checks: the two centre sweeps at 256^3 (0.015 m), with
+    # their summaries (gated) and as raw planes (ungated)
+    pair = [fit["robots"][r][1][0][1] for r in (0, 1)]
+    raw = [fit["robots_raw"][r][1][0][1] for r in (0, 1)]
+    fit_k4 = (time_ms(lambda: pair[0].collide_with_bitcheck(pair[1], FIT_WINDOW), 20),
+              time_ms(lambda: raw[0].collide_with_bitcheck(raw[1], FIT_WINDOW), 20))
+    fit_bound = k4_bound(pair[0].data, pair[1].data, FIT_WINDOW, False, pair[0].occ, pair[1].occ)
+    log(f"  the fitter's bit check (the two centre sweeps, margin {FIT_WINDOW}): {fit_k4[0]:.4f} ms gated by the "
+        f"summaries, gated bound {fit_bound[0]:.4f} ms ({fit_bound[1]}); {fit_k4[1]:.4f} ms on raw planes  [{smi}]")
     ga, gb = dense_bits(dev, ns, g), dense_bits(dev, ns, g)
-    t["collide_types_bit_bit"] = in_turns(
+    k4_dense = in_turns(
         lambda: collide_cuda.collide_types_bit_bit(ga, gb, 5, True),
         lambda: collide_cuda.collide_types_bit_bit_plain(ga, gb, 5, True), 10)
-    # reads 64 B and writes 32 B per voxel; per voxel 16 shifts and ORs per
-    # window round and direction, plus 35 for the mask, the window's halves,
-    # the record, the hit, the count and the meanings
+    # ungated: reads 64 B and writes 32 B per voxel; per voxel 16 shifts and
+    # ORs per window round and direction, plus 35 for the mask, the window's
+    # halves, the record, the hit, the count and the meanings
     k4_ops = ns * (32 * window_rounds(5) + 35)
-    bounds["collide_types_bit_bit"] = bound(96 * ns + 40, k4_ops)
+    k4_dense_bound = bound(96 * ns + 40, k4_ops)
     k4_nomark = in_turns(
         lambda: collide_cuda.collide_types_bit_bit(ga, gb, 5, False),
         lambda: collide_cuda.collide_types_bit_bit_plain(ga, gb, 5, False), 10)
@@ -3264,7 +3429,9 @@ def timings(dev: torch.device, smi: str, out: dict, robot: dict, dist: dict, fit
         log(f"  {name}: kernel {k:.4f} ms, plain torch {p:.4f} ms, bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]})  [{smi}]")
     nomark_bound = bound(64 * ns + 40, k4_ops)[0]
-    log(f"  collide_types_bit_bit mark=False: kernel {k4_nomark[0]:.4f} ms, plain torch {k4_nomark[1]:.4f} ms, "
+    log(f"  collide_types_bit_bit on dense random 256^3 maps (no summaries), window 5: mark kernel "
+        f"{k4_dense[0]:.4f} ms, plain torch {k4_dense[1]:.4f} ms, bound {k4_dense_bound[0]:.4f} ms "
+        f"({k4_dense_bound[1]}); count only kernel {k4_nomark[0]:.4f} ms, plain torch {k4_nomark[1]:.4f} ms, "
         f"bound {nomark_bound:.4f} ms (bytes)  [{smi}]")
     log(f"  count_bit_bit at 256^3, offset (1, 0, 0) (4-byte loads): kernel {k7_scalar[0]:.4f} ms, plain torch "
         f"{k7_scalar[1]:.4f} ms, bound {bounds['count_bit_bit'][0]:.4f} ms (bytes)  [{smi}]")

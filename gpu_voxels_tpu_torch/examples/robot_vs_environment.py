@@ -16,7 +16,9 @@ separate kernel launches, RobotVsEnvironment.cpp:163-201):
                                   host once, after the loop
     Provider.visualize         -> AsyncVisPublisher (latest-wins worker
                                   thread = the reference's cheap IPC publish;
-                                  vis_max_cubes bounds each snapshot fetch)
+                                  vis_max_cubes bounds each snapshot fetch;
+                                  a writer process per provider writes the
+                                  files, off the loop's interpreter)
 
 On the card the loop runs 640x480 frames into 256^3 at a 60 Hz source
 cadence; on the CPU (`device="cpu"`) the scene shrinks (64x48 frames into
@@ -119,11 +121,11 @@ def main(frames: int = None, hz: float = None, live_vis: bool = False,
     e0, r0, c0 = step(env.map, source._frames[0], torch.zeros(2, device=device))
     torch.stack([c0] * fetch_every).cpu()
     env.map, rob.map = e0, r0
+    warm = [0, 0]
     if live_vis:
         env.visualize()
         rob.visualize()
-        env.finish_visualization()
-        rob.finish_visualization()
+        warm = [env.finish_visualization(), rob.finish_visualization()]
     env.init(ProbVoxelMap.create(dims, side, device=device))
     joint_values = to_device(np.array([[i * 0.1, i * 0.05] for i in range(n_frames)], np.float32),
                              torch.float32, device)
@@ -156,15 +158,16 @@ def main(frames: int = None, hz: float = None, live_vis: bool = False,
     counts = torch.cat(stacks).tolist() if stacks else [0]  # the one host read
     sustained = processed / elapsed
 
-    painted = env.finish_visualization() + rob.finish_visualization() if live_vis else 0
+    # the snapshots each provider painted during the loop (the warm-up's left out)
+    painted = [env.stop_visualization() - warm[0], rob.stop_visualization() - warm[1]] if live_vis else [0, 0]
     print(
         f"{processed}/{n_frames} frames in {elapsed:.2f} s = {sustained:.1f} Hz "
         f"sustained (source cadence {hz:.0f} Hz, exact carve, "
         f"collisions min/max {min(counts)}/{max(counts)}"
-        + (f", {painted} snapshots painted" if live_vis else "")
+        + (f", {sum(painted)} snapshots painted" if live_vis else "")
         + ")"
     )
-    return {"sustained_hz": sustained, "processed": processed, "counts": counts}
+    return {"sustained_hz": sustained, "processed": processed, "counts": counts, "painted": painted}
 
 
 if __name__ == "__main__":

@@ -544,16 +544,18 @@ class VoxelList(DiskIO):
     def collide_with_bitcheck(self, other: "VoxelList", margin: int = 0, sv_offset: int = 0) -> torch.Tensor:
         """collideWithBitcheck (BitVoxelList.hpp:268-297): same-bit collision
         with a +-margin window over matched voxels. At sv_offset 0 and
-        margins up to 24 the matched payloads go to kernel K4 (count only,
-        the unmatched columns zeroed: an all-zero window never hits); the
-        rest of the domain runs the plain full-domain check."""
+        margins up to 24 my payload, the gathered partner payload and the
+        match mask go to kernel K4 (count only), which counts an unmatched
+        column as all-zero (an all-zero window never hits) and reads planes
+        for the matched columns only; the rest of the domain runs the plain
+        full-domain check."""
         self._require_bits(other)
         mask, otherp = self.find_matching(other)
         if self.capacity == 0 or other.capacity == 0:
             return torch.zeros((), dtype=torch.int64, device=self.device)
         if sv_offset == 0 and margin <= 24:
-            partner = torch.where(mask[None, :], otherp, 0)
-            count, _, _ = collide_cuda.collide_types_bit_bit(self.payload.contiguous(), partner, margin, False)
+            count, _, _ = collide_cuda.collide_types_bit_bit(self.payload.contiguous(), otherp, margin, False,
+                                                             b_valid=mask)
             return count
         if sv_offset == 0:
             hit, _ = bitops.bit_margin_collision_check_packed(self.payload, otherp, margin)

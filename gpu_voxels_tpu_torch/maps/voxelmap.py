@@ -19,7 +19,9 @@ reads a number.
 Routing: prob x prob `collide_with` runs CUDA kernel K1 and
 `collide_with_marking` K2; bit x bit `collide_with_types` and
 `collide_with_bitcheck` run K4 at sv_offset 0 and windows up to 24
-(ops/collide_cuda). Bit x prob and the plain bit x bit count read the bit
+(ops/collide_cuda), gated by both maps' occupancy summaries: every method
+keeps a map's summary a superset of its plane fold, or K4 would drop the
+hits of a voxel the summary misses. Bit x prob and the plain bit x bit count read the bit
 map's occupancy summary in plain torch, as the reference does in XLA; a bit
 map without a summary (`occ=None`, raw planes) folds its planes instead, and
 its bit x bit count runs CUDA kernel K7. The rest of the swept-volume domain
@@ -469,10 +471,13 @@ class BitVectorVoxelMap(_DenseMap):
         """collideWithTypes (BitVoxelMap.hpp:195-210): SVCollider collision
         collecting the colliding meanings. Returns (count, meanings int32[8],
         map with eBVM_COLLISION marked). Bit x bit runs K4 at sv_offset 0 and
-        windows up to 24, the plain full-domain check otherwise."""
+        windows up to 24, gated by both maps' summaries where both keep one
+        (as the reference), the plain full-domain check otherwise."""
         if isinstance(other, BitVectorVoxelMap):
             if sv_offset == 0 and sv_window <= 24:
-                cnt, meanings, new = collide_cuda.collide_types_bit_bit(self.data, other.data, sv_window, True)
+                cnt, meanings, new = collide_cuda.collide_types_bit_bit(
+                    self.data, other.data, sv_window, True, self.occ, other.occ
+                )
             else:
                 cnt, meanings, new = collide_ops.collide_with_types_bit_bit(
                     self.data, other.data, sv_window, sv_offset, True
@@ -493,9 +498,10 @@ class BitVectorVoxelMap(_DenseMap):
 
     def collide_with_bitcheck(self, other: "BitVectorVoxelMap", margin: int = 0, sv_offset: int = 0) -> torch.Tensor:
         """Same-bit collision with a +-margin window, count only: K4 without
-        marking at sv_offset 0 and margins up to 24, the plain check otherwise."""
+        marking at sv_offset 0 and margins up to 24 (gated by the summaries
+        where both maps keep one), the plain check otherwise."""
         if sv_offset == 0 and margin <= 24:
-            cnt, _, _ = collide_cuda.collide_types_bit_bit(self.data, other.data, margin, False)
+            cnt, _, _ = collide_cuda.collide_types_bit_bit(self.data, other.data, margin, False, self.occ, other.occ)
             return cnt
         if sv_offset == 0:
             hit, _ = bitops.bit_margin_collision_check_packed(self.data, other.data, margin)

@@ -154,14 +154,16 @@ def _mark_hits(planes: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def collide_with_types_bit_bit(a_planes, b_planes, margin: int = 0, sv_offset: int = 0, mark_collisions: bool = True):
+def collide_with_types_bit_bit(a_planes, b_planes, margin: int = 0, sv_offset: int = 0, mark_collisions: bool = True,
+                               b_valid=None):
     """kernelCollideVoxelMapsBitvector with SVCollider (BitVoxelMap.hpp:85-135).
 
     Per voxel: the windowed swept-volume check bitMarginCollisionCheck(a, b,
     margin, sv_offset); colliding voxels get eBVM_COLLISION set in the left
     map; the per-voxel colliding-bit records are OR-reduced into one bit
     vector. Returns (count, meanings int32[8], new_left); without marking
-    new_left is `a_planes` itself.
+    new_left is `a_planes` itself. Where `b_valid` (bool[N]) is False, b's
+    column counts as all-zero: it never hits.
 
     Deviation from CUDA, kept from the reference: the reference reuses one
     uninitialised per-thread temp vector across its grid-stride loop, so a
@@ -176,6 +178,8 @@ def collide_with_types_bit_bit(a_planes, b_planes, margin: int = 0, sv_offset: i
         hit, records = bitops.bit_margin_collision_check_packed_full(
             a_planes, b_planes, torch.zeros_like(a_planes), margin, sv_offset
         )
+    if b_valid is not None:
+        hit = hit & b_valid
     records = torch.where(hit[None, :], records, 0)
     meanings = bitops.or_reduce_words(records)
     new_a = _mark_hits(a_planes, hit) if mark_collisions else a_planes

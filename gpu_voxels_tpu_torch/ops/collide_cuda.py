@@ -1,6 +1,6 @@
 """CUDA kernels K1, K2 (prob x prob counting and marking collides), K4
-(the one-pass swept-volume types collide) and K7 (the bit x bit plane-fold
-count).
+(the one-launch swept-volume types collide, gated by the maps' occupancy
+summaries) and K7 (the bit x bit plane-fold count).
 
 Counterpart of gpu_voxels_tpu/ops/collide_pallas.py (`count_prob_prob`,
 `count_and_mark_prob`, `collide_types_bit_bit`, `count_bit_bit`); the
@@ -17,6 +17,8 @@ with its offset semantics (ops/collide._offset_slices). Each wrapper
 The count is a 0-d int64 device tensor.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -88,9 +90,24 @@ def count_and_mark_prob(a, b, t1, t2, dims=None, offset=(0, 0, 0)):
     return count, out
 
 
-def collide_types_bit_bit_plain(a, b, margin: int = 0, mark: bool = True):
-    """K4's spec: ops/collide.collide_with_types_bit_bit at sv_offset 0."""
-    return collide.collide_with_types_bit_bit(a, b, margin, 0, mark)
+def collide_types_bit_bit_plain(a, b, margin: int = 0, mark: bool = True, occ_a=None, occ_b=None, *, b_valid=None):
+    """K4's spec: ops/collide.collide_with_types_bit_bit at sv_offset 0, over
+    every voxel. It takes the wrapper's signature, so it can stand in for it
+    under the map methods (chip_smoke.plain_route), and ignores the
+    summaries: gating never changes an output."""
+    return collide.collide_with_types_bit_bit(a, b, margin, 0, mark, b_valid=b_valid)
+
+
+def k4_live_mask(a, occ_a, occ_b, margin: int) -> torch.Tensor:
+    """bool[N]: the voxels K4 reads planes for when gated by both summaries
+    (csrc/collide_types.cu; the reference's rule, collide_pallas.py:336-347):
+    b occupied, and a occupied or, from margin 4 on, holding eBVM_FREE (the
+    summary leaves bit 0 out, and a window that wide reaches it). Every hit
+    voxel is live."""
+    live_a = occ_a != 0
+    if int(margin) >= 4:
+        live_a = live_a | ((a[0] & 1) != 0)
+    return (occ_b != 0) & live_a
 
 
 def _check_bits(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -104,27 +121,66 @@ def _check_bits(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("bit maps must be contiguous")
 
 
-def collide_types_bit_bit(a, b, margin: int = 0, mark: bool = True):
+def _gate(g: torch.Tensor, a: torch.Tensor, name: str) -> int:
+    """The gate's address, after checking it is one byte per voxel of `a`."""
+    if g.device != a.device or g.dtype not in (torch.uint8, torch.bool) or g.shape != a.shape[1:] \
+            or not g.is_contiguous():
+        raise ValueError(f"{name} must be contiguous uint8 or bool [{a.shape[1]}] on {a.device}, "
+                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    return g.data_ptr()
+
+
+_workspaces: dict = {}  # (device index, stream) -> K4's workspace, its address and its words
+
+
+def _workspace(device: torch.device, stream: int) -> tuple:
+    """K4's per-stream workspace: the blocks' partial counts and meanings and
+    the ticket of the last block, zeroed once; every launch leaves it so."""
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        words = ctypes.c_int64()
+        kernels.library().gv_collide_types_workspace_words(ctypes.addressof(words))
+        t = torch.zeros(words.value, dtype=torch.int32, device=device)
+        ws = _workspaces[key] = (t, t.data_ptr(), words.value)
+    return ws
+
+
+def collide_types_bit_bit(a, b, margin: int = 0, mark: bool = True, occ_a=None, occ_b=None, *, b_valid=None):
     """Windowed swept-volume collide at sv_offset 0, 0 <= margin <= 24 (K4):
     (count, meanings int32[8], new_a). With `mark`, new_a is a new map with
-    eBVM_COLLISION set at hits; without, it is `a` itself."""
+    eBVM_COLLISION set at hits; without, it is `a` itself.
+
+    Given both maps' occupancy summaries (uint8[N], as the reference's
+    signature, collide_pallas.py:285-293) the kernel reads planes only for
+    the voxels of `k4_live_mask`; with either missing it reads every voxel.
+    `b_valid` (bool[N]) makes b's columns all-zero where it is False: the
+    voxel lists pass their match mask so. One launch per call. A gated mark
+    copies `a` and the kernel marks the hits in the copy; an ungated one has
+    the kernel write the whole new map: each is the faster on its side on
+    the card (PERF.md section 6)."""
     if _on_cpu(a, b):
-        return collide_types_bit_bit_plain(a, b, margin, mark)
+        return collide_types_bit_bit_plain(a, b, margin, mark, b_valid=b_valid)
     _check_bits(a, b)
     if not 0 <= int(margin) <= 24:
         raise ValueError(f"the types collide kernel covers margins 0..24, got {margin}")
+    summaries = occ_a is not None and occ_b is not None
+    pa = _gate(occ_a, a, "occ_a") if summaries else None
+    pb = _gate(occ_b, a, "occ_b") if summaries else None
+    pv = None if b_valid is None else _gate(b_valid, a, "b_valid")
     count = torch.empty((), dtype=torch.int64, device=a.device)
     meanings = torch.empty(8, dtype=torch.int32, device=a.device)
-    out = torch.empty_like(a) if mark else None
+    out = (a.clone() if summaries or pv is not None else torch.empty_like(a)) if mark else a
     stream = torch.cuda.current_stream(a.device).cuda_stream
+    _, ws, words = _workspace(a.device, stream)
     with torch.cuda.device(a.device):
         err = kernels.library().gv_collide_types_bit_bit(
-            a.data_ptr(), b.data_ptr(), out.data_ptr() if mark else None, a.shape[1], int(margin),
-            count.data_ptr(), meanings.data_ptr(), stream,
+            a.data_ptr(), b.data_ptr(), out.data_ptr() if mark else None, a.shape[1], int(margin), pa, pb, pv,
+            ws, words, count.data_ptr(), meanings.data_ptr(), stream,
         )
     kernels.check(err, "collide_types_bit_bit")
     launches["collide_types_bit_bit"] += 1
-    return count, meanings, out if mark else a
+    return count, meanings, out
 
 
 def count_bit_bit(a_planes, b_planes, dims=None, offset=(0, 0, 0)) -> torch.Tensor:

@@ -7,7 +7,8 @@ VoxelMapProvider / OctomapProvider implementations. Here one generic
 implementation wraps any map kind; sensor data arrives from a DepthSource
 (sensors module) instead of a live Kinect. `visualize` publishes through a
 VisProvider, or with `live_vis=True` through an AsyncVisPublisher whose
-worker thread extracts and writes while the sense loop goes on.
+worker thread extracts, and whose writer process writes, while the sense
+loop goes on.
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ class Provider:
         (reference semantics, CUDA kernel K3); carve_pool=P > 1 selects the
         pooled conservative carve (kernel K6), the fast live-sensor
         configuration. live_vis=True publishes through the AsyncVisPublisher
-        (latest-wins worker thread) so visualize() costs the sense loop O(1)
+        (latest-wins worker thread and its writer process; end them with
+        stop_visualization) so visualize() costs the sense loop O(1)
         — the reference's cheap IPC-handle publish. vis_max_cubes bounds a
         dense map's extraction (the compaction's capacity)."""
         self.name = name
@@ -132,3 +134,12 @@ class Provider:
             return 0
         self._vis_async.flush(timeout_s)
         return self._vis_async.frames_painted
+
+    def stop_visualization(self, timeout_s: float = 60.0) -> int:
+        """Drain the async publisher, then end its worker thread and writer
+        process; returns the snapshots painted."""
+        if self._vis_async is None:
+            return 0
+        painted = self.finish_visualization(timeout_s)
+        self._vis_async.stop(timeout_s)
+        return painted

@@ -48,8 +48,11 @@ SIGNATURES = {
     "gv_count_prob_prob": (_P, _P, _I64, _I32, _I32, _P, _P),
     # (a, b, out, n_total, a_start, len, t1, t2, count, stream)
     "gv_count_and_mark_prob": (_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P, _P),
-    # (a, b, out or NULL, n, margin, count, meanings, stream)
-    "gv_collide_types_bit_bit": (_P, _P, _P, _I64, _I32, _P, _P, _P),
+    # (a, b, out or NULL, n, margin, occ_a, occ_b, b_valid (each or NULL),
+    #  workspace, workspace words, count, meanings, stream)
+    "gv_collide_types_bit_bit": (_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _I64, _P, _P, _P),
+    # (out: int64 on the host)
+    "gv_collide_types_workspace_words": (_P,),
     # (a, b, n, a_start, b_start, len, count, stream)
     "gv_count_bit_bit": (_P, _P, _I64, _I64, _I64, _I64, _P, _P),
     # (depth, h, w, pose, fx, fy, cx, cy, side, eps, invalid, dx, dy, dz, z0, out, stream)

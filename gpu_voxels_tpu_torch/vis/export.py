@@ -56,6 +56,12 @@ def write_ply(path, m, threshold: float = 0.5, cubes=None) -> int:
     writers."""
     if cubes is None:
         cubes = extract_cubes(m, threshold)
+    return write_ply_cubes(path, cubes)
+
+
+def write_ply_cubes(path, cubes) -> int:
+    """write_ply's file from extracted host arrays alone (no map): what a
+    writer process runs."""
     centers, types = cubes[0], cubes[1]
     colors = np.asarray([_color_for(int(t)) for t in types], np.uint8) if len(types) else np.zeros((0, 3), np.uint8)
     with open(path, "w") as f:
@@ -77,14 +83,22 @@ def write_html(path, maps: dict, threshold: float = 0.5, title: str = "gpu_voxel
     `maps` is {name: map}; each map becomes a toggleable cube layer.
     `cubes` optionally maps name -> precomputed extract_cubes result.
     """
+    write_html_layers(path, [
+        (name, float(m.side_length), cubes[name] if cubes and name in cubes else extract_cubes(m, threshold))
+        for name, m in maps.items()
+    ], title)
+
+
+def write_html_layers(path, maps, title: str = "gpu_voxels_tpu") -> None:
+    """write_html's file from extracted host arrays alone: `maps` is a list
+    of (name, side length, extract_cubes result)."""
     layers = []
-    for name, m in maps.items():
-        cs = cubes[name] if cubes and name in cubes else extract_cubes(m, threshold)
+    for name, side, cs in maps:
         centers, types = cs[0], cs[1]
         colors = [list(_color_for(int(t))) for t in types]
         layer = dict(
             name=name,
-            side=float(m.side_length),
+            side=side,
             centers=np.round(centers, 4).tolist(),
             colors=colors,
         )

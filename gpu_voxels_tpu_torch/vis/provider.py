@@ -6,18 +6,22 @@ separate viewer process (VisProvider.h:49-73). Here, as in the JAX package
 visualize() snapshots the map into a directory (PLY + HTML + the live
 viewer's layer) only when the content changed, so a file-watching viewer
 (or a browser on the HTML) plays the reference viewer's role. Every read of
-the map is O(extracted) (vis/extract.py).
+the map is O(extracted) (vis/extract.py). A publish is two steps: the
+snapshot (the reads, in the caller's process) and write_snapshot (the
+files, from host arrays alone), which AsyncVisPublisher runs in a writer
+process of its own.
 """
 from __future__ import annotations
 
+import time
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
 from . import export
-from .extract import extract_cubes, extract_multilevel_cubes
-from .serve import default_dir, publish_cubes, publish_distance_layer
+from .extract import extract_cubes, extract_distance_slice, extract_multilevel_cubes
+from .serve import default_dir, publish_cube_arrays, publish_distance_arrays
 
 
 class VisProvider:
@@ -31,6 +35,9 @@ class VisProvider:
         # extraction. Live sense loops set a budget so each publish fetch is
         # O(budget) regardless of scene size.
         self.max_cubes = max_cubes
+        # what writes a snapshot's files: write_snapshot in this process,
+        # or an AsyncVisPublisher's writer process
+        self.writer = write_snapshot
 
     # multi-level extraction budget: truncates (coarsest-first) past this
     # many cubes — a 32768^3 paged world stays interactive
@@ -38,6 +45,17 @@ class VisProvider:
 
     def visualize(self, m, force_repaint: bool = True, threshold: float = 0.5) -> bool:
         """Publish the map snapshot; skips unchanged content unless forced.
+        The files are written by `self.writer`: in the caller's process,
+        unless an AsyncVisPublisher made this provider its own."""
+        job = self.snapshot(m, force_repaint, threshold)
+        if job is None:
+            return False
+        self.writer(job)
+        return True
+
+    def snapshot(self, m, force_repaint: bool = True, threshold: float = 0.5) -> Optional[dict]:
+        """The map's snapshot as the writers take it, or None when the
+        content is unchanged and the repaint not forced.
 
         Hierarchical / paged maps publish MULTI-LEVEL cubes (one per uniform
         octree node, the reference's VisNTree extractCubes path,
@@ -45,17 +63,17 @@ class VisProvider:
         cubes; distance maps additionally publish a distance-gradient slice
         layer (the reference viewer's DistanceVoxel coloring).
 
-        Extraction runs FIRST (device-compacted — the readback is
-        O(extracted), see ops/compact.py) and the change-detection
-        fingerprint hashes the extracted arrays: no path here ever fetches a
-        full map buffer."""
+        Every read of the map happens here: extraction runs FIRST
+        (device-compacted — the readback is O(extracted), see
+        ops/compact.py), the change-detection fingerprint hashes the
+        extracted arrays, and no path ever fetches a full map buffer. The
+        snapshot holds host arrays and scalars only (`write_snapshot`)."""
         from ..maps.distance_map import DistanceVoxelMap
         from ..maps.hierarchical import _PyramidQueries
         from ..maps.paged import PagedHierarchicalMap
         from ..parallel.paged_world import ShardedPagedWorld
         from ..parallel.shard_value import _ShardedValue
 
-        self.out_dir.mkdir(parents=True, exist_ok=True)
         if isinstance(m, _ShardedValue):
             m = m.gather()  # a slab-sharded value is drawn from its one-device copy
         # extract once, feed all three writers
@@ -73,18 +91,108 @@ class VisProvider:
             + tuple(np.asarray(part).tobytes() for part in cubes if part is not None)
         )
         if not force_repaint and fp == self._last_fingerprint:
-            return False
+            return None
         self._last_fingerprint = fp
-        export.write_ply(self.out_dir / f"{self.name}.ply", m, threshold, cubes=cubes)
-        export.write_html(
-            self.out_dir / f"{self.name}.html", {self.name: m}, threshold,
-            cubes={self.name: cubes},
-        )
-        # feed the live viewer process (vis/serve.py) as well
-        publish_cubes(self.out_dir, self.name, m, threshold, cubes=cubes)
+        distance = None
         if isinstance(m, DistanceVoxelMap):
-            publish_distance_layer(self.out_dir, f"{self.name}.distance", m)
-        return True
+            distance = extract_distance_slice(m, axis="z")
+        return {"out_dir": str(self.out_dir), "name": self.name, "side": float(m.side_length),
+                "cubes": cubes, "distance": distance, "ts": time.strftime("%H:%M:%S")}
+
+
+def write_snapshot(job: dict) -> None:
+    """A snapshot's files: `<name>.ply`, `<name>.html`, the live viewer's
+    `<name>.cubes.json` (and `<name>.distance.cubes.json` for a distance
+    map) and the manifest, stamped with the snapshot's time. Host arrays
+    only, no map and no torch: the same function runs in the caller's
+    process (VisProvider.visualize) and in a publisher's writer process,
+    so the two write the same bytes."""
+    out_dir, name, side, cubes = Path(job["out_dir"]), job["name"], job["side"], job["cubes"]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    export.write_ply_cubes(out_dir / f"{name}.ply", cubes)
+    export.write_html_layers(out_dir / f"{name}.html", [(name, side, cubes)])
+    publish_cube_arrays(out_dir, name, side, cubes, job["ts"])
+    if job["distance"] is not None:
+        publish_distance_arrays(out_dir, f"{name}.distance", side, *job["distance"], job["ts"])
+
+
+def _writer_main(fd: int) -> None:
+    """The writer process: write each snapshot it is sent over the
+    connection on `fd`, answer None or the exception; end at None or when
+    the parent's end of the connection closes."""
+    from multiprocessing.connection import Connection
+
+    conn = Connection(fd)
+    while True:
+        try:
+            job = conn.recv()
+        except (EOFError, OSError):
+            return
+        if job is None:
+            return
+        try:
+            write_snapshot(job)
+            conn.send(None)
+        except Exception as exc:  # handed to the parent, which raises it
+            try:
+                conn.send(exc)
+            except Exception:  # an exception that does not pickle
+                conn.send(RuntimeError(f"{type(exc).__name__}: {exc}"))
+
+
+class _WriterProcess:
+    """A child process that writes snapshots (`write_snapshot`): a fresh
+    interpreter (spawned, never forked: it inherits no CUDA state and never
+    touches the card) that imports this package and nothing of the
+    caller's script, so a script without a `__main__` guard can publish
+    too. The two talk over one connection (pickled jobs, None or an
+    exception back). `write` blocks its caller (the publisher's worker
+    thread) until the child has written the files, without holding the
+    interpreter. If the parent dies, the connection closes and the child
+    ends."""
+
+    def __init__(self, name: str):
+        import multiprocessing
+        import os
+        import subprocess
+        import sys
+
+        self.name = name
+        self._conn, child_conn = multiprocessing.Pipe()
+        fd = child_conn.fileno()
+        root = str(Path(__file__).resolve().parents[2])  # the directory holding the package
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+        code = "import sys\nfrom gpu_voxels_tpu_torch.vis.provider import _writer_main\n_writer_main(int(sys.argv[1]))"
+        self.process = subprocess.Popen([sys.executable, "-c", code, str(fd)], pass_fds=(fd,), env=env,
+                                        stdin=subprocess.DEVNULL)
+        child_conn.close()
+
+    def alive(self) -> bool:
+        return self.process.poll() is None
+
+    def write(self, job: dict) -> None:
+        try:
+            self._conn.send(job)
+            err = self._conn.recv()
+        except (EOFError, OSError):
+            raise RuntimeError(f"the writer process of {self.name!r} ended "
+                               f"(exit code {self.process.poll()})") from None
+        if err is not None:
+            raise err
+
+    def close(self, timeout_s: float) -> None:
+        import subprocess
+
+        try:
+            self._conn.send(None)
+        except OSError:  # the child is gone already
+            pass
+        try:
+            self.process.wait(timeout_s)
+        except subprocess.TimeoutExpired:
+            self.process.kill()
+            self.process.wait()
+        self._conn.close()
 
 
 class AsyncVisPublisher:
@@ -95,13 +203,17 @@ class AsyncVisPublisher:
     at its own rate (VisProvider.h:49-73, Visualizer.cu). Here:
     `publish(map)` drops a map snapshot into a one-slot latest-wins mailbox
     (O(1): the port's map updates make new tensors, so the snapshot is a
-    reference, no copy, no readback) and a worker thread runs the full
-    VisProvider extraction + readback + file writes at whatever rate it
-    sustains. The worker's reads wait for the device, so a caller that runs
-    with torch's sync debug mode set to raise must lift it while the worker
-    paints. A 30 Hz sense loop
-    publishes every frame; the viewer sees the freshest state the readback
-    path can keep up with, exactly like the CUDA viewer.
+    reference, no copy, no readback). A worker thread takes the latest map
+    and does what needs the card: the O(extracted) extraction and the change
+    fingerprint (VisProvider.snapshot). Its provider's writer is a writer
+    PROCESS, which formats and writes the files (write_snapshot) from the
+    host arrays while the thread waits without holding the interpreter: the
+    writers' per-cube Python never competes with the loop's launches. The
+    worker's reads wait for the device, so a caller that runs with torch's
+    sync debug mode set to raise must lift it while the worker paints. A
+    30 Hz sense loop publishes every frame; the viewer sees the freshest
+    state the publish path can keep up with, exactly like the CUDA viewer.
+    `stop()` ends the thread and the writer process.
     """
 
     def __init__(self, name: str, out_dir: Optional[str] = None,
@@ -109,6 +221,8 @@ class AsyncVisPublisher:
         import threading
 
         self.provider = VisProvider(name, out_dir, max_cubes=max_cubes)
+        self._writer = _WriterProcess(name)
+        self.provider.writer = self._writer.write
         self._slot = None
         self._cond = threading.Condition()
         self._stop = False
@@ -173,8 +287,6 @@ class AsyncVisPublisher:
 
     def flush(self, timeout_s: float = 30.0) -> bool:
         """Wait until the worker has drained the mailbox (or error/timeout)."""
-        import time
-
         deadline = time.monotonic() + timeout_s
         with self._cond:
             # drained = mailbox empty AND the worker is not mid-paint (file
@@ -189,9 +301,12 @@ class AsyncVisPublisher:
         return True
 
     def stop(self, timeout_s: float = 30.0) -> None:
+        """End the worker thread and the writer process (after the snapshot
+        in hand); re-raise the worker's failure, if any."""
         with self._cond:
             self._stop = True
             self._cond.notify_all()
         self._thread.join(timeout_s)
+        self._writer.close(timeout_s)
         if self._error is not None:
             raise self._error

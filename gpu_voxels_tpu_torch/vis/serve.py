@@ -21,6 +21,7 @@ import tempfile
 import time
 from http.server import HTTPServer, SimpleHTTPRequestHandler
 from pathlib import Path
+from typing import Optional
 
 INDEX = """<!DOCTYPE html>
 <html><head><meta charset="utf-8"><title>gpu_voxels_tpu live</title>
@@ -275,12 +276,13 @@ def default_dir() -> Path:
     return Path(env) if env else Path(tempfile.gettempdir()) / "gpu_voxels_tpu_vis"
 
 
-def _write_layer(out_dir, name: str, payload: dict) -> None:
-    """Write one viewer layer + register it in the manifest."""
+def _write_layer(out_dir, name: str, payload: dict, ts: Optional[str] = None) -> None:
+    """Write one viewer layer + register it in the manifest, stamped `ts`
+    (the wall clock's %H:%M:%S when None)."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     (out / f"{name}.cubes.json").write_text(json.dumps(payload))
-    manifest = {"maps": [], "ts": time.strftime("%H:%M:%S")}
+    manifest = {"maps": [], "ts": time.strftime("%H:%M:%S") if ts is None else ts}
     mf = out / "manifest.json"
     if mf.exists():
         try:
@@ -297,16 +299,22 @@ def publish_cubes(out_dir, name: str, m, threshold: float = 0.5, cubes=None) -> 
     precomputed extract result — (centers, types) or (centers, types,
     scales) for multi-level octree cubes (extract_multilevel_cubes) —
     so publishers extract once for several writers."""
-    import numpy as np
-
-    from .export import _color_for
     from .extract import extract_cubes
 
     if cubes is None:
         cubes = extract_cubes(m, threshold)
+    publish_cube_arrays(out_dir, name, float(m.side_length), cubes)
+
+
+def publish_cube_arrays(out_dir, name: str, side: float, cubes, ts: Optional[str] = None) -> None:
+    """publish_cubes' layer from extracted host arrays alone (no map)."""
+    import numpy as np
+
+    from .export import _color_for
+
     centers, types = cubes[0], cubes[1]
     payload = dict(
-        side=float(m.side_length),
+        side=side,
         centers=np.round(centers, 4).tolist(),
         colors=[list(_color_for(int(t))) for t in types],
         # per-voxel meaning ids: drive the viewer's meaning_colors /
@@ -315,7 +323,7 @@ def publish_cubes(out_dir, name: str, m, threshold: float = 0.5, cubes=None) -> 
     )
     if len(cubes) > 2 and cubes[2] is not None:
         payload["scales"] = np.round(np.asarray(cubes[2], np.float64), 4).tolist()
-    _write_layer(out_dir, name, payload)
+    _write_layer(out_dir, name, payload, ts)
 
 
 def publish_distance_layer(out_dir, name: str, m, axis: str = "z", index=None) -> None:
@@ -323,20 +331,26 @@ def publish_distance_layer(out_dir, name: str, m, axis: str = "z", index=None) -
     reference viewer's distance-dependent coloring
     (gpu_visualization/Visualizer.cu distance drawmodes). One voxel plane,
     each cell colored red (obstacle) through blue (far free space)."""
-    import numpy as np
-
-    from .export import distance_colors
     from .extract import extract_distance_slice
 
     coords, dist = extract_distance_slice(m, axis=axis, index=index)
-    centers = (coords.astype(np.float64) + 0.5) * float(m.side_length)
+    publish_distance_arrays(out_dir, name, float(m.side_length), coords, dist)
+
+
+def publish_distance_arrays(out_dir, name: str, side: float, coords, dist, ts: Optional[str] = None) -> None:
+    """publish_distance_layer's layer from an extracted slice alone."""
+    import numpy as np
+
+    from .export import distance_colors
+
+    centers = (coords.astype(np.float64) + 0.5) * side
     payload = dict(
-        side=float(m.side_length),
+        side=side,
         centers=np.round(centers, 4).tolist(),
         colors=distance_colors(dist).tolist(),
         values=np.round(dist.astype(np.float64), 4).tolist(),
     )
-    _write_layer(out_dir, name, payload)
+    _write_layer(out_dir, name, payload, ts)
 
 
 def publish_primitives(out_dir, name: str, prim) -> None:

@@ -318,6 +318,105 @@ def test_k4_as_the_list_bit_check_on_ragged_lengths(cuda_device, c):
         assert c < 1000 or want > 0
 
 
+def _hazard_maps(n, device):
+    """tests/test_collide_pallas.py:91-127's fixtures at length n, in its
+    rng order: {density: (a, b)}, single random bits, and voxel 5 holding
+    only eBVM_FREE in a (summary 0) where b holds SV bit 6."""
+    rng = np.random.default_rng(11)
+    out = {}
+    for density in (0.0, 0.002, 0.2):
+        a = np.zeros((8, n), np.uint32)
+        b = np.zeros((8, n), np.uint32)
+        k = max(1, int(n * density))
+        ia, ib = rng.choice(n, k, replace=False), rng.choice(n, k, replace=False)
+        a[rng.integers(0, 8, k), ia] = np.uint32(1) << rng.integers(0, 32, k).astype(np.uint32)
+        b[rng.integers(0, 8, k), ib] = np.uint32(1) << rng.integers(0, 32, k).astype(np.uint32)
+        a[0, 5] = 1
+        b[0, 5] = 1 << 6
+        out[density] = tuple(torch.from_numpy(x.view(np.int32)).to(device) for x in (a, b))
+    return out
+
+
+def _k4_gated_against_plain(a, b, margin, occ_a, occ_b, b_valid=None):
+    """K4 with a mark and count only on one input against the plain
+    version; one launch a call. Returns the count."""
+    from gpu_voxels_tpu_torch import bitops
+
+    if occ_a is not None:
+        live = collide_cuda.k4_live_mask(a, occ_a, occ_b, margin)
+        hit, _ = bitops.bit_margin_collision_check_packed(a, b, margin)
+        assert not bool((hit & ~live).any())
+    ref_c, ref_m, ref_new = collide_cuda.collide_types_bit_bit_plain(a, b, margin, True, b_valid=b_valid)
+    before = collide_cuda.launches["collide_types_bit_bit"]
+    got = [collide_cuda.collide_types_bit_bit(a, b, margin, mark, occ_a, occ_b, b_valid=b_valid)
+           for mark in (True, False)]
+    torch.cuda.synchronize()
+    assert collide_cuda.launches["collide_types_bit_bit"] == before + 2
+    for (cnt, meanings, new), mark in zip(got, (True, False)):
+        assert int(cnt) == int(ref_c) and torch.equal(meanings, ref_m), (margin, mark)
+        assert torch.equal(new, ref_new if mark else a), (margin, mark)
+    return int(ref_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.0, 0.002, 0.2])
+@pytest.mark.parametrize("n", [256 ** 3, 100_003], ids=["256^3", "ragged"])
+def test_k4_gated_matches_plain_on_card(cuda_device, n, density):
+    """K4 gated by both summaries equals its plain version (which reads
+    every voxel) on the reference's hazard fixtures, the bit-0-only voxel at
+    margins 0, 3, 4 and 8 included, with a mark and count only."""
+    from gpu_voxels_tpu_torch import bitops
+
+    a, b = _hazard_maps(n, cuda_device)[density]
+    occ_a, occ_b = bitops.occupied(a).to(torch.uint8), bitops.occupied(b).to(torch.uint8)
+    counts = {m: _k4_gated_against_plain(a, b, m, occ_a, occ_b) for m in (0, 3, 4, 8)}
+    assert counts[8] >= 1  # the window of b's bit 6 reaches a's bit 0 at voxel 5
+
+
+@pytest.mark.cuda
+def test_k4_gated_on_conservative_dead_and_misaligned_summaries(cuda_device):
+    """A summary of ones, all-dead maps, summaries one byte off a 16-byte
+    boundary and a list's match mask (alone and with summaries) at 256^3."""
+    from gpu_voxels_tpu_torch import bitops
+
+    n = 256 ** 3
+    a, b = _bit_fixture(n, 5, cuda_device)
+    occ = lambda x: bitops.occupied(x).to(torch.uint8)  # noqa: E731
+    ones, dead = torch.ones(n, dtype=torch.uint8, device=cuda_device), torch.zeros_like(a)
+    assert _k4_gated_against_plain(a, b, 5, ones, ones) > 0
+    assert _k4_gated_against_plain(a, b, 5, None, None) > 0  # ungated
+    assert _k4_gated_against_plain(dead, b, 8, occ(dead), occ(b)) == 0
+    assert _k4_gated_against_plain(a, dead, 8, occ(a), occ(dead)) == 0
+    sa, sb = a[:, 1:].contiguous(), b[:, 1:].contiguous()
+    assert _k4_gated_against_plain(sa, sb, 4, occ(a)[1:], occ(b)[1:]) > 0
+    valid = torch.rand(n, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(3)) < 0.3
+    ref_c, ref_m, _ = collide_cuda.collide_types_bit_bit_plain(a, b, 5, False, b_valid=valid)
+    cnt, meanings, _ = collide_cuda.collide_types_bit_bit(a, b, 5, False, b_valid=valid)
+    assert int(cnt) == int(ref_c) > 0 and torch.equal(meanings, ref_m)
+    assert _k4_gated_against_plain(a, b, 4, occ(a), occ(b), valid) > 0
+    with pytest.raises(ValueError):  # a summary of another length
+        collide_cuda.collide_types_bit_bit(a, b, 0, True, ones[1:], ones)
+    with pytest.raises(ValueError):  # a summary that is not one byte a voxel
+        collide_cuda.collide_types_bit_bit(a, b, 0, True, ones.int(), ones)
+
+
+@pytest.mark.cuda
+def test_live_streaming_loop_sustains_30hz(cuda_device, tmp_path, monkeypatch):
+    """The live loop (robot_vs_environment: a 60 Hz StreamingDepthSource ->
+    640x480 exact-carve fusion into 256^3 -> DH robot insert -> collide ->
+    async visualize publish) sustains >= 30 Hz with the publish on, the
+    contract of tests_tpu/test_examples_tpu.py:38-56, and both providers
+    paint during the loop."""
+    from gpu_voxels_tpu_torch.examples import robot_vs_environment
+
+    monkeypatch.setenv("GPU_VOXELS_VIS_DIR", str(tmp_path))
+    out = robot_vs_environment.main(frames=90, live_vis=True, device=cuda_device)
+    assert out["processed"] >= 80  # at most a few frames dropped
+    assert out["sustained_hz"] >= 30.0, out
+    assert max(out["counts"]) >= 0 and len(out["counts"]) == out["processed"]
+    assert min(out["painted"]) >= 1, out
+
+
 @pytest.mark.cuda
 def test_k4_raises_on_inputs_it_does_not_take(cuda_device):
     a = torch.zeros((8, 100), dtype=torch.int32, device=cuda_device)
