@@ -722,6 +722,38 @@ def check_k6(dev: torch.device, err: dict) -> None:
     on_edge = edge_projections(dev)
     assert all(v > 0 for v in on_edge.values()), on_edge
     log(f"  K6 edge-aligned pose: voxel centres in view projecting exactly onto {on_edge}")
+    check_k6_offsets(dev, frames["bench"], poses, err)
+
+
+def check_k6_offsets(dev: torch.device, depth: torch.Tensor, poses: dict, err: dict) -> None:
+    """K6 on 32-deep z-slabs of the 256^3 grid (the sharded pooled carve,
+    one table a frame): at z_index_offset 0, 32 and 224 bit-identical to the
+    plain form, the eight slabs stacked equal to the whole grid's mask, and
+    offset 0 equal to the call without one, under path 1's 3 poses at every
+    P."""
+    slab = (FUSION_DIMS[0], FUSION_DIMS[1], K3_SLAB)
+    for name in carve_poses():
+        p = poses[name]
+        for pool in K6_POOLS:
+            whole = raycast_cuda.projective_free_space_pooled(depth, p, *INTR, FUSION_SIDE, FUSION_DIMS, pool=pool)
+            table = raycast_cuda.min_pool_depth(depth, pool)
+            args = (table, pool, depth.shape, p, *INTR, FUSION_SIDE, slab)
+            for z0 in K3_OFFSETS:
+                got = raycast_cuda.carve_against_pooled(*args, z_index_offset=z0)
+                ref = raycast_cuda.carve_against_pooled_plain(*args, z_index_offset=z0)
+                wrapped = raycast_cuda.projective_free_space_pooled(depth, p, *INTR, FUSION_SIDE, slab, pool=pool,
+                                                                    z_index_offset=z0)
+                diff = int((got != ref).sum()) + int((wrapped != ref).sum())
+                err["projective_free_space_pooled"] = max(err["projective_free_space_pooled"], int(diff > 0))
+                assert diff == 0, (name, pool, z0, diff)
+            assert torch.equal(raycast_cuda.carve_against_pooled(*args), raycast_cuda.carve_against_pooled(
+                *args, z_index_offset=0)), (name, pool)
+            stacked = torch.cat([raycast_cuda.carve_against_pooled(*args, z_index_offset=z0)
+                                 for z0 in range(0, FUSION_DIMS[2], K3_SLAB)])
+            assert torch.equal(stacked, whole), (name, pool)
+        log(f"  K6 pose={name} on {K3_SLAB}-deep slabs, P in {K6_POOLS}: offsets {K3_OFFSETS} equal to plain bit "
+            f"for bit, offset 0 == no offset, {FUSION_DIMS[2] // K3_SLAB} slabs stacked == the whole grid's mask "
+            f"({int(whole.sum())} free at P = {pool})")
 
 
 def edge_projections(dev: torch.device) -> dict:
@@ -1129,6 +1161,11 @@ def edt_obstacles() -> np.ndarray:
     return np.stack([idx % dx, (idx // dx) % dy, idx // (dx * dy)], axis=1)
 
 
+def edt_queries() -> np.ndarray:
+    """BASELINE #4's 4,096 proximity query points, from a numpy seed."""
+    return np.random.default_rng(5).uniform(0.0, 512.0, (4096, 3)).astype(np.float32)
+
+
 def distance_path(dev: torch.device, frames, placed: "PlacedArm", cfgs: torch.Tensor) -> dict:
     """The camera -> distance field path through the public entry points."""
     out = {}
@@ -1141,8 +1178,7 @@ def distance_path(dev: torch.device, frames, placed: "PlacedArm", cfgs: torch.Te
     gvl.insert_point_cloud_into_map((edt_obstacles() + 0.5).astype(np.float32), "edt")
     dm = gvl.update_map("edt", lambda m: m.parallel_banding())
     out["edt"] = dm
-    queries = np.random.default_rng(5).uniform(0.0, 512.0, (4096, 3)).astype(np.float32)
-    out["edt_min"] = dm.min_distance_to(queries)
+    out["edt_min"] = dm.min_distance_to(edt_queries())
     out["edt_bytes"] = dm.extract_distances()
     dx, dy, dz = EDT_DIMS
     out["edt_at"] = [dm.get_squared_obstacle_distance(*v) for v in ((0, 0, 0), (dx // 2, dy // 2, dz // 2),
@@ -1337,10 +1373,12 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, di
     log(f"  path 8 launched K1 {fp_launches['count_prob_prob']} and K7 {fp_launches['count_bit_bit']} times")
     check_facade_path(fp, dev)
 
-    log("  multi-device: z-slab meshes on the card, sharded cycles, EDTs, probes, values, world, facade "
-        "(K1, K3, K4, K5, K7)")
-    md, md_launches = drive(multidevice_path, {"count_prob_prob", "projective_free_space_exact",
-                                               "collide_types_bit_bit", "envelope_pass", "count_bit_bit"},
+    log("  multi-device: z-slab meshes on the card, sharded cycles, EDTs, probes, values and their slab forms, "
+        "world, facade (K1, K2, K3, K4, K5, K6, K7)")
+    md, md_launches = drive(multidevice_path, {"count_prob_prob", "count_and_mark_prob",
+                                               "projective_free_space_exact", "projective_free_space_pooled",
+                                               "min_pool_depth", "collide_types_bit_bit", "envelope_pass",
+                                               "count_bit_bit"},
                             dev, out, robot, dist, oc)
     add_launches(launches, md_launches)
     check_multidevice_path(md, dev, out, robot, dist, oc)
@@ -2693,15 +2731,70 @@ def multidevice_path(dev: torch.device, out: dict, robot: dict, dist: dict, oc: 
                            (world.collide_with_coords(probes), single.collide_with_coords(probes)),
                            (world.collide_with(moved, offset=(-1, 0, 0)), single.collide_with(moved, offset=(-1, 0, 0)))]
     # (i) the facade's mesh: a paged octree as a world, a dense map as a
-    # sharded value, each saved and loaded back
-    md["facade"] = facade_mesh_answers(dev, mesh, frame, sensor, rays, oc["paged_inputs"]["probes"])
+    # sharded value taking the UR10 self-collision aware, each saved and
+    # loaded back
+    md["arm"] = ur10_configuration(robot)
+    md["facade"] = facade_mesh_answers(dev, mesh, frame, sensor, rays, oc["paged_inputs"]["probes"], md["arm"])
+    # (j-o) every dense-tier method's slab form on the main path's data
+    md["forms"] = dense_slab_forms(dev, mesh, out, md)
     return md
 
 
-def facade_mesh_answers(dev: torch.device, mesh, frame, sensor, rays, probes) -> dict:
+class PosedClouds:
+    """A robot for the facade's add_robot_object: one configuration's link
+    clouds."""
+
+    def __init__(self, clouds: MetaPointCloud):
+        self.clouds = clouds
+
+    def get_transformed_clouds(self) -> MetaPointCloud:
+        return self.clouds
+
+
+def ur10_configuration(robot: dict) -> MetaPointCloud:
+    """The UR10 of BASELINE #3 at step 32 of its trajectory: its link clouds
+    (one MetaPointCloud, 0.02 m) placed at the bench's base."""
+    clouds = robot["placed"].transformed_clouds_for(robot["cfgs"][32:33])
+    return replace(clouds, points=clouds.points[0])
+
+
+def dense_slab_forms(dev: torch.device, mesh, out: dict, md: dict) -> dict:
+    """Path 9's slab forms of sharded dense maps (8 slabs on the card), each
+    on the main path's data: (j) path 1's Kinect frame at carve_pool 1 (K3
+    per slab) and 8 (K6 per slab, one pooled table); (k) the DDA frame, its
+    rays walked once for all slabs; (l) the marking collide of path 1's
+    512^3 maps at path 9's offsets (K2 per run of slabs); (m) the UR10's
+    configuration into a 256^3 bit map with the self-collision check; (n)
+    BASELINE #4 through a sharded 512^3 DistanceVoxelMap: insert,
+    jump_flood (the card's route: K5 per slab and pass), min_distance_to,
+    extract_distances; (o) path 3's camera -> distance field frame: 5
+    frames pooled-carved (K6), merge_occupied, jump_flood."""
+    sf = {}
+    sensor = kinect_sensor()
+    empty = shard_map_value(ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev), mesh)
+    sf["depth"] = [empty.insert_depth_image(out["frames"][0], sensor, carve_pool=pool) for pool in (1, POOL)]
+    sf["dda"] = empty.insert_sensor_data(out["rays"], sensor_origin=sensor.position)
+    m1, m3 = md["prob_maps"]
+    s1, s3 = shard_map_value(m1, mesh), shard_map_value(m3, mesh)
+    sf["marking"] = [s1.collide_with_marking(s3, 0.5, off) for off in MD_OFFSETS]
+    bits = shard_map_value(BitVectorVoxelMap.create(SV_DIMS, SV_SIDE, device=dev), mesh)
+    sf["robot"] = bits.insert_robot_configuration(md["arm"], True)
+    field = shard_map_value(DistanceVoxelMap.create(EDT_DIMS, 1.0, device=dev), mesh).insert_point_cloud(
+        (edt_obstacles() + 0.5).astype(np.float32)).jump_flood()
+    sf["edt"], sf["edt_min"], sf["edt_bytes"] = field, field.min_distance_to(edt_queries()), field.extract_distances()
+    env = empty
+    for frame in out["frames"]:
+        env = env.insert_depth_image(frame, sensor, carve_pool=POOL)
+    merged = shard_map_value(DistanceVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev), mesh).merge_occupied(env)
+    sf["pooled_env"], sf["merged"], sf["field"] = env, merged, merged.jump_flood()
+    return sf
+
+
+def facade_mesh_answers(dev: torch.device, mesh, frame, sensor, rays, probes, arm: MetaPointCloud) -> dict:
     """add_map(mesh=...) for a 4096^3 prob octree (a ShardedPagedWorld over
     the mesh's first 4 slabs) and a 256^3 prob map (a sharded value), a frame
-    or the rays into each, save_map -> load_map of both."""
+    or the rays and the UR10 (self-collision aware) into each, save_map ->
+    load_map of both."""
     ans = {}
     world_mesh = make_grid_mesh(MD_WORLD_SLABS, devices=list(mesh.devices.reshape(-1)))
     with tempfile.TemporaryDirectory() as tmp, host_reads():
@@ -2727,6 +2820,8 @@ def facade_mesh_answers(dev: torch.device, mesh, frame, sensor, rays, probes) ->
         gvl.initialize(*FUSION_DIMS, FUSION_SIDE, device=dev)
         gvl.add_map(MapType.MT_PROBAB_VOXELMAP, "env", mesh=mesh)
         gvl.insert_point_cloud_into_map(rays, "env")
+        gvl.add_robot_object("ur10", PosedClouds(arm))
+        ans["clash"] = gvl.insert_robot_into_map_self_collision_aware("ur10", "env")
         assert_sharded(gvl.get_map("env"), mesh)
         path = os.path.join(tmp, "env.bin")
         gvl.save_map("env", path)
@@ -2734,6 +2829,7 @@ def facade_mesh_answers(dev: torch.device, mesh, frame, sensor, rays, probes) ->
         gvl.load_map("env", path)
         assert_sharded(gvl.get_map("env"), mesh)  # re-pinned
         plain = ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev).insert_point_cloud(rays)
+        plain, ans["single_clash"] = plain.insert_meta_point_cloud_with_self_collision_check(arm)
         io.write_map(plain, os.path.join(tmp, "plain.bin"))
         ans["env_single_digest"] = digest(os.path.join(tmp, "plain.bin"))
         ans["env"] = torch.equal(gvl.get_map("env").gather().data, plain.data)
@@ -2833,8 +2929,58 @@ def check_multidevice_path(md: dict, dev: torch.device, out: dict, robot: dict, 
     assert fa["world"][:2] == ("ShardedPagedWorld", "ShardedPagedWorld") and fa["world"][2] == fa["world"][3] > 0
     assert fa["world"][4] and fa["world_digest"] == fa["world_single_digest"], fa["world"]
     assert fa["env"] and fa["env_digest"] == fa["env_single_digest"]
+    assert bool(fa["clash"]) == bool(fa["single_clash"])
     log(f"  (i) the facade's mesh: a {PAGED_DIMS[0]}^3 prob octree as a ShardedPagedWorld and a 256^3 prob map "
-        f"as a sharded value, save_map -> load_map: files == the single-device maps', reloaded equal")
+        f"as a sharded value taking the UR10 self-collision aware (clash {bool(fa['clash'])} == single), "
+        f"save_map -> load_map: files == the single-device maps', reloaded equal")
+    check_dense_slab_forms(md, dev, out, dist)
+
+
+def gathered(m, mesh) -> torch.Tensor:
+    """A sharded dense map's data, after asserting it is still sharded."""
+    assert_sharded(m, mesh)
+    return m.gather().data
+
+
+def check_dense_slab_forms(md: dict, dev: torch.device, out: dict, dist: dict) -> None:
+    """Path 9's slab forms against the single-device calls on the card."""
+    mesh, sf = md["mesh"], md["forms"]
+    sensor = kinect_sensor()
+    for pool, got in zip((1, POOL), sf["depth"]):
+        want = ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev).insert_depth_image(
+            out["frames"][0], sensor, carve_pool=pool)
+        assert torch.equal(gathered(got, mesh), want.data), pool
+    assert torch.equal(gathered(sf["dda"], mesh), out["dda"].data)
+    log(f"  (j, k) a Kinect frame into a sharded 256^3 prob map at carve_pool 1 (K3) and {POOL} (K6), and the DDA "
+        f"frame ({out['rays'].shape[0]} rays, one walk): maps == single-device")
+    m1, m3 = md["prob_maps"]
+    counts = []
+    for off, (cnt, marked) in zip(MD_OFFSETS, sf["marking"]):
+        w_cnt, w_marked = m1.collide_with_marking(m3, 0.5, off)
+        assert int(cnt) == int(w_cnt) and torch.equal(gathered(marked, mesh), w_marked.data), off
+        counts.append(int(cnt))
+    assert max(counts) > 0, counts
+    log(f"  (l) 512^3 marking collides at {MD_OFFSETS} (K2 per run of slabs): counts {counts}, marked maps (still "
+        f"sharded) == single-device")
+    got_map, ok = sf["robot"]
+    w_map, w_ok = BitVectorVoxelMap.create(SV_DIMS, SV_SIDE, device=dev).insert_robot_configuration(md["arm"], True)
+    assert_sharded(got_map, mesh)
+    assert same_map(got_map.gather(), w_map) and bool(ok) == bool(w_ok) and int(w_map.occ.sum()) > 0
+    log(f"  (m) the UR10 configuration into a sharded 256^3 bit map, self-collision checked (ok {bool(ok)}): "
+        f"map == single-device")
+    field = DistanceVoxelMap.create(EDT_DIMS, 1.0, device=dev).insert_point_cloud(
+        (edt_obstacles() + 0.5).astype(np.float32)).jump_flood()
+    if dev.type == "cuda":  # jump_flood's card route is the exact EDT: path 3's map
+        assert torch.equal(field.data, dist["edt"].data)
+    assert torch.equal(gathered(sf["edt"], mesh), field.data)
+    assert torch.equal(sf["edt_min"], field.min_distance_to(edt_queries()))
+    assert torch.equal(sf["edt_bytes"], field.extract_distances())
+    log(f"  (n) BASELINE #4 through a sharded 512^3 DistanceVoxelMap (insert, jump_flood: K5 per slab): packed grid "
+        f"(== path 3's exact EDT), min distance {float(sf['edt_min']):.4f} m and byte distances == single-device")
+    for key in ("pooled_env", "merged", "field"):
+        assert torch.equal(gathered(sf[key], mesh), dist[key].data), key
+    log(f"  (o) path 3's camera -> distance field on sharded maps (5 frames at P = {POOL}, merge_occupied, "
+        f"jump_flood): fused map, obstacles and field == single-device")
 
 
 def multidevice_timings(dev: torch.device, smi: str, md: dict, out: dict, robot: dict, dist: dict, oc: dict) -> None:
@@ -2909,8 +3055,64 @@ def multidevice_timings(dev: torch.device, smi: str, md: dict, out: dict, robot:
             rows.append((label, (time.perf_counter() - t0) * 1e3, None))
     (label, w_ms, _), (_, s_ms, _) = rows.pop(-2), rows.pop(-1)
     rows.append((label + " (host clock)", w_ms, s_ms))
+    rows += dense_form_timings(dev, mesh, md, out, robot)
     for label, sharded_ms, single_ms in rows:
         log(f"  path 9 {label}: sharded {sharded_ms:.4f} ms, single-device {single_ms:.4f} ms  [{smi}]")
+
+
+def launch_count(fn) -> int:
+    """The device operations (kernels, memsets, copies) of one call of fn,
+    by torch.profiler."""
+    return sum(e.count for e in device_rows(fn, 1))
+
+
+def dense_form_timings(dev: torch.device, mesh, md: dict, out: dict, robot: dict) -> list:
+    """(label, sharded ms, single-device ms) of path 9's dense slab forms,
+    each sharded call beside its single-device call on the same card."""
+    rows = []
+    sensor = kinect_sensor()
+    frame = torch.as_tensor(out["frames"][0], device=dev)
+    fresh = ProbVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev)
+    sfresh = shard_map_value(fresh, mesh)
+    for pool in (1, POOL):
+        rows.append((f"256^3 Kinect frame insert_depth_image, carve_pool {pool}",
+                     time_ms(lambda: sfresh.insert_depth_image(frame, sensor, carve_pool=pool), 10),
+                     time_ms(lambda: fresh.insert_depth_image(frame, sensor, carve_pool=pool), 10)))
+    rays = out["rays"]
+    dda = (lambda: sfresh.insert_sensor_data(rays, sensor_origin=sensor.position),
+           lambda: fresh.insert_sensor_data(rays, sensor_origin=sensor.position))
+    ops = [launch_count(fn) for fn in dda]
+    rows.append((f"256^3 DDA frame ({rays.shape[0]} rays, 256 steps; device operations: sharded {ops[0]}, "
+                 f"single {ops[1]})", time_ms(dda[0], 3, warmup=1), time_ms(dda[1], 3, warmup=1)))
+    m1, m3 = md["prob_maps"]
+    s1, s3 = shard_map_value(m1, mesh), shard_map_value(m3, mesh)
+    rows.append(("512^3 collide_with_marking, offset (3, -2, 1) (K2 per run of slabs)",
+                 time_ms(lambda: s1.collide_with_marking(s3, 0.5, (3, -2, 1)), 10),
+                 time_ms(lambda: m1.collide_with_marking(m3, 0.5, (3, -2, 1)), 10)))
+    bits = BitVectorVoxelMap.create(SV_DIMS, SV_SIDE, device=dev)
+    sbits = shard_map_value(bits, mesh)
+    rows.append(("UR10 insert_robot_configuration with the self-collision check, 256^3 bit map",
+                 time_ms(lambda: sbits.insert_robot_configuration(md["arm"], True), 10),
+                 time_ms(lambda: bits.insert_robot_configuration(md["arm"], True), 10)))
+    obstacles, queries = (edt_obstacles() + 0.5).astype(np.float32), edt_queries()
+
+    def edt_frame(m):
+        field = m.insert_point_cloud(obstacles).jump_flood()
+        return field.min_distance_to(queries), field.extract_distances()
+
+    dm = DistanceVoxelMap.create(EDT_DIMS, 1.0, device=dev)
+    sdm = shard_map_value(dm, mesh)
+    rows.append(("BASELINE #4 512^3 distance map: insert, jump_flood, min_distance_to, extract_distances",
+                 time_ms(lambda: edt_frame(sdm), 3, warmup=1), time_ms(lambda: edt_frame(dm), 3, warmup=1)))
+    dist_map = DistanceVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev)
+    sdist = shard_map_value(dist_map, mesh)
+
+    def camera_frame(env, dmap):
+        return dmap.merge_occupied(env.insert_depth_image(frame, sensor, carve_pool=POOL)).jump_flood()
+
+    rows.append((f"256^3 camera -> distance field frame (P = {POOL}, merge_occupied, jump_flood)",
+                 time_ms(lambda: camera_frame(sfresh, sdist), 10), time_ms(lambda: camera_frame(fresh, dist_map), 10)))
+    return rows
 
 
 

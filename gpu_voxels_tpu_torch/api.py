@@ -35,6 +35,7 @@ from .maps.paged import PagedHierarchicalMap
 from .maps.voxellist import KIND_BIT, KIND_COUNT, KIND_PROB, VoxelList
 from .maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
 from .parallel import ShardedPagedWorld, reshard_like, shard_map_value
+from .parallel.shard_value import read_sharded_map
 from .primitive_array import PrimitiveArray, PrimitiveType
 from .robot.dh import KinematicChain
 from .robot.robot import JointValueMap, RobotInterface
@@ -53,6 +54,9 @@ _LISTS = {
     MapType.MT_PROBAB_MORTON_VOXELLIST: (KIND_PROB, "morton"),
     MapType.MT_COUNTING_VOXELLIST: (KIND_COUNT, "linear"),
 }
+
+# the file types read_map gives a dense map (a CountingVoxelMap's file goes to the list reader, F14)
+_DENSE_FILES = (MapType.MT_PROBAB_VOXELMAP, MapType.MT_BITVECTOR_VOXELMAP, MapType.MT_DISTANCE_VOXELMAP)
 
 
 class GpuVoxels:
@@ -292,13 +296,18 @@ class GpuVoxels:
         """Map readFromDisk through the facade: the file's MapType decides
         the tier (utils/io.read_map), the map lands on the facade's device
         and is bound to `map_name`. A sharded paged world reloads
-        distributed over its own devices; a mesh-registered map is
-        re-pinned to its slab layout."""
+        distributed over its own devices; a mesh-registered map reads a
+        dense map's file slab by slab onto the mesh, any other file whole,
+        then re-pinned to its slab layout."""
         cur = self._maps.get(map_name)
         if isinstance(cur, ShardedPagedWorld):
             self._maps[map_name] = cur.read_from_disk(path)
             return True
-        self._maps[map_name] = self._pinned(map_name, map_io.read_map(path, device=self._device))
+        mesh = self._meshes.get(map_name)
+        if mesh is not None and map_io._file_map_type(path) in _DENSE_FILES:
+            self._maps[map_name] = read_sharded_map(path, mesh)
+        else:
+            self._maps[map_name] = self._pinned(map_name, map_io.read_map(path, device=self._device))
         self._locks.setdefault(map_name, threading.RLock())
         self._vis.setdefault(map_name, VisProvider(map_name))
         return True

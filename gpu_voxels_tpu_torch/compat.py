@@ -5,7 +5,7 @@ Users migrating from the CUDA GPU-Voxels can keep their method spelling:
 resolve to the snake_case implementations. Counterpart of
 gpu_voxels_tpu/compat.py: the same alias tables, installed by
 gpu_voxels_tpu_torch.api at its import on the port's classes, the
-multi-device ShardedPagedWorld included.
+multi-device ShardedPagedWorld and slab-sharded dense maps included.
 """
 from __future__ import annotations
 
@@ -113,6 +113,7 @@ def install() -> None:
     from .maps.voxellist import VoxelList
     from .maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
     from .parallel.paged_world import ShardedPagedWorld
+    from .parallel.shard_value import ShardedDenseMap
 
     _apply(GpuVoxels, _FACADE_ALIASES)
     for cls in (
@@ -128,3 +129,5 @@ def install() -> None:
     _apply(VoxelList, _LIST_ALIASES)
     _apply(DistanceVoxelMap, _DISTANCE_ALIASES)
     _apply(DistanceVoxelMap, _MAP_ALIASES)
+    _apply(ShardedDenseMap, _MAP_ALIASES)
+    _apply(ShardedDenseMap, _DISTANCE_ALIASES)

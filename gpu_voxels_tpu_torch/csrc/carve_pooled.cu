@@ -30,7 +30,11 @@
 // What this design does about it: the carve is a row kernel in K3's form
 // (carve_projection.cuh: row_grid, row_thread, project_row once per thread,
 // project_x per voxel, store_row), so no thread divides its index and the
-// row's share of the projection is computed once for kX voxels. The pool
+// row's share of the projection is computed once for kX voxels. As K3, it
+// carves a z-slab of a larger grid when the launcher passes the slab's first
+// global row z0: the row's global index z + z0 is formed as an integer and
+// only then converted to f32 (project_row), exact below 2^24, so the slabs
+// stacked equal the whole grid's mask. z0 = 0 is the whole grid. The pool
 // cell of u (and of v) is pool_cell(u), no run-time division: a shift when P
 // is a power of two, else the high word of a 32 x 32-bit product with a
 // reciprocal computed on the host (pool_divisor), shifted. The pool is one
@@ -83,10 +87,10 @@ __device__ __forceinline__ int pool_cell(int u, uint32_t mul, int shift) {
 __global__ void __launch_bounds__(carve::kThreads)
 carve_pooled_kernel(const float* __restrict__ pm, int ph, int pw, uint32_t pool_mul, int pool_shift, int h,
                     int w, const float* __restrict__ pose, float fx, float fy, float cx, float cy, float side,
-                    float eps, int dx, int dy, int tiles_x, int tiles_y, uint8_t* __restrict__ out) {
+                    float eps, int dx, int dy, int z0, int tiles_x, int tiles_y, uint8_t* __restrict__ out) {
   const carve::RowThread t = carve::row_thread(tiles_x, tiles_y);
   if (t.x0 >= dx || t.y >= dy) return;
-  const carve::Row row = carve::project_row(pose, side, t.y, t.z);
+  const carve::Row row = carve::project_row(pose, side, t.y, t.z + z0);
   uint64_t carved = 0;  // byte i: voxel x0 + i
 #pragma unroll
   for (int i = 0; i < carve::kX; ++i) {
@@ -148,10 +152,11 @@ extern "C" int gv_min_pool_depth(const void* depth, int h, int w, int pool, floa
 }
 
 // out[i] = 1 where voxel i is carved free against the pooled table pm
-// (f32[ph, pw] of a PxP-pooled h x w image), for a [dz, dy, dx] grid.
+// (f32[ph, pw] of a PxP-pooled h x w image), for a [dz, dy, dx] grid whose z
+// index k is global row k + z0.
 extern "C" int gv_carve_pooled(const void* pm, int ph, int pw, int pool, int h, int w, const void* pose,
                                float fx, float fy, float cx, float cy, float side, float eps, int dx,
-                               int dy, int dz, void* out, void* stream) {
+                               int dy, int dz, int z0, void* out, void* stream) {
   if (pool < 1) return cudaErrorInvalidValue;
   if (static_cast<int64_t>(ph) * pw > INT32_MAX) return cudaErrorInvalidValue;
   const int64_t n = static_cast<int64_t>(dx) * dy * dz;
@@ -162,6 +167,6 @@ extern "C" int gv_carve_pooled(const void* pm, int ph, int pw, int pool, int h, 
   const PoolDivisor div = pool_divisor(pool);
   carve_pooled_kernel<<<static_cast<unsigned>(g.blocks), g.block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pm), ph, pw, div.mul, div.shift, h, w, static_cast<const float*>(pose), fx,
-      fy, cx, cy, side, eps, dx, dy, g.tiles_x, g.tiles_y, static_cast<uint8_t*>(out));
+      fy, cx, cy, side, eps, dx, dy, z0, g.tiles_x, g.tiles_y, static_cast<uint8_t*>(out));
   return cudaGetLastError();
 }

@@ -16,7 +16,7 @@ from typing import Tuple
 
 import torch
 
-from ..constants import MAX_OBSTACLE_DISTANCE, PBA_UNINITIALISED_PACKED, BitVoxelMeaning, MapType, float_to_probability
+from ..constants import PBA_UNINITIALISED_PACKED, BitVoxelMeaning, MapType, float_to_probability
 from ..ops import edt, edt_envelope
 from ..ops import insert as insert_ops
 from ..utils import resolve_device, to_device
@@ -80,8 +80,7 @@ class DistanceVoxelMap(_DenseMap):
         return self._with_obstacles(prob_map.data.to(torch.int32) >= float_to_probability(occupancy_threshold))
 
     def _with_obstacles(self, mask: torch.Tensor) -> "DistanceVoxelMap":
-        own = edt.init_from_obstacle_mask(mask, self.dims)
-        return replace(self, data=torch.where(mask, own, self.data))
+        return replace(self, data=edt.with_obstacles(self.data, mask, self.dims))
 
     # -- EDT algorithms ------------------------------------------------------
     def jump_flood(self, extra_rounds: int = 1) -> "DistanceVoxelMap":
@@ -98,11 +97,21 @@ class DistanceVoxelMap(_DenseMap):
         `ops.edt.jump_flood_multires_with_stats` and `jump_flood_with_stats`
         return the repair's round count (64: the cap was reached) and take
         a larger `max_iters`."""
-        if extra_rounds == 1 and min(self.dims) >= 128 and all(d % 4 == 0 for d in self.dims):
-            if self.data.is_cuda:
-                return self.parallel_banding()
+        route = self._jump_flood_route(self.dims, extra_rounds, self.data.device)
+        if route == "banding":
+            return self.parallel_banding()
+        if route == "multires":
             return replace(self, data=edt.jump_flood_multires(self.data, self.dims))
         return replace(self, data=edt.jump_flood(self.data, self.dims, extra_rounds))
+
+    @staticmethod
+    def _jump_flood_route(dims: Dims, extra_rounds: int, device: torch.device) -> str:
+        """The route jump_flood takes for a map of `dims` on `device`:
+        "banding" (the exact EDT, a CUDA map), "multires" (the
+        multi-resolution JFA, any other device) or "flat" (the flat JFA)."""
+        if extra_rounds == 1 and min(dims) >= 128 and all(d % 4 == 0 for d in dims):
+            return "banding" if device.type == "cuda" else "multires"
+        return "flat"
 
     def parallel_banding(self, m1: int = 1, m2: int = 1, m3: int = 1) -> "DistanceVoxelMap":
         """parallelBanding3D (DistanceVoxelMap.hpp:279): the exact EDT, PBA's
@@ -144,10 +153,8 @@ class DistanceVoxelMap(_DenseMap):
         points outside the map count as MAX_OBSTACLE_DISTANCE. Reads the
         EDT at the query voxels only."""
         idx, _ = insert_ops.voxelize(to_device(points, torch.float32, self.device), self.side_length, self.dims)
-        n = self.voxelmap_size
-        d2 = edt.squared_distance_at(self.data, idx.clamp(max=n - 1), self.dims)
-        vals = torch.where(idx < n, d2, MAX_OBSTACLE_DISTANCE)
-        return torch.sqrt(vals.min().to(torch.float32)) * self.side_length
+        d2 = edt.min_squared_distance_at(self.data, idx, self.dims)
+        return torch.sqrt(d2.to(torch.float32)) * self.side_length
 
     def extract_distances(self, robot_radius: int = 0) -> torch.Tensor:
         """int8 free-space bytes (extract_byte_distance functor)."""

@@ -37,8 +37,7 @@ import numpy as np
 import torch
 
 from .. import bitops, probability
-from ..constants import (UNKNOWN_PROBABILITY, BitVoxelMeaning, MapType, float_to_probability,
-                         meaning_to_probability)
+from ..constants import UNKNOWN_PROBABILITY, BitVoxelMeaning, MapType, float_to_probability
 from ..geometry import transforms
 from ..ops import collide as collide_ops
 from ..ops import collide_cuda
@@ -139,21 +138,27 @@ class _DenseMap(DiskIO):
         of the first non-default voxels, printed and returned, as the
         reference's. One host read of the whole map; values print as the
         reference's dtypes (uint32 bit planes and packed distances)."""
-        arr = self.data.cpu().numpy()
-        if arr.dtype == np.int32:
-            arr = arr.view(np.uint32)
-        changed = arr != self._default_value
-        nz = np.flatnonzero(changed if arr.ndim == 1 else changed.any(axis=0))[:max_entries]
-        dx, dy, _ = self.dims
-        lines = [f"VoxelMap dump ({type(self).__name__} {self.dims}):"]
-        for i in nz:
-            x = int(i) % dx
-            y = (int(i) // dx) % dy
-            z = int(i) // (dx * dy)
-            lines.append(f"  ({x},{y},{z}) = {arr[..., int(i)]}")
-        out = "\n".join(lines)
-        print(out)
-        return out
+        return print_voxel_dump(self.data.cpu().numpy(), type(self), self.dims, max_entries)
+
+
+def print_voxel_dump(arr: np.ndarray, cls, dims: Dims, max_entries: int = 32) -> str:
+    """print_voxel_map_data's text of a map of class `cls` and `dims` whose
+    voxel data `arr` (voxels on the last axis) is on the host; printed and
+    returned."""
+    if arr.dtype == np.int32:
+        arr = arr.view(np.uint32)
+    changed = arr != cls._default_value
+    nz = np.flatnonzero(changed if arr.ndim == 1 else changed.any(axis=0))[:max_entries]
+    dx, dy, _ = dims
+    lines = [f"VoxelMap dump ({cls.__name__} {dims}):"]
+    for i in nz:
+        x = int(i) % dx
+        y = (int(i) // dx) % dy
+        z = int(i) // (dx * dy)
+        lines.append(f"  ({x},{y},{z}) = {arr[..., int(i)]}")
+    out = "\n".join(lines)
+    print(out)
+    return out
 
 
 @dataclass(frozen=True, eq=False)
@@ -179,10 +184,7 @@ class ProbVoxelMap(_DenseMap):
 
     def update_occupancy(self, points, delta) -> "ProbVoxelMap":
         """Log-odds additive update for every hit voxel (sensor path)."""
-        idx, _ = insert_ops.voxelize(self._points(points), self.side_length, self.dims)
-        hits = insert_ops.occupancy_mask(idx, self.voxelmap_size)
-        upd = probability.update_occupancy(self.data, hits.to(torch.int32) * int(delta))
-        return replace(self, data=upd)
+        return replace(self, data=insert_ops.update_occupancy(self.data, points, delta, self.side_length, self.dims))
 
     def insert_depth_image(self, depth, sensor, carve_pool: int = 1) -> "ProbVoxelMap":
         """Projective sensor update from a depth image and a Sensor: hits plus
@@ -202,21 +204,13 @@ class ProbVoxelMap(_DenseMap):
         Per subcloud, each point SETS its meaning's probability in one
         scatter; on voxels shared between subclouds the LATER point wins:
         the deterministic reading of the reference's racy last-writer-wins
-        kernel, equal to inserting the subclouds one by one. An int64
-        scatter-max of (rank + 1) * 256 + (value + 128) picks the winner
-        (uint32 amax does not exist in torch, H1); int64 never overflows,
-        so the reference's per-cloud loop for large clouds has no
-        counterpart."""
+        kernel, equal to inserting the subclouds one by one
+        (ops/insert.insert_meta_prob: an int64 scatter-max of ranked
+        values, which never overflows, so the reference's per-cloud loop
+        for large clouds has no counterpart)."""
         if meanings is None:
             return self.insert_point_cloud(meta.points)
-        values = to_device([meaning_to_probability(m) for m in meanings], torch.int64, self.device)
-        rank = torch.arange(1, meta.accumulated_size + 1, dtype=torch.int64, device=self.device)
-        enc = rank * 256 + (values[to_device(meta.cloud_ids, torch.int64, self.device)] + 128)
-        idx, _ = insert_ops.voxelize(self._points(meta.points), self.side_length, self.dims)
-        won = torch.zeros(self.voxelmap_size + 1, dtype=torch.int64, device=self.device)
-        won = won.scatter_reduce_(0, idx, enc, "amax")[:-1]
-        new_val = ((won & 255) - 128).to(torch.int8)
-        return replace(self, data=torch.where(won > 0, new_val, self.data))
+        return replace(self, data=insert_ops.insert_meta_prob(self.data, meta, meanings, self.side_length, self.dims))
 
     def insert_meta_point_cloud_with_self_collision_check(self, meta, meaning=BitVoxelMeaning.eBVM_OCCUPIED):
         """insertMetaPointCloudWithSelfcollisionCheck (ProbVoxelMap.h): insert
@@ -382,13 +376,10 @@ class BitVectorVoxelMap(_DenseMap):
     def insert_meta_point_cloud(self, meta, meanings=None) -> "BitVectorVoxelMap":
         """Meta insert, uniform or per-subcloud meanings; the per-subcloud
         path is the one-pass kernelInsertMetaPointCloud analogue
-        (ops/insert.scatter_bits_multi)."""
+        (ops/insert.insert_meta_bits)."""
         if meanings is None:
             return self.insert_point_cloud(meta.points)
-        sizes = [meta.cloud_size(i) for i in range(meta.num_clouds)]
-        meanings_np = np.repeat(np.asarray([int(m) for m in meanings], np.int64), sizes)
-        idx, _ = insert_ops.voxelize(self._points(meta.points), self.side_length, self.dims)
-        data, occ = insert_ops.scatter_bits_multi(self.data, self.occ, idx, meanings_np)
+        data, occ = insert_ops.insert_meta_bits(self.data, self.occ, meta, meanings, self.side_length, self.dims)
         return replace(self, data=data, occ=occ)
 
     def insert_robot_configuration(self, robot_links, with_self_collision_test: bool = False):

@@ -61,6 +61,18 @@ def count_and_mark_prob(a, b, t1, t2, dims=None, offset=(0, 0, 0)):
     return _count(hit), new_a
 
 
+def count_and_mark_prob_run(a, b, t1, t2, a0: int, b0: int, length: int):
+    """count_and_mark_prob over one run: a[a0 + i] against b[b0 + i] for
+    i < length, marks in a copy of all of `a`. A slab-sharded marking
+    collide runs one per run of slabs an offset pairs. Returns (count,
+    new_a)."""
+    sa, sb = slice(a0, a0 + length), slice(b0, b0 + length)
+    hit = prob_occupied(a[sa], t1) & prob_occupied(b[sb], t2)
+    new_a = a.clone()
+    new_a[sa] = torch.where(hit, MAX_PROBABILITY, a[sa]).to(a.dtype)
+    return _count(hit), new_a
+
+
 def count_bit_bit(a_planes, b_planes, dims=None, offset=(0, 0, 0)) -> torch.Tensor:
     """Counting collide, bit x bit: both !noneButEmpty (DefaultCollider.hpp:76-81)."""
     sa, sb = _slices(a_planes.shape[-1], dims, offset)

@@ -1,4 +1,5 @@
-"""CUDA kernels K1, K2 (prob x prob counting and marking collides), K4
+"""CUDA kernels K1, K2 (prob x prob counting and marking collides; K2 also
+over one run of a slab-sharded map, `count_and_mark_prob_run`), K4
 (the one-launch swept-volume types collide, gated by the maps' occupancy
 summaries) and K7 (the bit x bit plane-fold count).
 
@@ -27,6 +28,7 @@ from . import collide
 
 count_prob_prob_plain = collide.count_prob_prob
 count_and_mark_prob_plain = collide.count_and_mark_prob
+count_and_mark_prob_run_plain = collide.count_and_mark_prob_run
 count_bit_bit_plain = collide.count_bit_bit
 
 # kernel launches since the last reset, by wrapper name
@@ -75,15 +77,29 @@ def count_and_mark_prob(a, b, t1, t2, dims=None, offset=(0, 0, 0)):
     Returns (count, new_a); `a` is left unchanged."""
     if _on_cpu(a, b):
         return count_and_mark_prob_plain(a, b, t1, t2, dims, offset)
+    return count_and_mark_prob_run(a, b, t1, t2, *_slices(a.shape[0], dims, offset))
+
+
+def count_and_mark_prob_run(a, b, t1, t2, a0: int, b0: int, length: int):
+    """K2 over one run: a[a0 + i] against b[b0 + i] for i < length, the
+    marks in a new copy of all of `a` (the offset's run of count_and_mark_prob,
+    or a slab of a sharded map against the run of a slab of b an offset
+    pairs it with). One launch, counted under `count_and_mark_prob`.
+    Returns (count, new_a)."""
+    if _on_cpu(a, b):
+        return count_and_mark_prob_run_plain(a, b, t1, t2, a0, b0, length)
     _check(a, b)
-    a0, b0, length = _slices(a.shape[0], dims, offset)
+    n = a.shape[0]
+    a0, b0, length = int(a0), int(b0), int(length)
+    if min(a0, b0, length) < 0 or a0 + length > n or b0 + length > n:
+        raise ValueError(f"the run [{a0}, +{length}) x [{b0}, +{length}) leaves maps of {n} voxels")
     count = torch.empty((), dtype=torch.int64, device=a.device)
     out = torch.empty_like(a)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
         err = kernels.library().gv_count_and_mark_prob(
-            a.data_ptr(), b.data_ptr() + b0, out.data_ptr(), a.shape[0], a0, length,
-            int(t1), int(t2), count.data_ptr(), stream,
+            a.data_ptr(), b.data_ptr() + b0, out.data_ptr(), n, a0, length, int(t1), int(t2), count.data_ptr(),
+            stream,
         )
     kernels.check(err, "count_and_mark_prob")
     launches["count_and_mark_prob"] += 1

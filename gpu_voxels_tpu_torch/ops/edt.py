@@ -36,6 +36,14 @@ from ..constants import MAX_OBSTACLE_DISTANCE, PBA_UNINITIALISED_COORD, PBA_UNIN
 Dims = Tuple[int, int, int]
 I32 = torch.int32
 
+# The JFAs' policy, shared by the single-device calls and their slab form
+# (parallel/sharded_edt.jump_flood_slabs): the multires coarse factor, its
+# short-range fine rounds, and the cap on the step-1 repair's rounds (the
+# reference's, gpu_voxels_tpu/ops/edt.py:189-203).
+MULTIRES_COARSE_FACTOR = 4
+MULTIRES_FINE_STEPS = (8, 4, 2, 1, 1, 1)
+REPAIR_MAX_ROUNDS = 64
+
 
 def pack(x, y, z) -> torch.Tensor:
     """Packed int32 coordinates x | y<<10 | z<<20 (each field < 1024)."""
@@ -48,12 +56,14 @@ def unpack(packed) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     return p & 0x3FF, (p >> 10) & 0x3FF, p >> 20
 
 
-def _position_grids(dims: Dims, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x, y, z index grids of a [Z, Y, X] grid as broadcasting int32 views."""
+def _position_grids(dims: Dims, device, z_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x, y, z index grids of a [Z, Y, X] grid as broadcasting int32 views;
+    with `z_offset` z0 the grid is the z-slab [z0, z0 + Z) of a larger one
+    and z holds global rows."""
     dx, dy, dz = dims
     x = torch.arange(dx, dtype=I32, device=device).view(1, 1, dx)
     y = torch.arange(dy, dtype=I32, device=device).view(1, dy, 1)
-    z = torch.arange(dz, dtype=I32, device=device).view(dz, 1, 1)
+    z = torch.arange(int(z_offset), int(z_offset) + dz, dtype=I32, device=device).view(dz, 1, 1)
     return x, y, z
 
 
@@ -73,37 +83,59 @@ def _sq_dist(cand: torch.Tensor, px, py, pz) -> torch.Tensor:
     return torch.where(_uninit(cx, cy, cz), MAX_OBSTACLE_DISTANCE, d)
 
 
-def squared_distance_grid(packed_grid: torch.Tensor, dims: Dims) -> torch.Tensor:
+def squared_distance_grid(packed_grid: torch.Tensor, dims: Dims, z_offset: int = 0) -> torch.Tensor:
     """int32[Z, Y, X]: squared distance to the stored obstacle; uninitialised
-    voxels give MAX_OBSTACLE_DISTANCE (DistanceVoxel::squaredObstacleDistance)."""
+    voxels give MAX_OBSTACLE_DISTANCE (DistanceVoxel::squaredObstacleDistance).
+    With `z_offset` z0 the grid is the z-slab [z0, z0 + Z) of a larger one."""
     dx, dy, dz = dims
-    px, py, pz = _position_grids(dims, packed_grid.device)
+    px, py, pz = _position_grids(dims, packed_grid.device, z_offset)
     return _sq_dist(packed_grid.reshape(dz, dy, dx), px, py, pz)
 
 
-def squared_distance_at(packed_flat: torch.Tensor, idx: torch.Tensor, dims: Dims) -> torch.Tensor:
+def squared_distance_at(packed_flat: torch.Tensor, idx: torch.Tensor, dims: Dims, z_offset: int = 0) -> torch.Tensor:
     """Squared obstacle distances of the voxels with linear indices `idx`
     (int64, each < N): squared_distance_grid at those voxels only. A gather
-    (`take`), so a 0-d index on the card is not read on the host."""
+    (`take`), so a 0-d index on the card is not read on the host. With
+    `z_offset` z0 the grid is the z-slab [z0, z0 + Z) of a larger one."""
     dx, dy, _ = dims
     return _sq_dist(torch.take(packed_flat, idx), (idx % dx).to(I32), ((idx // dx) % dy).to(I32),
-                    (idx // (dx * dy)).to(I32))
+                    (idx // (dx * dy) + int(z_offset)).to(I32))
 
 
-def init_from_obstacle_mask(mask_flat: torch.Tensor, dims: Dims) -> torch.Tensor:
-    """int32[N]: obstacle voxels hold their own coordinates, others uninit."""
-    px, py, pz = _position_grids(dims, mask_flat.device)
+def init_from_obstacle_mask(mask_flat: torch.Tensor, dims: Dims, z_offset: int = 0) -> torch.Tensor:
+    """int32[N]: obstacle voxels hold their own coordinates, others uninit.
+    With `z_offset` z0 the grid is the z-slab [z0, z0 + Z) of a larger one:
+    an obstacle holds its global coordinates."""
+    px, py, pz = _position_grids(dims, mask_flat.device, z_offset)
     own = (px | (py << 10) | (pz << 20)).reshape(-1)
     return torch.where(mask_flat.reshape(-1), own, PBA_UNINITIALISED_PACKED)
 
 
-def exact_distances(obstacle_coords, dims: Dims, chunk: int = 4096) -> torch.Tensor:
+def with_obstacles(packed_flat: torch.Tensor, mask_flat: torch.Tensor, dims: Dims, z_offset: int = 0) -> torch.Tensor:
+    """int32[N]: the packed grid with every `mask` voxel made an obstacle
+    holding its own coordinates (DistanceVoxel::insert), the rest kept.
+    With `z_offset` z0 the grid is the z-slab [z0, z0 + Z) of a larger one."""
+    return torch.where(mask_flat, init_from_obstacle_mask(mask_flat, dims, z_offset), packed_flat)
+
+
+def min_squared_distance_at(packed_flat: torch.Tensor, idx: torch.Tensor, dims: Dims, z_offset: int = 0) -> torch.Tensor:
+    """The least squared obstacle distance over the voxels `idx` (int64, as
+    voxelize gives them: an index >= N, its spare slot, counts as
+    MAX_OBSTACLE_DISTANCE), a 0-d int32 tensor. With `z_offset` z0 the grid
+    is the z-slab [z0, z0 + Z) of a larger one."""
+    n = dims[0] * dims[1] * dims[2]
+    d2 = squared_distance_at(packed_flat, idx.clamp(max=n - 1), dims, z_offset)
+    return torch.where(idx < n, d2, MAX_OBSTACLE_DISTANCE).min()
+
+
+def exact_distances(obstacle_coords, dims: Dims, chunk: int = 4096, z_offset: int = 0) -> torch.Tensor:
     """Brute-force oracle: nearest of M obstacle coordinates per voxel.
 
     obstacle_coords: int[M, 3] (x, y, z) on the device of the result; rows
     with x == 1023 are invalid. Ties go to the first obstacle in the list
     (argmin). Returns packed int32[N]. O(N*M): small scenes and tests only,
-    like the reference's exactDistances3D.
+    like the reference's exactDistances3D. With `z_offset` z0 the grid is
+    the z-slab [z0, z0 + Z) of a larger one.
     """
     obs = torch.as_tensor(obstacle_coords).to(I32)
     dev = obs.device
@@ -114,7 +146,7 @@ def exact_distances(obstacle_coords, dims: Dims, chunk: int = 4096) -> torch.Ten
     out = torch.empty(n, dtype=I32, device=dev)
     for start in range(0, n, chunk):
         i = torch.arange(start, min(start + chunk, n), dtype=torch.int64, device=dev)
-        pos = torch.stack([i % dx, (i // dx) % dy, i // (dx * dy)], dim=1).to(I32)
+        pos = torch.stack([i % dx, (i // dx) % dy, i // (dx * dy) + int(z_offset)], dim=1).to(I32)
         diff = obs[None, :, :] - pos[:, None, :]
         d = (diff * diff).sum(dim=-1, dtype=I32)
         d = torch.where(valid[None, :], d, MAX_OBSTACLE_DISTANCE)
@@ -176,7 +208,7 @@ def _jfa_round(grid: torch.Tensor, best_d2: torch.Tensor, s: int, dims: Dims):
     return grid, best_d2
 
 
-def _converge_step1(grid, best_d2, dims: Dims, max_iters: int = 64):
+def _converge_step1(grid, best_d2, dims: Dims, max_iters: int = REPAIR_MAX_ROUNDS):
     """Iterate step-1 rounds to a fixpoint: every cell's result becomes a
     local optimum over its 26 neighbours' sites, which repairs the rare
     isolated errors of JFA and its multiresolution variant (Voronoi cells
@@ -223,7 +255,8 @@ def jump_flood(packed_flat: torch.Tensor, dims: Dims, extra_rounds: int = 1, con
     return grid.reshape(-1)
 
 
-def jump_flood_with_stats(packed_flat: torch.Tensor, dims: Dims, extra_rounds: int = 1, max_iters: int = 64):
+def jump_flood_with_stats(packed_flat: torch.Tensor, dims: Dims, extra_rounds: int = 1,
+                          max_iters: int = REPAIR_MAX_ROUNDS):
     """jump_flood plus the repair's telemetry: (packed, repair_iters), where
     repair_iters == max_iters means the repair hit its cap unconverged."""
     dx, dy, dz = dims
@@ -245,8 +278,8 @@ def _halve_min(sites: torch.Tensor, d: torch.Tensor, axis: int):
     return torch.where(take, s1, s0), torch.where(take, d1, d0)
 
 
-def jump_flood_multires(packed_flat: torch.Tensor, dims: Dims, coarse_factor: int = 4,
-                        fine_steps=(8, 4, 2, 1, 1, 1)) -> torch.Tensor:
+def jump_flood_multires(packed_flat: torch.Tensor, dims: Dims, coarse_factor: int = MULTIRES_COARSE_FACTOR,
+                        fine_steps=MULTIRES_FINE_STEPS) -> torch.Tensor:
     """Multi-resolution jump flooding: a full JFA on a 1/c^3 grid whose
     cells keep the site closest to their block centre seeds the fine grid,
     which then runs only short-range rounds and the fixpoint repair (capped
@@ -255,8 +288,9 @@ def jump_flood_multires(packed_flat: torch.Tensor, dims: Dims, coarse_factor: in
     return jump_flood_multires_with_stats(packed_flat, dims, coarse_factor, fine_steps)[0]
 
 
-def jump_flood_multires_with_stats(packed_flat: torch.Tensor, dims: Dims, coarse_factor: int = 4,
-                                   fine_steps=(8, 4, 2, 1, 1, 1), max_iters: int = 64):
+def jump_flood_multires_with_stats(packed_flat: torch.Tensor, dims: Dims,
+                                   coarse_factor: int = MULTIRES_COARSE_FACTOR, fine_steps=MULTIRES_FINE_STEPS,
+                                   max_iters: int = REPAIR_MAX_ROUNDS):
     """jump_flood_multires plus the repair's telemetry: (packed,
     repair_iters), where repair_iters == max_iters means the repair hit its
     cap unconverged; a cap it does not reach gives the repair's fixpoint."""
@@ -281,16 +315,33 @@ def jump_flood_multires_with_stats(packed_flat: torch.Tensor, dims: Dims, coarse
         for _ in range(halvings):
             coarse_sites, dd_c = _halve_min(coarse_sites, dd_c, axis)
 
-    # coarse JFA: sites keep fine coordinates; positions are block centres
-    cdims = (dx // c, dy // c, dz // c)
-    cpx, cpy, cpz = ((p * (2 * c) + (c - 1)) for p in _position_grids(cdims, dev))
+    cg = coarse_flood(coarse_sites, c)
+
+    # upsample: every fine voxel adopts its block's coarse site
+    up = cg.repeat_interleave(c, 0).repeat_interleave(c, 1).repeat_interleave(c, 2)
+    grid, d2 = _merge(grid, d2, up, dims)
+
+    # short-range fine refinement and the fixpoint repair
+    for s in fine_steps:
+        grid, d2 = _jfa_round(grid, d2, s, dims)
+    grid, d2, iters = _converge_step1(grid, d2, dims, max_iters)
+    return grid.reshape(-1), iters
+
+
+def coarse_flood(cg: torch.Tensor, c: int) -> torch.Tensor:
+    """The full JFA of jump_flood_multires' coarse [Z/c, Y/c, X/c] grid:
+    sites keep fine coordinates, positions are block centres (doubled
+    coordinates), neighbours come from `_shift3d`, whose offsets beyond an
+    axis wrap part of it back in (F8)."""
+    czs, cys, cxs = cg.shape
+    cdims = (cxs, cys, czs)
+    cpx, cpy, cpz = ((p * (2 * c) + (c - 1)) for p in _position_grids(cdims, cg.device))
 
     def coarse_d2(cand):
         sx, sy, sz = unpack(cand)
         ex, ey, ez = 2 * sx - cpx, 2 * sy - cpy, 2 * sz - cpz
         return torch.where(_uninit(sx, sy, sz), MAX_OBSTACLE_DISTANCE, ex * ex + ey * ey + ez * ez)
 
-    cg = coarse_sites
     cbest = coarse_d2(cg)
     step = 1
     while step * 2 < max(cdims):
@@ -304,16 +355,7 @@ def jump_flood_multires_with_stats(packed_flat: torch.Tensor, dims: Dims, coarse
             cg = torch.where(take, cand, cg)
             cbest = torch.where(take, nd, cbest)
         s //= 2
-
-    # upsample: every fine voxel adopts its block's coarse site
-    up = cg.repeat_interleave(c, 0).repeat_interleave(c, 1).repeat_interleave(c, 2)
-    grid, d2 = _merge(grid, d2, up, dims)
-
-    # short-range fine refinement and the fixpoint repair
-    for s in fine_steps:
-        grid, d2 = _jfa_round(grid, d2, s, dims)
-    grid, d2, iters = _converge_step1(grid, d2, dims, max_iters)
-    return grid.reshape(-1), iters
+    return cg
 
 
 def _floor_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -388,7 +430,6 @@ def exact_separable(packed_flat: torch.Tensor, dims: Dims) -> torch.Tensor:
     Returns packed nearest-obstacle coordinates, like the PBA kernels."""
     from .edt_envelope import _nearest_scan
 
-    dx, dy, dz = dims
     is_site = squared_distance_grid(packed_flat, dims) == 0
 
     # phase 1: nearest site along Z per (y, x) column; a column without one
@@ -398,7 +439,15 @@ def exact_separable(packed_flat: torch.Tensor, dims: Dims) -> torch.Tensor:
     # carry packed (x, y, near_z) as the site payload
     px, py, _ = _position_grids(dims, packed_flat.device)
     site1 = px | (py << 10) | (near_z.clamp(0, PBA_UNINITIALISED_COORD) << 20)
+    return separable_yx(g2, site1).reshape(-1)
 
+
+def separable_yx(g2: torch.Tensor, site1: torch.Tensor) -> torch.Tensor:
+    """Phases 2 and 3 of exact_separable on int32 [Z, Y, X] grids (the Z
+    scans' squared distances, MISS where a column has no site, and their
+    packed sites): Meijster's envelopes along Y, then X. Returns the packed
+    nearest-obstacle grid [Z, Y, X]."""
+    dz, dy, dx = g2.shape
     # phase 2: envelope along Y (lines are (z, x) pairs)
     g2_y = g2.permute(0, 2, 1).reshape(dz * dx, dy)
     s_y = site1.permute(0, 2, 1).reshape(dz * dx, dy)
@@ -409,20 +458,23 @@ def exact_separable(packed_flat: torch.Tensor, dims: Dims) -> torch.Tensor:
     # phase 3: envelope along X (lines are (z, y) pairs)
     d3, s3 = _envelope_pass_1d(d2.reshape(dz * dy, dx), s2.reshape(dz * dy, dx))
     # the payload already carries (x*, y*, z*): its x is the winning column
-    return torch.where(d3 >= MAX_OBSTACLE_DISTANCE, PBA_UNINITIALISED_PACKED, s3).reshape(-1)
+    return torch.where(d3 >= MAX_OBSTACLE_DISTANCE, PBA_UNINITIALISED_PACKED, s3).reshape(dz, dy, dx)
 
 
-def differences(packed_a: torch.Tensor, packed_b: torch.Tensor, dims: Dims) -> torch.Tensor:
+def differences(packed_a: torch.Tensor, packed_b: torch.Tensor, dims: Dims, z_offset: int = 0) -> torch.Tensor:
     """differences3D (DistanceVoxelMap.hpp:723): the number of voxels whose
-    squared obstacle distances disagree, a 0-d int64 tensor."""
-    return (squared_distance_grid(packed_a, dims) != squared_distance_grid(packed_b, dims)).sum()
+    squared obstacle distances disagree, a 0-d int64 tensor. With `z_offset`
+    z0 the grids are the z-slab [z0, z0 + Z) of larger ones."""
+    return (squared_distance_grid(packed_a, dims, z_offset) != squared_distance_grid(packed_b, dims, z_offset)).sum()
 
 
-def extract_byte_distances(packed_flat: torch.Tensor, dims: Dims, robot_radius: int = 0) -> torch.Tensor:
+def extract_byte_distances(packed_flat: torch.Tensor, dims: Dims, robot_radius: int = 0,
+                           z_offset: int = 0) -> torch.Tensor:
     """extract_distances functor (DistanceVoxel.h:154-205): int8 free space
     per voxel = clamp(floor(sqrt(d2)) - robot_radius, 0, 127); uninitialised
-    voxels count as 127."""
-    d2 = squared_distance_grid(packed_flat, dims)
+    voxels count as 127. With `z_offset` z0 the grid is the z-slab
+    [z0, z0 + Z) of a larger one."""
+    d2 = squared_distance_grid(packed_flat, dims, z_offset)
     free = floor_sqrt(torch.where(d2 >= MAX_OBSTACLE_DISTANCE, 127 * 127, d2))
     return torch.clamp(free - robot_radius, 0, 127).to(torch.int8).reshape(-1)
 
@@ -445,12 +497,19 @@ def manhattan_distance(obstacle_mask_flat: torch.Tensor, dims: Dims, cap: int = 
     dx, dy, dz = dims
     d = torch.where(obstacle_mask_flat.reshape(dz, dy, dx), 0, cap).to(I32)
     for axis in (0, 1, 2):
-        n = d.shape[axis]
-        shape = [1, 1, 1]
-        shape[axis] = n
-        i = torch.arange(n, dtype=I32, device=d.device).view(shape)
-        fwd = torch.cummin(d - i, dim=axis).values + i
-        # the backward sweep is the same on the flipped axis: a suffix min
-        bwd = torch.flip(torch.cummin(torch.flip(d + i, [axis]), dim=axis).values, [axis]) - i
-        d = torch.minimum(fwd, bwd)
+        d = l1_pass(d, axis)
     return torch.clamp(d, max=cap).reshape(-1)
+
+
+def l1_pass(d: torch.Tensor, axis: int) -> torch.Tensor:
+    """One axis of manhattan_distance on an int32 [Z, Y, X] grid: the
+    forward sweep's prefix min of d - i plus i, the backward sweep's suffix
+    min of d + i minus i, the smaller of the two."""
+    n = d.shape[axis]
+    shape = [1, 1, 1]
+    shape[axis] = n
+    i = torch.arange(n, dtype=I32, device=d.device).view(shape)
+    fwd = torch.cummin(d - i, dim=axis).values + i
+    # the backward sweep is the same on the flipped axis: a suffix min
+    bwd = torch.flip(torch.cummin(torch.flip(d + i, [axis]), dim=axis).values, [axis]) - i
+    return torch.minimum(fwd, bwd)

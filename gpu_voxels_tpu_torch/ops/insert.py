@@ -20,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import probability
 from ..bitops import as_int32, bit_plane, bit_word
 from ..constants import meaning_to_probability
 from ..utils import to_device
@@ -179,17 +180,61 @@ def scatter_bits_multi(planes: torch.Tensor, occ: torch.Tensor, idx: torch.Tenso
     return out, occ | torch.any(occ_words != 0, dim=0).to(torch.uint8)
 
 
-def self_collision_clash(robot_links, side_length: float, dims: Dims) -> torch.Tensor:
+def insert_meta_prob(data: torch.Tensor, meta, meanings, side_length: float, dims: Dims, z_offset: int = 0):
+    """ProbVoxelMap's per-subcloud meta insert: each point SETS its
+    subcloud's meaning's probability, and on a voxel several points hit the
+    later point wins. An int64 scatter-max of (rank + 1) * 256 + (value +
+    128) picks it, the rank the point's place in the whole cloud (uint32
+    amax does not exist in torch, H1; int64 never overflows). With
+    `z_offset` z0, `data` is the z-slab [z0, z0 + dims[2]) of a larger grid
+    (voxelize's rule), and the ranks stay the whole cloud's."""
+    dev = data.device
+    values = to_device([meaning_to_probability(m) for m in meanings], torch.int64, dev)
+    rank = torch.arange(1, meta.accumulated_size + 1, dtype=torch.int64, device=dev)
+    enc = rank * 256 + (values[to_device(meta.cloud_ids, torch.int64, dev)] + 128)
+    idx, _ = voxelize(to_device(meta.points, torch.float32, dev), side_length, dims, z_offset)
+    won = torch.zeros(data.shape[0] + 1, dtype=torch.int64, device=dev)
+    won = won.scatter_reduce_(0, idx, enc, "amax")[:-1]
+    new_val = ((won & 255) - 128).to(torch.int8)
+    return torch.where(won > 0, new_val, data)
+
+
+def insert_meta_bits(planes: torch.Tensor, occ, meta, meanings, side_length: float, dims: Dims, z_offset: int = 0):
+    """BitVectorVoxelMap's per-subcloud meta insert, the one-pass
+    kernelInsertMetaPointCloud analogue: every point sets its subcloud's
+    meaning (scatter_bits_multi). Returns (planes, occ). With `z_offset` z0
+    the planes are the z-slab [z0, z0 + dims[2]) of a larger grid
+    (voxelize's rule)."""
+    sizes = [meta.cloud_size(i) for i in range(meta.num_clouds)]
+    meanings_np = np.repeat(np.asarray([int(m) for m in meanings], np.int64), sizes)
+    idx, _ = voxelize(to_device(meta.points, torch.float32, planes.device), side_length, dims, z_offset)
+    return scatter_bits_multi(planes, occ, idx, meanings_np)
+
+
+def update_occupancy(data: torch.Tensor, points, delta, side_length: float, dims: Dims, z_offset: int = 0):
+    """ProbVoxelMap.update_occupancy: the log-odds `delta` added once to
+    every voxel a point hits (probability.update_occupancy). With
+    `z_offset` z0, `data` is the z-slab [z0, z0 + dims[2]) of a larger grid
+    (voxelize's rule)."""
+    idx, _ = voxelize(to_device(points, torch.float32, data.device), side_length, dims, z_offset)
+    hits = occupancy_mask(idx, data.shape[0])
+    return probability.update_occupancy(data, hits.to(torch.int32) * int(delta))
+
+
+def self_collision_clash(robot_links, side_length: float, dims: Dims, z_offset: int = 0) -> torch.Tensor:
     """Pairwise sub-cloud self-collision predicate of every map's
     insert_robot_configuration: True iff two DIFFERENT sub-clouds of the
     MetaPointCloud voxelize into the same cell (the clash test of
     insertMetaPointCloudWithSelfcollisionCheck, ProbVoxelMap.h:61-77).
-    Duplicate points within one sub-cloud do not clash. A device bool."""
+    Duplicate points within one sub-cloud do not clash. A device bool.
+    With `z_offset` z0 only the cells of the z-slab [z0, z0 + dims[2]) of a
+    larger grid count (voxelize's rule): the OR over the slabs is the
+    whole grid's clash."""
     n = dims[0] * dims[1] * dims[2]
     union = torch.zeros(n, dtype=torch.int8, device=robot_links.device)
     clash = torch.zeros((), dtype=torch.bool, device=robot_links.device)
     for i in range(robot_links.num_clouds):
-        idx, _ = voxelize(robot_links.get_cloud(i), side_length, dims)
+        idx, _ = voxelize(robot_links.get_cloud(i), side_length, dims, z_offset)
         hits = occupancy_mask(idx, n)
         clash = clash | torch.any((hits > 0) & (union > 0))
         union = torch.maximum(union, hits)

@@ -126,14 +126,17 @@ def projective_free_space_pooled(
     invalid_value: float = 0.0,
     eps_vox: float = 1.0,
     pool: int = 4,
+    z_index_offset: int = 0,
 ) -> torch.Tensor:
     """bool[N]: the pooled conservative carve (gpu_voxels_tpu/ops/
     raycast_pallas.py:97-137): free iff the voxel's centre lies in front,
     projects inside the image and sz < pooled_min[v // P, u // P] - eps.
     Never frees a voxel the exact carve keeps; P = 1 is the exact carve.
-    The projection is `projective_free_space`'s, op for op."""
+    The projection is `projective_free_space`'s, op for op, and takes its
+    `z_index_offset` the same way."""
     pm = min_pool_depth(depth, pool, invalid_value)
-    return carve_against_pooled(pm, pool, depth.shape, pose, fx, fy, cx, cy, side_length, dims, eps_vox)
+    return carve_against_pooled(pm, pool, depth.shape, pose, fx, fy, cx, cy, side_length, dims, eps_vox,
+                                z_index_offset)
 
 
 def carve_against_pooled(
@@ -148,12 +151,13 @@ def carve_against_pooled(
     side_length: float,
     dims: Dims,
     eps_vox: float = 1.0,
+    z_index_offset: int = 0,
 ) -> torch.Tensor:
     """bool[N]: `projective_free_space_pooled` against its prebuilt table
     pm = min_pool_depth(depth, pool, invalid_value) of an image of
     `image_shape` (h, w)."""
     h, w = image_shape
-    sz, u, v, in_fov = _project(pm.device, pose, fx, fy, cx, cy, side_length, dims, h, w)
+    sz, u, v, in_fov = _project(pm.device, pose, fx, fy, cx, cy, side_length, dims, h, w, z_index_offset)
     ui = torch.div(u, pool, rounding_mode="floor").clamp(0, pm.shape[1] - 1).to(torch.int64)
     vi = torch.div(v, pool, rounding_mode="floor").clamp(0, pm.shape[0] - 1).to(torch.int64)
     d = pm.reshape(-1)[vi * pm.shape[1] + ui]
@@ -193,6 +197,7 @@ def insert_depth_image(
     robot_occupied_mask=None,
     carve_pool: int = 1,
     z_index_offset: int = 0,
+    pooled_depth: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Full projective sensor update of an int8 log-odds map: every
     measurement adds SENSOR_MODEL_OCCUPIED (+72) to its voxel, and every voxel
@@ -206,13 +211,12 @@ def insert_depth_image(
 
     With `z_index_offset` z0, `data` is the z-slab [z0, z0 + dims[2]) of a
     larger grid: hits are voxelized in the global frame and shifted by z0
-    as integers, and the exact carve takes the same offset (the pooled
-    carve takes none).
+    as integers, and either carve takes the same offset. `pooled_depth`,
+    the frame's min_pool_depth table at `carve_pool` built once for every
+    slab of a frame, spares the pool.
     """
     from . import raycast_cuda
 
-    if z_index_offset and carve_pool > 1:
-        raise ValueError("the pooled carve takes no z_index_offset; carve a slab with carve_pool=1")
     depth = to_device(depth, F32, data.device)
     pose = to_device(pose, F32, data.device)
     pts = depth_image_to_point_cloud(depth, fx, fy, cx, cy, invalid_value)
@@ -228,9 +232,15 @@ def insert_depth_image(
     hit_counts = hit_counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))[:n]
     if cut_real_robot and robot_occupied_mask is not None:
         hit_counts = torch.where(robot_occupied_mask, 0, hit_counts)
-    if carve_pool > 1:
+    if carve_pool > 1 and pooled_depth is not None:
+        free = raycast_cuda.carve_against_pooled(
+            pooled_depth, carve_pool, depth.shape, pose, fx, fy, cx, cy, side_length, dims,
+            z_index_offset=z_index_offset,
+        )
+    elif carve_pool > 1:
         free = raycast_cuda.projective_free_space_pooled(
-            depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, pool=carve_pool
+            depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, pool=carve_pool,
+            z_index_offset=z_index_offset,
         )
     else:
         free = raycast_cuda.projective_free_space_exact(
@@ -259,6 +269,18 @@ def ray_crossing_counts(origin, points: torch.Tensor, side_length: float, dims: 
     """
     n = dims[0] * dims[1] * dims[2]
     points = to_device(points, F32)
+    counts = torch.zeros(n + 1, dtype=torch.int32, device=points.device)
+    ones = torch.ones(points.shape[0], dtype=torch.int32, device=points.device)
+    for coords, alive in _ray_samples(origin, points, side_length, max_steps):
+        live = alive & in_map(coords, dims)
+        counts.index_add_(0, torch.where(live, linear_index(coords, dims), n), ones)
+    return counts[:n]
+
+
+def _ray_samples(origin, points: torch.Tensor, side_length: float, max_steps: int):
+    """The rays' samples step by step, k = 0 .. max_steps - 1: (int32 voxel
+    coords [M, 3] of sample k of every ray, bool[M] whether the ray is
+    still short of its end), with ray_crossing_counts' roundings."""
     dev = points.device
     origin = to_device(origin, F32, dev)
     # the host-computed reciprocal of insert.map_to_voxels, so that ray
@@ -272,15 +294,37 @@ def ray_crossing_counts(origin, points: torch.Tensor, side_length: float, dims: 
     n_steps = floor_to_int32(torch.ceil(dominant))  # cells to visit per ray
     inv = torch.where(n_steps > 0, 1.0 / n_steps.to(F32).clamp(min=1.0), 0.0)
     step_vec = delta * inv[:, None]  # one dominant-axis voxel per step
-
-    counts = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-    ones = torch.ones(points.shape[0], dtype=torch.int32, device=dev)
     for k in range(int(max_steps)):
         pos = start_v + step_vec * float(k)
-        coords = floor_to_int32(pos)
-        live = (n_steps > k) & in_map(coords, dims)
-        counts.index_add_(0, torch.where(live, linear_index(coords, dims), n), ones)
-    return counts[:n]
+        yield floor_to_int32(pos), n_steps > k
+
+
+_SPARE = 4096  # a slab's slots for the samples it drops
+
+
+def ray_crossing_counts_slabs(origin, points: torch.Tensor, side_length: float, dims: Dims, devices,
+                              max_steps: int = 256) -> list:
+    """ray_crossing_counts of a grid cut into len(devices) equal z-slabs:
+    int32[slab voxels] per slab, on its device, each equal to its piece of
+    the whole grid's counts. The rays are walked once: every step's global
+    indices go to the slab that owns them, one scatter-add per slab. A slab
+    drops most of a step's samples (those of the other slabs); ray r drops
+    its into spare slot r % _SPARE, so the drops do not all add to one
+    address."""
+    n = dims[0] * dims[1] * dims[2]
+    s = n // len(devices)
+    points = to_device(points, F32)
+    counts = [torch.zeros(s + _SPARE, dtype=torch.int32, device=d) for d in devices]
+    ones = [torch.ones(points.shape[0], dtype=torch.int32, device=d) for d in devices]
+    spare = s + torch.arange(points.shape[0], device=points.device) % _SPARE
+    for coords, alive in _ray_samples(origin, points, side_length, max_steps):
+        live = alive & in_map(coords, dims)
+        idx = torch.where(live, linear_index(coords, dims), n)
+        slab = idx // s  # len(devices) past the map: no slab's
+        local = idx - slab * s
+        for k, (c, o, d) in enumerate(zip(counts, ones, devices)):
+            c.index_add_(0, torch.where(slab == k, local, spare).to(d), o)
+    return [c[:s] for c in counts]
 
 
 def insert_sensor_data(
@@ -293,6 +337,8 @@ def insert_sensor_data(
     cut_real_robot: bool = False,
     robot_occupied_mask: Optional[torch.Tensor] = None,
     max_steps: int = 256,
+    z_index_offset: int = 0,
+    free_counts: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """ProbVoxelMap::insertSensorData on a flat int8 log-odds grid.
 
@@ -303,11 +349,18 @@ def insert_sensor_data(
     SENSOR_MODEL_FREE (-10) to each cell it crosses, with the reference's
     multiplicity. NaN endpoints hit nothing. With `cut_real_robot`, hits
     inside `robot_occupied_mask` are skipped: the robot is no obstacle.
+
+    With `z_index_offset` z0, `data` is the z-slab [z0, z0 + dims[2]) of a
+    larger grid: hits are voxelized in the global frame and shifted by z0
+    as integers, and `free_counts` must bring the slab's ray counts
+    (ray_crossing_counts_slabs).
     """
     n = dims[0] * dims[1] * dims[2]
     points = to_device(points, F32, data.device)
     finite = torch.all(torch.isfinite(points), dim=-1)
     coords = map_to_voxels(torch.where(finite[:, None], points, -1.0), side_length)
+    if z_index_offset:
+        coords = shifted(coords, (0, 0, z_index_offset), -1)
     inside = finite & in_map(coords, dims)
     idx = torch.where(inside, linear_index(coords, dims), n)
 
@@ -318,7 +371,10 @@ def insert_sensor_data(
 
     delta = hit_counts * SENSOR_MODEL_OCCUPIED
     if enable_raycasting:
-        free_counts = ray_crossing_counts(sensor_origin, points, side_length, dims, max_steps)
+        if free_counts is None:
+            if z_index_offset:
+                raise ValueError("a slab's ray counts come from ray_crossing_counts_slabs (free_counts)")
+            free_counts = ray_crossing_counts(sensor_origin, points, side_length, dims, max_steps)
         delta = delta + free_counts * SENSOR_MODEL_FREE
 
     # only touched voxels update: the clamp floor (-127) must not lift

@@ -58,6 +58,15 @@ def _checked(depth: torch.Tensor, pose, dims, name: str):
     return pose, (dx, dy, dz)
 
 
+def _checked_z0(z_index_offset: int, dz: int) -> int:
+    """The slab's first global row; raises where a global z index would
+    leave +-2^24, the range f32 holds exactly."""
+    z0 = int(z_index_offset)
+    if abs(z0) + dz > 2**24:
+        raise ValueError(f"the carve's global z indices must stay within +-2^24 (exact in f32), got {z0} + {dz}")
+    return z0
+
+
 def _eps(eps_vox: float, side_length: float) -> float:
     """The spec's threshold f32(eps_vox) * f32(side), rounded in f32."""
     return float(np.float32(eps_vox) * np.float32(side_length))
@@ -84,9 +93,7 @@ def projective_free_space_exact(
             depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, eps_vox, z_index_offset
         )
     pose, (dx, dy, dz) = _checked(depth, pose, dims, "carve")
-    z0 = int(z_index_offset)
-    if abs(z0) + dz > 2**24:
-        raise ValueError(f"the carve's global z indices must stay within +-2^24 (exact in f32), got {z0} + {dz}")
+    z0 = _checked_z0(z_index_offset, dz)
     h, w = depth.shape
     out = torch.empty(dx * dy * dz, dtype=torch.bool, device=depth.device)
     stream = torch.cuda.current_stream(depth.device).cuda_stream
@@ -112,16 +119,19 @@ def projective_free_space_pooled(
     invalid_value: float = 0.0,
     eps_vox: float = 1.0,
     pool: int = 4,
+    z_index_offset: int = 0,
 ) -> torch.Tensor:
     """bool[dz*dy*dx] pooled conservative free-space mask, bit-identical to
     `projective_free_space_pooled` (K6 on CUDA: the pool kernel, then the
-    carve kernel)."""
+    carve kernel). With `z_index_offset` z0 the grid is the z-slab
+    [z0, z0 + dz) of a larger one, carved in the global frame."""
     if depth.device.type == "cpu":
         return projective_free_space_pooled_plain(
-            depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, eps_vox, pool
+            depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, eps_vox, pool, z_index_offset
         )
     pm = min_pool_depth(depth, pool, invalid_value)
-    return carve_against_pooled(pm, pool, depth.shape, pose, fx, fy, cx, cy, side_length, dims, eps_vox)
+    return carve_against_pooled(pm, pool, depth.shape, pose, fx, fy, cx, cy, side_length, dims, eps_vox,
+                                z_index_offset)
 
 
 def _pooled_shape(h: int, w: int, pool) -> tuple[int, int]:
@@ -162,13 +172,18 @@ def carve_against_pooled(
     side_length: float,
     dims,
     eps_vox: float = 1.0,
+    z_index_offset: int = 0,
 ) -> torch.Tensor:
     """bool[dz*dy*dx]: the pooled carve against a prebuilt table pm of an
     image of `image_shape` (h, w), bit-identical to
-    `raycast.carve_against_pooled` (K6's carve kernel on CUDA)."""
+    `raycast.carve_against_pooled` (K6's carve kernel on CUDA), of the
+    z-slab [z0, z0 + dz) of a larger grid with `z_index_offset` z0. The
+    slabs of one frame share its table: the pool runs once a frame."""
     if pm.device.type == "cpu":
-        return carve_against_pooled_plain(pm, pool, image_shape, pose, fx, fy, cx, cy, side_length, dims, eps_vox)
+        return carve_against_pooled_plain(pm, pool, image_shape, pose, fx, fy, cx, cy, side_length, dims, eps_vox,
+                                          z_index_offset)
     pose, (dx, dy, dz) = _checked(pm, pose, dims, "pooled carve")
+    z0 = _checked_z0(z_index_offset, dz)
     h, w = (int(s) for s in image_shape)
     if tuple(pm.shape) != _pooled_shape(h, w, pool):
         raise ValueError(f"a {h}x{w} image pools to {_pooled_shape(h, w, pool)} at P = {pool}, got {tuple(pm.shape)}")
@@ -177,7 +192,7 @@ def carve_against_pooled(
     with torch.cuda.device(pm.device):
         err = kernels.library().gv_carve_pooled(
             pm.data_ptr(), pm.shape[0], pm.shape[1], int(pool), h, w, pose.data_ptr(), fx, fy, cx, cy,
-            side_length, _eps(eps_vox, side_length), dx, dy, dz, out.data_ptr(), stream,
+            side_length, _eps(eps_vox, side_length), dx, dy, dz, z0, out.data_ptr(), stream,
         )
     kernels.check(err, "projective_free_space_pooled")
     launches["projective_free_space_pooled"] += 1

@@ -5,29 +5,52 @@ already-built map pytree over a device mesh with NamedSharding and lets
 XLA's SPMD partitioner run the map's own public ops distributed. torch has
 no transparent SPMD, so `shard_map_value` returns a slab-sharded value
 instead: one map of the same class per z-slab, with dims (dx, dy, dz / nz),
-each on its mesh device, and the ops routed slab by slab:
+each on its mesh device, and the ops routed slab by slab.
 
-  * `insert_point_cloud` (and the counting map's): each slab voxelizes the
-    replicated points in the global frame, shifts z by its first row as an
-    integer and drops the points outside it;
-  * `collide_with`: each slab runs the single-device count (K1 for prob x
-    prob, K7 for bit maps without an occupancy summary, the plain summary
-    counts otherwise) and the counts sum. An offset pairs a[i + off] with
-    b[i] over the global flat grid, as the single-device call does, so a
-    slab reads the rows it needs from its neighbour slab;
-  * `collide_with_types` (K4 per slab; the meanings OR over the slabs, the
-    marked map stays sharded), `collide_with_bitcheck` and `merge`: voxel by
-    voxel, so slab by slab;
-  * `clear_map` and the other voxel-wise clears;
-  * the hierarchical pyramids: levels whose z extent divides over the mesh
-    are split into slabs, the coarse tail is kept once on the mesh's first
-    device; `probe` and the probe collides descend across them, and a
-    point insert sets level 0 slab by slab and rebuilds the levels above.
+Dense maps (`ShardedDenseMap`: ProbVoxelMap, BitVectorVoxelMap,
+CountingVoxelMap, DistanceVoxelMap): every public instance method of the
+class has a slab form that gives the single-device call's answer:
 
-A plain map given as the other operand is split the same way. Any other
-public method of the map's class raises NotImplementedError naming ROADMAP
-Queue 1 item 13b instead of gathering silently; `gather()` makes a
-single-device copy on request.
+  * inserts (points, meta clouds with global ranks, robot configurations
+    with the self-collision clash ORed over the slabs, update_occupancy):
+    each slab voxelizes the replicated points in the global frame, shifts
+    z by its first row as an integer and drops the points outside it;
+  * sensing: insert_depth_image carves each slab in the global frame with
+    its z offset (K3, or K6 against the frame's one pooled table), the DDA
+    insert_sensor_data walks the rays once and counts every step's voxels
+    on the slab that owns them; the stored sensor rides on the value;
+  * collides: collide_with (K1, K7 or the summaries per run of slabs an
+    offset pairs, so a slab reads the rows it needs from its neighbours),
+    collide_with_marking (K2 per run, the marks on a's slab), collides_with,
+    collide_with_resolution (the cubes a slab boundary cuts ORed from the
+    slabs' partial cubes), collide_with_types (K4 per slab, meanings ORed),
+    collide_with_bitcheck, merge and the voxel-wise clears;
+  * the distance tier: obstacles store global coordinates; parallel_banding
+    is sharded_edt_exact's (K5 per slab and pass), jump_flood takes the
+    single-device call's route (on the card that exact EDT, on the CPU
+    sharded_edt.jump_flood_slabs with the single-device rules),
+    exact_separable the Z scans with the slabs' carries, exact_distances and
+    the queries per slab in global positions, init_floodfill's z sweep with
+    carries, min_distance_to the min over the slabs;
+  * queries and files: the whole-grid tensor results (occupancy,
+    occupied_mask, get_bit_mask, as_3d, squared_distances, obstacle_mask,
+    extract_distances, init_floodfill) are the slabs' parts joined on the
+    mesh's first device, what the reference's sharded array holds when
+    read; counts and scalars land there too; every other result stays
+    sharded, and internal users (a cut-out robot, merge_occupied,
+    differences) never join. write_to_disk writes the single map's bytes
+    slab by slab, read_from_disk (and `read_sharded_map`) reads each slab's
+    body onto its device.
+
+Hierarchical pyramids (`ShardedPyramid`): levels whose z extent divides
+over the mesh are split into slabs, the coarse tail is kept once on the
+mesh's first device; `probe` and the probe collides descend across them,
+and a point insert sets level 0 slab by slab and rebuilds the levels above.
+Any other public method of a pyramid's class raises NotImplementedError
+naming ROADMAP Queue 1 item 13b-ii instead of gathering silently;
+`gather()` makes a single-device copy on request.
+
+A plain map given as the other operand is split the same way.
 
 Layout: dense grids are flat z-major (index = z*dimx*dimy + y*dimx + x,
 TemplateVoxelMap.h:258), so z-slabs are contiguous pieces of the flat axis
@@ -44,21 +67,27 @@ from typing import Tuple
 
 import torch
 
-from ..constants import UNKNOWN_PROBABILITY, BitVoxelMeaning, float_to_probability
+from ..constants import UNKNOWN_PROBABILITY, BitVoxelMeaning, MapType, float_to_probability
+from ..geometry import transforms
+from ..maps.distance_map import DistanceVoxelMap
 from ..maps.hierarchical import (NS_DYNAMIC_MAP, NS_FREE, NS_OCCUPIED, NS_STATIC_MAP, NS_UNKNOWN,
                                  STATUS_OCCUPANCY_MASK, U8, HierarchicalBitMap, HierarchicalProbMap, _axis_index,
                                  _build_pyramid, _is_uniform, _status_from_occupancy, count_probe_hits,
                                  decode_status_flags, query_coords_of)
-from ..maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap, _DenseMap
+from ..maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap, _DenseMap, print_voxel_dump
 from ..maps.voxelmap import replace as map_replace
 from ..ops import collide as collide_ops
-from ..ops import collide_cuda
+from ..ops import collide_cuda, edt, raycast, raycast_cuda
 from ..ops import insert as insert_ops
+from ..utils import io as map_io
 from ..utils import to_device
-from .sharded import GridMesh, psum, replicate, split_slabs
+from . import sharded_edt
+from .sharded import GridMesh, gather_rows, psum, replicate, split_slabs
+from .sharded_edt_exact import build_sharded_parallel_banding, flood_z_slabs, l1_z_slabs
 
 Dims = Tuple[int, int, int]
-ITEM_13B = "ROADMAP Queue 1 item 13b"
+F32 = torch.float32
+ITEM_13B = "ROADMAP Queue 1 item 13b-ii"
 
 
 def _axis_devices(mesh: GridMesh, axis: str) -> list:
@@ -77,8 +106,8 @@ def _check_divides(m, mesh: GridMesh, axis: str) -> int:
 
 
 class _ShardedValue:
-    """What every slab-sharded value shares: the mesh, the axis, the global
-    dims and the refusal of methods with no slab form."""
+    """What every slab-sharded value shares: the mesh, the axis and the
+    global dims."""
 
     def _init_common(self, base_cls, mesh: GridMesh, axis: str, dims: Dims, side_length: float, map_type):
         self._base_cls = base_cls
@@ -93,17 +122,8 @@ class _ShardedValue:
 
     @property
     def device(self) -> torch.device:
-        """The mesh device every count and probe result lands on."""
+        """The mesh device every count, probe and whole-grid result lands on."""
         return self.devices[0]
-
-    def __getattr__(self, name: str):
-        if name.startswith("_"):
-            raise AttributeError(name)
-        if hasattr(self.__dict__.get("_base_cls"), name):
-            raise NotImplementedError(
-                f"{self._base_cls.__name__}.{name} has no slab form on a sharded value ({ITEM_13B}); "
-                "gather() makes a single-device copy")
-        raise AttributeError(name)
 
 
 # -- dense maps ------------------------------------------------------------------
@@ -148,19 +168,46 @@ def _cols(t: torch.Tensor, start: int, n: int) -> torch.Tensor:
 
 class ShardedDenseMap(_ShardedValue):
     """A dense map (ProbVoxelMap, BitVectorVoxelMap, CountingVoxelMap,
-    DistanceVoxelMap) as one map of its class per z-slab of a mesh axis."""
+    DistanceVoxelMap) as one map of its class per z-slab of a mesh axis.
+    Every public instance method of the class has a slab form here, equal
+    to the single-device call."""
 
-    def __init__(self, slabs, mesh: GridMesh, axis: str, dims: Dims):
+    def __init__(self, slabs, mesh: GridMesh, axis: str, dims: Dims, sensor=None):
         first = slabs[0]
         self._init_common(type(first), mesh, axis, dims, first.side_length, first.map_type)
         self.slabs = tuple(slabs)
+        # the stored Sensor (init_sensor_settings), carried onto every derived value
+        self._sensor = sensor if sensor is not None else getattr(first, "_sensor", None)
 
     def _with(self, slabs) -> "ShardedDenseMap":
-        return ShardedDenseMap(slabs, self.mesh, self.axis, self.dims)
+        return ShardedDenseMap(slabs, self.mesh, self.axis, self.dims, self._sensor)
+
+    def _require(self, name: str) -> None:
+        """Raise as the single-device map does where its class has no `name`."""
+        if not hasattr(self._base_cls, name):
+            raise AttributeError(f"'{self._base_cls.__name__}' object has no attribute '{name}'")
+
+    def _zipped(self):
+        """(slab, its device, its first global row) per slab."""
+        return zip(self.slabs, self.devices, self.z0s)
+
+    def _join(self, parts, dim: int = -1) -> torch.Tensor:
+        """A whole-grid tensor result: the slabs' parts joined along `dim` on
+        the mesh's first device (what the reference's sharded array holds
+        when read)."""
+        return torch.cat([p.to(self.device) for p in parts], dim=dim)
 
     @property
     def voxelmap_size(self) -> int:
         return self.dims[0] * self.dims[1] * self.dims[2]
+
+    @property
+    def dimensions(self) -> Dims:
+        return self.dims
+
+    @property
+    def metric_dimensions(self) -> Tuple[float, float, float]:
+        return tuple(d * self.side_length for d in self.dims)
 
     def gather(self, device=None):
         """A single-device copy of the whole map on `device` (default: the
@@ -171,7 +218,10 @@ class ShardedDenseMap(_ShardedValue):
         for f in fields(first):
             if isinstance(getattr(first, f.name), torch.Tensor):
                 changes[f.name] = torch.cat([getattr(s, f.name).to(device) for s in self.slabs], dim=-1)
-        return map_replace(first, dims=self.dims, **changes)
+        out = map_replace(first, dims=self.dims, **changes)
+        if self._sensor is not None:
+            object.__setattr__(out, "_sensor", self._sensor)
+        return out
 
     def _other_slabs(self, other) -> list:
         """The other operand's slabs on this value's devices."""
@@ -190,10 +240,10 @@ class ShardedDenseMap(_ShardedValue):
     def insert_point_cloud(self, points, meaning=BitVoxelMeaning.eBVM_OCCUPIED) -> "ShardedDenseMap":
         """The single-device insert, slab by slab: points voxelized in the
         global frame, z shifted by the slab's first row, out-of-slab points
-        dropped."""
+        dropped. A distance map's obstacles store their global coordinates."""
         out = []
-        for slab, dev, z0 in zip(self.slabs, self.devices, self.z0s):
-            pts = to_device(points, torch.float32, dev)
+        for slab, dev, z0 in self._zipped():
+            pts = to_device(points, F32, dev)
             if isinstance(slab, ProbVoxelMap):
                 data, _ = insert_ops.insert_prob(slab.data, pts, self.side_length, slab.dims, meaning, z0)
                 out.append(map_replace(slab, data=data))
@@ -204,8 +254,129 @@ class ShardedDenseMap(_ShardedValue):
                 data, _ = insert_ops.insert_count(slab.data, pts, self.side_length, slab.dims, z0)
                 out.append(map_replace(slab, data=data))
             else:
-                raise NotImplementedError(f"{self._base_cls.__name__}.insert_point_cloud has no slab form ({ITEM_13B})")
+                idx, _ = insert_ops.voxelize(pts, self.side_length, slab.dims, z0)
+                mask = insert_ops.occupancy_mask(idx, slab.voxelmap_size).bool()
+                out.append(map_replace(slab, data=edt.with_obstacles(slab.data, mask, slab.dims, z0)))
         return self._with(out)
+
+    init_sensor_settings = _DenseMap.init_sensor_settings
+    update_sensor_pose = _DenseMap.update_sensor_pose
+
+    def update_occupancy(self, points, delta) -> "ShardedDenseMap":
+        """Log-odds additive update of every hit voxel, slab by slab."""
+        self._require("update_occupancy")
+        return self._with([map_replace(slab, data=insert_ops.update_occupancy(slab.data, points, delta,
+                                                                            self.side_length, slab.dims, z0))
+                           for slab, _, z0 in self._zipped()])
+
+    def insert_depth_image(self, depth, sensor, carve_pool: int = 1) -> "ShardedDenseMap":
+        """The projective sensor update slab by slab: hits voxelized in the
+        global frame, each slab carved with its z offset (K3, or with
+        carve_pool > 1 K6 against the frame's pooled table, built once on
+        the mesh's first device and handed to every slab)."""
+        self._require("insert_depth_image")
+        pool = int(carve_pool)
+        depth = to_device(depth, F32, self.device)
+        pose = to_device(sensor.pose(), F32, self.device)
+        pooled = raycast_cuda.min_pool_depth(depth, pool, float(sensor.invalid_value)) if pool > 1 else None
+        out = []
+        for slab, dev, z0 in self._zipped():
+            new = raycast.insert_depth_image(
+                slab.data, depth.to(dev), pose.to(dev), float(sensor.fx), float(sensor.fy), float(sensor.cx),
+                float(sensor.cy), self.side_length, slab.dims, invalid_value=float(sensor.invalid_value),
+                carve_pool=pool, z_index_offset=z0, pooled_depth=None if pooled is None else pooled.to(dev),
+            )
+            out.append(map_replace(slab, data=new))
+        return self._with(out)
+
+    def _masks_of(self, robot_map) -> list:
+        """A robot map's (sharded, dense or anything with occupied_mask())
+        or a bool[N] mask's slabs on this value's devices."""
+        if isinstance(robot_map, (ShardedDenseMap, _DenseMap)):
+            return [s.occupied_mask() for s in self._other_slabs(robot_map)]
+        if hasattr(robot_map, "occupied_mask"):
+            robot_map = robot_map.occupied_mask()
+        return split_slabs(robot_map, self.devices)
+
+    def insert_sensor_data(self, points, sensor_origin=None, enable_raycasting: bool = True,
+                           cut_real_robot: bool = False, robot_map=None, max_steps: int = 256) -> "ShardedDenseMap":
+        """ProbVoxelMap.insert_sensor_data slab by slab: the points (moved by
+        the stored sensor's pose, as the single-device call does) and their
+        hits voxelized in the global frame, the rays walked once with every
+        step's voxels counted on the slab that owns them
+        (raycast.ray_crossing_counts_slabs). `robot_map` may be sharded."""
+        self._require("insert_sensor_data")
+        pts = to_device(points, F32, self.device)
+        if sensor_origin is None:
+            if self._sensor is not None:
+                pts = transforms.transform_points(to_device(self._sensor.pose(), F32, self.device), pts)
+                sensor_origin = self._sensor.position
+            else:
+                sensor_origin = (0.0, 0.0, 0.0)
+        origin = tuple(float(v) for v in sensor_origin)
+        masks = [None] * len(self.slabs)
+        if cut_real_robot and robot_map is not None:
+            masks = self._masks_of(robot_map)
+        free = [None] * len(self.slabs)
+        if enable_raycasting:
+            free = raycast.ray_crossing_counts_slabs(origin, pts, self.side_length, self.dims, self.devices, max_steps)
+        out = []
+        for (slab, dev, z0), mask, fc in zip(self._zipped(), masks, free):
+            new = raycast.insert_sensor_data(
+                slab.data, origin, pts.to(dev), self.side_length, slab.dims, enable_raycasting=enable_raycasting,
+                cut_real_robot=cut_real_robot, robot_occupied_mask=mask, max_steps=max_steps, z_index_offset=z0,
+                free_counts=fc,
+            )
+            out.append(map_replace(slab, data=new))
+        return self._with(out)
+
+    # -- robots -------------------------------------------------------------
+    def insert_meta_point_cloud(self, meta, meanings=None) -> "ShardedDenseMap":
+        """The meta insert slab by slab: uniform meanings as a point insert;
+        per-subcloud meanings as the prob tier's ranked scatter-max (ranks
+        of the whole cloud, so the later point wins as on one device) or
+        the bit tier's one-pass multi-meaning scatter."""
+        self._require("insert_meta_point_cloud")
+        if meanings is None:
+            return self.insert_point_cloud(meta.points)
+        out = []
+        for slab, _, z0 in self._zipped():
+            if isinstance(slab, ProbVoxelMap):
+                data = insert_ops.insert_meta_prob(slab.data, meta, meanings, self.side_length, slab.dims, z0)
+                out.append(map_replace(slab, data=data))
+            else:
+                data, occ = insert_ops.insert_meta_bits(slab.data, slab.occ, meta, meanings, self.side_length,
+                                                        slab.dims, z0)
+                out.append(map_replace(slab, data=data, occ=occ))
+        return self._with(out)
+
+    def _clash(self, meta) -> torch.Tensor:
+        """The self-collision clash: the OR of the slabs' clashes, on the
+        mesh's first device."""
+        parts = [insert_ops.self_collision_clash(meta.to(dev), self.side_length, slab.dims, z0)
+                 for slab, dev, z0 in self._zipped()]
+        clash = parts[0].to(self.device)
+        for p in parts[1:]:
+            clash = clash | p.to(self.device)
+        return clash
+
+    def insert_meta_point_cloud_with_self_collision_check(self, meta, meaning=BitVoxelMeaning.eBVM_OCCUPIED):
+        """(the map with every sub-cloud inserted, the device bool whether
+        two sub-clouds share a voxel)."""
+        self._require("insert_meta_point_cloud_with_self_collision_check")
+        return self.insert_point_cloud(meta.points, meaning), self._clash(meta)
+
+    def insert_robot_configuration(self, robot_links, with_self_collision_test: bool = False):
+        """(new map, ok device bool): the robot cloud inserted (a distance
+        map's obstacles, the meta insert otherwise), ok False on a
+        self-collision."""
+        self._require("insert_robot_configuration")
+        clash = torch.zeros((), dtype=torch.bool, device=self.device)
+        if with_self_collision_test:
+            clash = self._clash(robot_links)
+        if issubclass(self._base_cls, DistanceVoxelMap):
+            return self.insert_point_cloud(robot_links.points), ~clash
+        return self.insert_meta_point_cloud(robot_links), ~clash
 
     # -- collision ----------------------------------------------------------
     def _offset_count(self, a_parts, b_parts, lin: int, count) -> torch.Tensor:
@@ -250,6 +421,74 @@ class ShardedDenseMap(_ShardedValue):
                                       lambda x, y: collide_ops.count_prob_bit(x, t, y))
         raise TypeError(f"cannot collide a sharded {self._base_cls.__name__} with {type(other).__name__}")
 
+    def collides_with(self, other, coll_threshold: float = 1.0, offset=(0, 0, 0)) -> torch.Tensor:
+        """Boolean collisionCheck, a device bool."""
+        self._require("collides_with")
+        return collide_ops.any_collision(self.collide_with(other, coll_threshold, offset))
+
+    def collide_with_marking(self, other, coll_threshold: float = 1.0, offset=(0, 0, 0)):
+        """(count, the map with eBVM_COLLISION set at every hit, still
+        sharded): K2 once per run of slabs the offset pairs (a[i + off]
+        against b[i]), on a's slab, b's run moved there. The runs that share
+        an a slab cover disjoint ranges of it, so each takes the previous
+        run's marked slab as its a."""
+        self._require("collide_with_marking")
+        o = self._other_slabs(other)
+        if not isinstance(o[0], ProbVoxelMap):
+            raise TypeError(f"cannot collide ProbVoxelMap with {type(other)}")
+        t = float_to_probability(coll_threshold)
+        lin = insert_ops.linear_offset(tuple(int(v) for v in offset), self.dims)
+        marked = [s.data for s in self.slabs]
+        counts = []
+        for kb, ka, a0, b0, n in _segments(len(self.slabs), self.slabs[0].voxelmap_size, lin):
+            cnt, marked[ka] = collide_cuda.count_and_mark_prob_run(marked[ka], o[kb].data.to(self.devices[ka]), t, t,
+                                                                   a0, b0, n)
+            counts.append(cnt)
+        count = psum(counts, self.device) if counts else torch.zeros((), dtype=torch.int64, device=self.device)
+        return count, self._with([map_replace(s, data=d) for s, d in zip(self.slabs, marked)])
+
+    def collide_with_resolution(self, other, coll_threshold: float = 1.0, resolution_level: int = 0,
+                                offset=(0, 0, 0)) -> torch.Tensor:
+        """collideWithResolution slab by slab: occupancy OR-pooled over
+        2^level cubes (ops/collide.count_with_resolution). The left map's
+        geometric offset reads its rows from the slabs that hold them; a
+        cube that crosses a slab boundary is ORed from the slabs' partial
+        cubes on the mesh's first device."""
+        self._require("collide_with_resolution")
+        t = float_to_probability(coll_threshold)
+        o = self._other_slabs(other)
+        if issubclass(self._base_cls, ProbVoxelMap):
+            mine = [collide_ops.prob_occupied(s.data, t) for s in self.slabs]
+        else:
+            mine = [s.occupied_mask() for s in self.slabs]
+        if isinstance(o[0], ProbVoxelMap):
+            theirs = [collide_ops.prob_occupied(s.data, t) for s in o]
+        elif isinstance(o[0], BitVectorVoxelMap):
+            theirs = [s.occupied_mask() for s in o]
+        else:
+            raise TypeError(f"cannot collide {self._base_cls.__name__} with {type(other)}")
+        dx, dy, dz = self.dims
+        zl, sc = self.slab_dz, 1 << int(resolution_level)
+        ox, oy, oz = (int(v) for v in offset)
+        a3 = [m.reshape(zl, dy, dx) for m in mine]
+        counts, partial = [], {}
+        for k, (dev, z0) in enumerate(zip(self.devices, self.z0s)):
+            a = collide_ops._shift3d(gather_rows(a3, z0 + oz, z0 + oz + zl, dev, False), (ox, oy, 0))
+            lead = z0 % sc  # the rows of the first cube that lie below the slab
+            pad = torch.zeros((lead, dy, dx), dtype=torch.bool, device=dev)
+            pa = collide_ops.or_pool(torch.cat([pad, a]), resolution_level)
+            pb = collide_ops.or_pool(torch.cat([pad, theirs[k].reshape(zl, dy, dx)]), resolution_level)
+            whole = [j for j in range(pa.shape[0])
+                     if (z0 // sc + j) * sc >= z0 and min((z0 // sc + j + 1) * sc, dz) <= z0 + zl]
+            if whole:
+                counts.append((pa[whole[0]:whole[-1] + 1] & pb[whole[0]:whole[-1] + 1]).sum(dtype=torch.int64))
+            for j in range(pa.shape[0]):
+                if j not in whole:
+                    ca, cb = partial.get(z0 // sc + j, (False, False))
+                    partial[z0 // sc + j] = (pa[j].to(self.device) | ca, pb[j].to(self.device) | cb)
+        counts += [(ca & cb).sum(dtype=torch.int64) for ca, cb in partial.values()]
+        return psum(counts, self.device)
+
     def collide_with_types(self, other, coll_threshold: float = 1.0, sv_window: int = 0, sv_offset: int = 0):
         """collideWithTypes slab by slab (K4 per slab for bit x bit at
         sv_offset 0 and windows up to 24): (count, meanings int32[8] ORed
@@ -268,11 +507,189 @@ class ShardedDenseMap(_ShardedValue):
     def merge(self, other, *args, **kwargs) -> "ShardedDenseMap":
         return self._with([s.merge(o, *args, **kwargs) for s, o in zip(self.slabs, self._other_slabs(other))])
 
+    # -- the distance tier -------------------------------------------------------
+    def merge_occupied(self, prob_map, occupancy_threshold: float = 0.5) -> "ShardedDenseMap":
+        """mergeOccupied: a (sharded or plain) prob map's occupied voxels
+        become obstacles, slab against slab."""
+        self._require("merge_occupied")
+        t = float_to_probability(occupancy_threshold)
+        return self._with([map_replace(slab, data=edt.with_obstacles(slab.data, p.data.to(torch.int32) >= t,
+                                                                     slab.dims, z0))
+                           for (slab, _, z0), p in zip(self._zipped(), self._other_slabs(prob_map))])
+
+    def _packed(self) -> list:
+        return [s.data for s in self.slabs]
+
+    def _with_packed(self, packed) -> "ShardedDenseMap":
+        return self._with([map_replace(s, data=p) for s, p in zip(self.slabs, packed)])
+
+    def parallel_banding(self, m1: int = 1, m2: int = 1, m3: int = 1) -> "ShardedDenseMap":
+        """The exact EDT slab by slab (parallel/sharded_edt_exact: the Z
+        flood with the slabs' carries, then K5 per slab along Y and X),
+        bit-identical to the single-device call. m1/m2/m3 are accepted for
+        API parity only."""
+        self._require("parallel_banding")
+        del m1, m2, m3
+        # bound_c only checks the slab depth in the reference; no bound is computed here
+        return self._with_packed(build_sharded_parallel_banding(self.mesh, self.dims, bound_c=1)(self._packed()))
+
+    def jump_flood(self, extra_rounds: int = 1) -> "ShardedDenseMap":
+        """jumpFlood3D by the route the single-device call takes on this
+        value's first device (DistanceVoxelMap._jump_flood_route): the exact
+        EDT (`parallel_banding`, K5 per slab), or a JFA with the
+        single-device rules (parallel/sharded_edt.jump_flood_slabs: the
+        coarse flood wraps, the repair stops at ops/edt.REPAIR_MAX_ROUNDS),
+        so the packed grid equals the single-device call's."""
+        self._require("jump_flood")
+        route = DistanceVoxelMap._jump_flood_route(self.dims, extra_rounds, self.device)
+        if route == "banding":
+            return self.parallel_banding()
+        if route == "multires":
+            return self._with_packed(sharded_edt.jump_flood_slabs(self._packed(), self.dims, self.devices,
+                                                                  multires=True))
+        return self._with_packed(sharded_edt.jump_flood_slabs(self._packed(), self.dims, self.devices, extra_rounds))
+
+    def _site_masks(self) -> list:
+        """Per slab, the voxels that hold their own (global) coordinates."""
+        return [edt.squared_distance_grid(s.data, s.dims, z0) == 0 for s, _, z0 in self._zipped()]
+
+    def exact_separable(self) -> "ShardedDenseMap":
+        """The exact EDT as ops/edt.exact_separable computes it: the Z scans
+        with the slabs' carries (sharded_edt_exact.flood_z_slabs), then the
+        Meijster envelopes along Y and X per slab."""
+        self._require("exact_separable")
+        return self._with_packed([edt.separable_yx(g1, pay1).reshape(-1)
+                                  for g1, pay1 in flood_z_slabs(self._site_masks(), self.device)])
+
+    def exact_distances(self, obstacle_coords) -> "ShardedDenseMap":
+        """exactDistances3D brute force, each slab's voxels at their global
+        positions."""
+        self._require("exact_distances")
+        return self._with_packed([edt.exact_distances(to_device(obstacle_coords, torch.int32, dev), s.dims,
+                                                      z_offset=z0) for s, dev, z0 in self._zipped()])
+
+    def squared_distances(self) -> torch.Tensor:
+        """int32[Z, Y, X] squared obstacle distances, a whole-grid tensor."""
+        self._require("squared_distances")
+        return self._join([edt.squared_distance_grid(s.data, s.dims, z0) for s, _, z0 in self._zipped()], dim=0)
+
+    def get_squared_obstacle_distance(self, x: int, y: int, z: int) -> torch.Tensor:
+        """The squared distance at one voxel, read on the slab holding it
+        (a 0-d int32 tensor on the mesh's first device)."""
+        self._require("get_squared_obstacle_distance")
+        dx, dy, _ = self.dims
+        i = int(z) * dx * dy + int(y) * dx + int(x)
+        k, n = i // self.slabs[0].voxelmap_size, self.slabs[0].voxelmap_size
+        if not 0 <= k < len(self.slabs):
+            raise IndexError(f"voxel ({x}, {y}, {z}) lies outside the map {self.dims}")
+        local = torch.full((), i - k * n, dtype=torch.int64, device=self.devices[k])
+        return edt.squared_distance_at(self.slabs[k].data, local, self.slabs[k].dims, self.z0s[k]).to(self.device)
+
+    def get_obstacle_distance(self, x: int, y: int, z: int) -> torch.Tensor:
+        return torch.sqrt(self.get_squared_obstacle_distance(x, y, z).to(torch.float32))
+
+    def min_distance_to(self, points) -> torch.Tensor:
+        """The least metric distance from any query point to its nearest
+        obstacle (points outside the map count as MAX_OBSTACLE_DISTANCE): the
+        min over the slabs of each slab's min over the points it holds."""
+        self._require("min_distance_to")
+        mins = []
+        for s, dev, z0 in self._zipped():
+            idx, _ = insert_ops.voxelize(to_device(points, F32, dev), self.side_length, s.dims, z0)
+            mins.append(edt.min_squared_distance_at(s.data, idx, s.dims, z0).to(self.device))
+        return torch.sqrt(torch.stack(mins).min().to(torch.float32)) * self.side_length
+
+    def extract_distances(self, robot_radius: int = 0) -> torch.Tensor:
+        """int8 free-space bytes, a whole-grid tensor."""
+        self._require("extract_distances")
+        return self._join([edt.extract_byte_distances(s.data, s.dims, robot_radius, z0)
+                           for s, _, z0 in self._zipped()])
+
+    def init_floodfill(self) -> torch.Tensor:
+        """The Manhattan distance field (ops/edt.manhattan_distance), a
+        whole-grid tensor: the z sweeps' carries cross the slabs as prefix
+        and suffix minima (sharded_edt_exact.l1_z_slabs), the y and x sweeps
+        stay in their slab."""
+        self._require("init_floodfill")
+        cap = 32767
+        d = [torch.where(m, 0, cap).to(torch.int32) for m in self._site_masks()]
+        out = []
+        for g in l1_z_slabs(d, self.device):
+            for axis in (1, 2):
+                g = edt.l1_pass(g, axis)
+            out.append(torch.clamp(g, max=cap).reshape(-1))
+        return self._join(out)
+
+    def obstacle_mask(self) -> torch.Tensor:
+        """bool[N]: the obstacle voxels, a whole-grid tensor."""
+        self._require("obstacle_mask")
+        return self._join([m.reshape(-1) for m in self._site_masks()])
+
+    def differences(self, other) -> torch.Tensor:
+        """differences3D: the voxels whose squared distances disagree with a
+        (sharded or plain) distance map's, summed over the slabs."""
+        self._require("differences")
+        return psum([edt.differences(s.data, o.data, s.dims, z0)
+                     for (s, _, z0), o in zip(self._zipped(), self._other_slabs(other))], self.device)
+
+    # -- queries and files --------------------------------------------------
+    def occupancy(self) -> torch.Tensor:
+        self._require("occupancy")
+        return self._join([s.occupancy() for s in self.slabs])
+
+    def occupied_mask(self, *args, **kwargs) -> torch.Tensor:
+        self._require("occupied_mask")
+        return self._join([s.occupied_mask(*args, **kwargs) for s in self.slabs])
+
+    def get_bit_mask(self, meaning) -> torch.Tensor:
+        self._require("get_bit_mask")
+        return self._join([s.get_bit_mask(meaning) for s in self.slabs])
+
+    def as_3d(self) -> torch.Tensor:
+        """The voxel data as [..., Z, Y, X], a whole-grid tensor."""
+        dx, dy, dz = self.dims
+        data = self._join([s.data for s in self.slabs])
+        return data.reshape(data.shape[:-1] + (dz, dy, dx))
+
+    def clone(self) -> "ShardedDenseMap":
+        return self._with([s.clone() for s in self.slabs])
+
+    def memory_usage(self) -> int:
+        """Device bytes of voxel data over all slabs: the single map's."""
+        return sum(s.memory_usage() for s in self.slabs)
+
+    def print_voxel_map_data(self, max_entries: int = 32) -> str:
+        """printVoxelMapData's text, the single map's: every slab copied into
+        one host buffer, one wait for the devices."""
+        datas = [s.data for s in self.slabs]
+        pinned = any(d.is_cuda for d in datas)
+        host = torch.empty(datas[0].shape[:-1] + (self.voxelmap_size,), dtype=datas[0].dtype, pin_memory=pinned)
+        at = 0
+        for d in datas:
+            host[..., at:at + d.shape[-1]].copy_(d, non_blocking=pinned)
+            at += d.shape[-1]
+        for dev in {d.device for d in datas if d.is_cuda}:
+            torch.cuda.current_stream(dev).synchronize()
+        return print_voxel_dump(host.numpy(), self._base_cls, self.dims, max_entries)
+
+    def write_to_disk(self, path) -> bool:
+        """writeToDisk: the single map's bytes, the header then each slab's
+        body in turn (one host read a slab, never the whole map gathered)."""
+        map_io.write_voxel_map_slabs(self, self.slabs, path)
+        return True
+
+    def read_from_disk(self, path) -> "ShardedDenseMap":
+        """readFromDisk: the file's map, each slab read onto its device: a
+        value sharded over the same mesh. A file of another MapType raises."""
+        map_type = map_io._file_map_type(path)
+        if map_type != MapType(int(self.map_type)):
+            raise ValueError(f"file holds {map_type.name}, map is {MapType(int(self.map_type)).name}")
+        return read_sharded_map(path, self.mesh, self.axis)
+
 
 def _per_slab(name: str):
     def method(self, *args, **kwargs):
-        if not hasattr(self._base_cls, name):
-            raise AttributeError(f"{self._base_cls.__name__} has no {name}")
+        self._require(name)
         return self._with([getattr(s, name)(*args, **kwargs) for s in self.slabs])
 
     method.__name__ = name
@@ -281,7 +698,7 @@ def _per_slab(name: str):
 
 
 for _name in ("clear_map", "clear_voxel_meaning", "clear_bit", "clear_bits", "clear_collision_flags",
-              "shift_left_swept_volume_ids"):
+              "shift_left_swept_volume_ids", "fill_pba_uninit"):
     setattr(ShardedDenseMap, _name, _per_slab(_name))
 
 
@@ -289,7 +706,18 @@ for _name in ("clear_map", "clear_voxel_meaning", "clear_bit", "clear_bits", "cl
 class ShardedPyramid(_ShardedValue):
     """A dense hierarchical map (HierarchicalBitMap, HierarchicalProbMap)
     with every pyramid level whose z extent divides over the mesh split into
-    slabs and the coarse tail kept once on the mesh's first device."""
+    slabs and the coarse tail kept once on the mesh's first device. A public
+    method of the class with no slab form here raises NotImplementedError
+    naming its ROADMAP item instead of gathering silently."""
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        if hasattr(self.__dict__.get("_base_cls"), name):
+            raise NotImplementedError(
+                f"{self._base_cls.__name__}.{name} has no slab form on a sharded value ({ITEM_13B}); "
+                "gather() makes a single-device copy")
+        raise AttributeError(name)
 
     def __init__(self, base_cls, dims: Dims, side_length: float, levels: int, map_type, pyramid, occupancy,
                  mesh: GridMesh, axis: str):
@@ -448,6 +876,14 @@ def shard_map_value(m, mesh: GridMesh, axis: str = "z"):
         return ShardedPyramid(type(m), m.dims, m.side_length, m.levels, m.map_type,
                               [split_level(lv) for lv in m.pyramid], occ, mesh, axis)
     raise TypeError(f"no sharding layout for {type(m)}")
+
+
+def read_sharded_map(path, mesh: GridMesh, axis: str = "z") -> ShardedDenseMap:
+    """A dense map file (utils/io's VoxelMap format) read as a value
+    sharded over `mesh`'s `axis`, each slab's body read straight onto its
+    device: never the whole map on one device."""
+    maps, dims = map_io.read_voxel_map_slabs(path, _axis_devices(mesh, axis))
+    return ShardedDenseMap(maps, mesh, axis, dims)
 
 
 def _sharded_arrays(m):

@@ -139,6 +139,25 @@ def split_slabs(x, devices, axis: int = -1) -> list:
     return [p.to(d) for p, d in zip(torch.chunk(t, n, dim=axis), devices)]
 
 
+def gather_rows(slabs, lo: int, hi: int, device, fill) -> torch.Tensor:
+    """Global rows [lo, hi) of a grid held as equal [zl, ...] z-slabs, on
+    `device`: the rows of every slab they cover (the reference's ppermute
+    of halo rows, as moves), `fill` rows outside the grid."""
+    zl = slabs[0].shape[0]
+    tail = tuple(slabs[0].shape[1:])
+    parts = []
+    if lo < 0:
+        parts.append(torch.full((min(hi, 0) - lo,) + tail, fill, dtype=slabs[0].dtype, device=device))
+    for k, part in enumerate(slabs):
+        a, b = max(lo, k * zl), min(hi, (k + 1) * zl)
+        if a < b:
+            parts.append(part[a - k * zl:b - k * zl].to(device))
+    top = zl * len(slabs)
+    if hi > top:
+        parts.append(torch.full((hi - max(lo, top),) + tail, fill, dtype=slabs[0].dtype, device=device))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
 def replicate(value, device):
     """A frozen map value (a dense map, a voxel list, a paged snapshot) with
     every tensor field on `device`; the value itself where it lies there."""

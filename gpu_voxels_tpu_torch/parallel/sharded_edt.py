@@ -23,6 +23,14 @@ The squared distances equal those of `ops.edt.jump_flood_multires_with_stats`
 run to its fixpoint (a `max_iters` the repair does not reach) with the same
 fine steps; a payload may differ on a tie, as in the reference, whose own
 check compares distances.
+
+A second form, `jump_flood_slabs`, keeps the single-device rules instead
+(ops/edt.jump_flood and jump_flood_multires): the coarse flood wraps an
+offset beyond an axis back in (F8), the repair stops after 64 rounds (F21),
+and a halo deeper than a slab reads the rows of every slab it covers. Its
+packed grid equals the single-device call's, slab for slab, payloads
+included: a sharded DistanceVoxelMap's `jump_flood` takes it where the
+single-device call takes a JFA.
 """
 from __future__ import annotations
 
@@ -32,22 +40,19 @@ import torch
 
 from ..constants import MAX_OBSTACLE_DISTANCE, PBA_UNINITIALISED_PACKED
 from ..ops import edt
-from .sharded import GridMesh, psum, split_slabs
+from .sharded import GridMesh, gather_rows, psum, split_slabs
 
 Dims = Tuple[int, int, int]
 I32 = torch.int32
 
 
 def _halo_exchange_z(slabs, s: int) -> list:
-    """Each [zl, Y, X] slab as [zl + 2s, Y, X] with the s rows of its lower
-    and upper neighbours; the grid's edges get uninitialised rows."""
-    out = []
-    for k, local in enumerate(slabs):
-        edge = torch.full((s,) + tuple(local.shape[1:]), PBA_UNINITIALISED_PACKED, dtype=I32, device=local.device)
-        below = slabs[k - 1][-s:].to(local.device) if k > 0 else edge
-        above = slabs[k + 1][:s].to(local.device) if k + 1 < len(slabs) else edge
-        out.append(torch.cat([below, local, above], dim=0))
-    return out
+    """Each [zl, Y, X] slab as [zl + 2s, Y, X] with the s rows below and
+    above it (from as many slabs as they cover); the grid's edges get
+    uninitialised rows."""
+    zl = slabs[0].shape[0]
+    return [gather_rows(slabs, k * zl - s, (k + 1) * zl + s, local.device, PBA_UNINITIALISED_PACKED)
+            for k, local in enumerate(slabs)]
 
 
 def _positions(local: torch.Tensor, z0: int):
@@ -126,6 +131,66 @@ def _coarse_flood(cg: torch.Tensor, c: int) -> torch.Tensor:
     return cg
 
 
+def _repair(slabs, best, z0s, first, max_iters=None):
+    """Step-1 rounds until no slab changes (one host read of the summed
+    flags a round), at most `max_iters` rounds where one is given:
+    ops/edt._converge_step1 over the slabs. Returns (slabs, best, rounds)."""
+    rounds = 0
+    while max_iters is None or rounds < max_iters:
+        new_slabs, new_best = _sharded_round(slabs, best, 1, z0s)
+        flags = [torch.any(nb != b).to(torch.int64) for nb, b in zip(new_best, best)]
+        slabs, best = new_slabs, new_best
+        rounds += 1
+        if not bool(psum(flags, first)):
+            break
+    return slabs, best, rounds
+
+
+def jump_flood_slabs(slabs, dims: Dims, devices, extra_rounds: int = 1, multires: bool = False) -> list:
+    """ops/edt.jump_flood (or, with `multires`, jump_flood_multires) of a
+    packed grid held as equal flat z-slabs, slab k on devices[k]: the
+    single-device rounds and rules (ops/edt's MULTIRES_COARSE_FACTOR,
+    MULTIRES_FINE_STEPS and REPAIR_MAX_ROUNDS), the slabs' packed grids
+    equal to the whole call's pieces. The coarse grid of the multires form
+    is coarsened block by block (a block crossing a slab reads the next
+    slab's rows), joined on devices[0] and flooded there with
+    ops/edt.coarse_flood."""
+    dx, dy, dz = (int(d) for d in dims)
+    nz = len(devices)
+    zl = dz // nz
+    z0s = [k * zl for k in range(nz)]
+    grids = [p.reshape(zl, dy, dx) for p in split_slabs(slabs, devices)]
+    best = [edt.squared_distance_grid(g, (dx, dy, zl), z0) for g, z0 in zip(grids, z0s)]
+    first = devices[0]
+    if multires:
+        c = edt.MULTIRES_COARSE_FACTOR
+        if dx % c or dy % c or dz % c:
+            raise ValueError(f"dims {dims} must divide the coarse factor {c}")
+        coarse = []
+        for k, (dev, z0) in enumerate(zip(devices, z0s)):
+            lo, hi = -(-z0 // c), -(-(z0 + zl) // c)  # the blocks whose first row lies in slab k
+            if lo < hi:
+                coarse.append(_coarsen(gather_rows(grids, lo * c, hi * c, dev, PBA_UNINITIALISED_PACKED), lo * c, c)
+                              .to(first))
+        cg = edt.coarse_flood(torch.cat(coarse), c)
+        for k, (dev, z0) in enumerate(zip(devices, z0s)):
+            lo = z0 // c
+            mine = cg[lo:(z0 + zl - 1) // c + 1].to(dev)
+            up = mine.repeat_interleave(c, 0).repeat_interleave(c, 1).repeat_interleave(c, 2)[z0 - lo * c:][:zl]
+            px, py, pz = _positions(grids[k], z0)
+            up_d2 = edt._sq_dist(up, px, py, pz)
+            take = up_d2 < best[k]
+            grids[k] = torch.where(take, up, grids[k])
+            best[k] = torch.where(take, up_d2, best[k])
+        steps = edt.MULTIRES_FINE_STEPS
+    else:
+        steps = edt._jfa_steps(dims, extra_rounds)
+    for s in steps:
+        grids, best = _sharded_round(grids, best, s, z0s)
+    grids, _, _ = _repair(grids, best, z0s, first, edt.REPAIR_MAX_ROUNDS)
+    return [g.reshape(-1) for g in grids]
+
+
 def build_sharded_edt(mesh: GridMesh, dims: Dims, coarse_factor: int = 4, fine_steps=(8, 4, 2, 1, 1)):
     """fn(packed_flat int32[N] or its z slabs) -> the z slabs (flat int32,
     each on its slab's device) of the multiresolution jump flood over the
@@ -161,12 +226,7 @@ def build_sharded_edt(mesh: GridMesh, dims: Dims, coarse_factor: int = 4, fine_s
             best.append(torch.where(take, up_d2, d2))
         for s in fine_steps:
             slabs, best = _sharded_round(slabs, best, s, z0s)
-        changed = True
-        while changed:
-            new_slabs, new_best = _sharded_round(slabs, best, 1, z0s)
-            flags = [torch.any(nb != b).to(torch.int64) for nb, b in zip(new_best, best)]
-            slabs, best = new_slabs, new_best
-            changed = bool(psum(flags, mesh.first))
+        slabs, _, _ = _repair(slabs, best, z0s, mesh.first)
         return [s.reshape(-1) for s in slabs]
 
     return fn

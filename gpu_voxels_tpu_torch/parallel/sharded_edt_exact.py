@@ -92,22 +92,68 @@ def build_sharded_parallel_banding(mesh: GridMesh, dims: Dims, bound_c: int = 8)
     devices = mesh.z_devices()
 
     def fn(packed):
-        scans = []
+        sites = []
         for k, (dev, part) in enumerate(zip(devices, split_slabs(packed, devices))):
             grid = part.reshape(dzl, dy, dx)
             ox, oy, oz = grid & 0x3FF, (grid >> 10) & 0x3FF, grid >> 20
-            px = torch.arange(dx, dtype=I32, device=dev).view(1, 1, dx)
-            py = torch.arange(dy, dtype=I32, device=dev).view(1, dy, 1)
-            gidx = (torch.arange(dzl, dtype=I32, device=dev) + k * dzl).view(dzl, 1, 1)
-            is_site = (ox == px) & (oy == py) & (oz == gidx) & (ox != PBA_UNINITIALISED_COORD)
-            scans.append(_local_scans(is_site, gidx) + (gidx, px, py))
-        carry_down, carry_up = _carries([s[0][-1] for s in scans], [s[1][0] for s in scans], mesh.first)
+            px, py, gidx = _slab_positions(dev, (dx, dy, dzl), k * dzl)
+            sites.append((ox == px) & (oy == py) & (oz == gidx) & (ox != PBA_UNINITIALISED_COORD))
         out = []
-        for k, (dev, (down, up, gidx, px, py)) in enumerate(zip(devices, scans)):
-            g1, pay1 = _flood_z_slab(down, up, gidx, carry_down[k].to(dev), carry_up[k].to(dev), px, py)
+        for g1, pay1 in flood_z_slabs(sites, mesh.first):
             d2, pay2 = envelope_pass(g1, pay1, 1)
             d3, pay3 = envelope_pass(d2, pay2, 2)
             out.append(torch.where(d3 >= MISS, PBA_UNINITIALISED_PACKED, pay3).reshape(-1))
         return out
 
     return fn
+
+
+def _slab_positions(dev, local_dims: Dims, z0: int):
+    """x, y and global z index grids of a [dzl, dy, dx] slab whose first row
+    is global row z0, as broadcasting int32 views."""
+    dx, dy, dzl = local_dims
+    px = torch.arange(dx, dtype=I32, device=dev).view(1, 1, dx)
+    py = torch.arange(dy, dtype=I32, device=dev).view(1, dy, 1)
+    gidx = (torch.arange(dzl, dtype=I32, device=dev) + z0).view(dzl, 1, 1)
+    return px, py, gidx
+
+
+def flood_z_slabs(sites, first) -> list:
+    """PBA phase 1 over equal z-slabs of a site mask ([dzl, dy, dx] bools,
+    each on its device, slab k holding global rows k * dzl on): per slab
+    (g1, payload) as edt_envelope.flood_z and edt._nearest_scan give them
+    on the whole columns, the carries from one gather of the slabs'
+    boundary rows onto `first`."""
+    dzl, dy, dx = sites[0].shape
+    scans = []
+    for k, flag in enumerate(sites):
+        px, py, gidx = _slab_positions(flag.device, (dx, dy, dzl), k * dzl)
+        scans.append(_local_scans(flag, gidx) + (gidx, px, py))
+    carry_down, carry_up = _carries([s[0][-1] for s in scans], [s[1][0] for s in scans], first)
+    return [_flood_z_slab(down, up, gidx, carry_down[k].to(gidx.device), carry_up[k].to(gidx.device), px, py)
+            for k, (down, up, gidx, px, py) in enumerate(scans)]
+
+
+def l1_z_slabs(grids, first) -> list:
+    """ops/edt.l1_pass along z of an int32 grid held as equal [dzl, Y, X]
+    z-slabs: each slab's prefix min of d - z and suffix min of d + z (z
+    global), the slabs below's and above's carried in as a prefix min over
+    the slabs' boundary rows, gathered once onto `first`."""
+    dzl = grids[0].shape[0]
+    fwd, bwd = [], []
+    for k, d in enumerate(grids):
+        z = (torch.arange(dzl, dtype=I32, device=d.device) + k * dzl).view(dzl, 1, 1)
+        fwd.append((torch.cummin(d - z, dim=0).values, z))
+        bwd.append(torch.flip(torch.cummin(torch.flip(d + z, [0]), dim=0).values, [0]))
+    lasts = torch.stack([f[-1].to(first) for f, _ in fwd])  # [nz, Y, X]
+    firsts = torch.stack([b[0].to(first) for b in bwd])
+    none = torch.full_like(lasts[:1], _BIG)
+    below = torch.cat([none, torch.cummin(lasts, dim=0).values[:-1]])
+    above = torch.cat([torch.flip(torch.cummin(torch.flip(firsts, [0]), dim=0).values, [0])[1:], none])
+    out = []
+    for k, ((f, z), b) in enumerate(zip(fwd, bwd)):
+        dev = f.device
+        f = torch.minimum(f, below[k].to(dev)) + z
+        b = torch.minimum(b, above[k].to(dev)) - z
+        out.append(torch.minimum(f, b))
+    return out

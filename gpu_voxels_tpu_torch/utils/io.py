@@ -73,44 +73,68 @@ def _host(t: torch.Tensor, dtype) -> np.ndarray:
 def write_voxel_map(m, path) -> None:
     """writeToDisk of a dense map: ProbVoxelMap, BitVectorVoxelMap,
     CountingVoxelMap or DistanceVoxelMap."""
+    write_voxel_map_slabs(m, [m], path)
+
+
+def write_voxel_map_slabs(m, slabs, path) -> None:
+    """writeToDisk of a dense map held as z-slabs (dense maps of its class,
+    the grid's z-major order): `m`'s header, then each slab's body in turn,
+    one host read a slab. The bytes are the whole map's file."""
     from ..maps.distance_map import DistanceVoxelMap
     from ..maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
 
-    if not isinstance(m, (ProbVoxelMap, CountingVoxelMap, BitVectorVoxelMap, DistanceVoxelMap)):
-        raise TypeError(type(m))
+    if not all(isinstance(s, (ProbVoxelMap, CountingVoxelMap, BitVectorVoxelMap, DistanceVoxelMap)) for s in slabs):
+        raise TypeError(type(slabs[0]))
     with open(path, "wb") as f:
         f.write(_header(m))
-        if isinstance(m, BitVectorVoxelMap):
-            _write_planes_body(f, m.data)
-        elif isinstance(m, DistanceVoxelMap):
-            _host(m.data, "<i4").tofile(f)  # the int32 view of the uint32 packed coordinates
-        else:
-            _host(m.data, np.int8).tofile(f)
+        for s in slabs:
+            if isinstance(s, BitVectorVoxelMap):
+                _write_planes_body(f, s.data)
+            elif isinstance(s, DistanceVoxelMap):
+                _host(s.data, "<i4").tofile(f)  # the int32 view of the uint32 packed coordinates
+            else:
+                _host(s.data, np.int8).tofile(f)
 
 
 def read_voxel_map(path, device=None):
     """readFromDisk of a dense map file; the map lands on `device` (default:
     the card)."""
+    maps, _ = read_voxel_map_slabs(path, [resolve_device(device)])
+    return maps[0]
+
+
+def read_voxel_map_slabs(path, devices) -> tuple:
+    """A dense map file read as len(devices) equal z-slabs, slab k's body
+    read straight onto devices[k]: (one map of the file's class per slab,
+    with dims (dx, dy, dz / slabs), the whole grid's dims). dimz must
+    divide over the slabs."""
     from ..maps.distance_map import DistanceVoxelMap
     from ..maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
 
-    device = resolve_device(device)
     with open(path, "rb") as f:
         header = np.frombuffer(f.read(_HEADER.itemsize), dtype=_HEADER)[0]
         map_type = MapType(int(header["map_type"]))
         side = float(header["side_length"])
         dims = tuple(int(v) for v in header["dims"])
-        n = dims[0] * dims[1] * dims[2]
-        if map_type == MapType.MT_PROBAB_VOXELMAP:
-            return ProbVoxelMap(_int8_body(f, n, device), dims, side)
-        if map_type == MapType.MT_BITVECTOR_VOXELMAP:
-            return BitVectorVoxelMap.from_planes(_read_planes_body(f, n, device), dims, side)
-        if map_type == MapType.MT_DISTANCE_VOXELMAP:
-            data = np.frombuffer(f.read(n * 4), "<i4", n).astype(np.int32)
-            return DistanceVoxelMap(torch.from_numpy(data).to(device), dims, side)
-        if map_type == MapType.MT_COUNTING_VOXELLIST:
-            return CountingVoxelMap(_int8_body(f, n, device), dims, side)
-    raise ValueError(f"unknown map type {map_type}")
+        if dims[2] % len(devices):
+            raise ValueError(f"map dimz {dims[2]} must divide over {len(devices)} slabs")
+        local = (dims[0], dims[1], dims[2] // len(devices))
+        n = local[0] * local[1] * local[2]
+        maps = []
+        for device in devices:
+            device = resolve_device(device)
+            if map_type == MapType.MT_PROBAB_VOXELMAP:
+                maps.append(ProbVoxelMap(_int8_body(f, n, device), local, side))
+            elif map_type == MapType.MT_BITVECTOR_VOXELMAP:
+                maps.append(BitVectorVoxelMap.from_planes(_read_planes_body(f, n, device), local, side))
+            elif map_type == MapType.MT_DISTANCE_VOXELMAP:
+                data = np.frombuffer(f.read(n * 4), "<i4", n).astype(np.int32)
+                maps.append(DistanceVoxelMap(torch.from_numpy(data).to(device), local, side))
+            elif map_type == MapType.MT_COUNTING_VOXELLIST:
+                maps.append(CountingVoxelMap(_int8_body(f, n, device), local, side))
+            else:
+                raise ValueError(f"unknown map type {map_type}")
+    return maps, dims
 
 
 def _int8_body(f, n: int, device) -> torch.Tensor:
@@ -311,14 +335,18 @@ def write_map(m, path) -> None:
     """writeToDisk of any ported map (GpuVoxelsMap.h:200-204): each type to
     its reference format. A ShardedPagedWorld writes the single-device paged
     format (its slabs gathered, as the reference's io.py:397-401 does); a
-    slab-sharded map value writes its gathered single-device map, the bytes
-    the reference writes of its sharded arrays."""
+    slab-sharded dense map writes the single-device map's bytes slab by
+    slab (its own write_to_disk), a sharded pyramid its gathered map: the
+    bytes the reference writes of its sharded arrays."""
     from ..maps.hierarchical import _PyramidQueries
     from ..maps.paged import PagedHierarchicalMap
     from ..maps.voxellist import VoxelList
     from ..parallel.paged_world import ShardedPagedWorld
-    from ..parallel.shard_value import _ShardedValue
+    from ..parallel.shard_value import ShardedDenseMap, _ShardedValue
 
+    if isinstance(m, ShardedDenseMap):
+        m.write_to_disk(path)
+        return
     if isinstance(m, _ShardedValue):
         m = m.gather()
     if isinstance(m, VoxelList):

@@ -60,10 +60,10 @@ SIGNATURES = {
         _P, _I32, _I32, _P, _F32, _F32, _F32, _F32, _F32, _F32, _F32,
         _I32, _I32, _I32, _I32, _P, _P,
     ),
-    # (pm, ph, pw, pool, h, w, pose, fx, fy, cx, cy, side, eps, dx, dy, dz, out, stream)
+    # (pm, ph, pw, pool, h, w, pose, fx, fy, cx, cy, side, eps, dx, dy, dz, z0, out, stream)
     "gv_carve_pooled": (
         _P, _I32, _I32, _I32, _I32, _I32, _P, _F32, _F32, _F32, _F32, _F32, _F32,
-        _I32, _I32, _I32, _P, _P,
+        _I32, _I32, _I32, _I32, _P, _P,
     ),
     # (depth, h, w, pool, invalid, out, stream)
     "gv_min_pool_depth": (_P, _I32, _I32, _I32, _F32, _P, _P),

@@ -581,6 +581,97 @@ def test_k6_matches_plain_on_card(cuda_device, pool):
     assert raycast_cuda.launches["projective_free_space_pooled"] == before + len(cases)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [2, 4, 7, 8])
+def test_k6_z_index_offset_matches_plain_on_card(cuda_device, pool):
+    """K6 on a z-slab of a larger grid: at offsets 0, 8, 40 and 56 bit for
+    bit the plain version with the same offset (the wrapper and the carve
+    against a prebuilt table), offset 0 equal to the call without one, and
+    eight 8-deep slabs against one table stacked equal the whole 64^3
+    grid's mask; one carve launch a slab."""
+    slab = (64, 64, 8)
+    for i, (depth, pose) in enumerate(_carve_scenes(cuda_device)):
+        args = (depth, pose, 52.0, 52.0, 32.0, 24.0, 1.0)
+        table = raycast_cuda.min_pool_depth(depth, pool)
+        on_table = (table, pool, depth.shape, pose, 52.0, 52.0, 32.0, 24.0, 1.0, slab)
+        for z0 in (0, 8, 40, 56):
+            ref = raycast_cuda.projective_free_space_pooled_plain(*args, slab, pool=pool, z_index_offset=z0)
+            assert torch.equal(raycast_cuda.projective_free_space_pooled(*args, slab, pool=pool, z_index_offset=z0),
+                               ref), (i, z0)
+            assert torch.equal(raycast_cuda.carve_against_pooled(*on_table, z_index_offset=z0), ref), (i, z0)
+        assert torch.equal(raycast_cuda.carve_against_pooled(*on_table), raycast_cuda.carve_against_pooled(
+            *on_table, z_index_offset=0)), i
+        whole = raycast_cuda.projective_free_space_pooled(*args, (64, 64, 64), pool=pool)
+        before = raycast_cuda.launches["projective_free_space_pooled"]
+        stacked = torch.cat([raycast_cuda.carve_against_pooled(*on_table, z_index_offset=k) for k in range(0, 64, 8)])
+        assert torch.equal(stacked, whole) and int(whole.sum()) > 0, i
+        assert raycast_cuda.launches["projective_free_space_pooled"] == before + 8
+    with pytest.raises(ValueError, match="2\\^24"):
+        raycast_cuda.carve_against_pooled(*on_table, z_index_offset=2**24)
+
+
+@pytest.mark.cuda
+def test_sharded_dense_forms_match_single_device_on_card(cuda_device, tmp_path):
+    """The slab forms of sharded dense maps with 8 slabs on the card against
+    the single-device calls on the card: the depth insert at carve_pool 1
+    (K3 a slab) and 8 (one pool, K6 a slab), the DDA, the marking collide
+    (K2 a run of slabs) at offsets that cross slabs, the robot insert with
+    the self-collision check, the distance tier's jump_flood (K5 a slab and
+    pass), its queries, and a file written slab by slab."""
+    from gpu_voxels_tpu_torch.geometry.pointcloud import MetaPointCloud
+    from gpu_voxels_tpu_torch.maps.distance_map import DistanceVoxelMap
+    from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+    from gpu_voxels_tpu_torch.parallel import assert_sharded, make_grid_mesh, shard_map_value
+
+    mesh = make_grid_mesh(8)
+    dims = (128, 128, 128)
+    sensor = _fusion_sensor()
+    rng = np.random.default_rng(9)
+    frame = rng.uniform(1.0, 6.0, (48, 64)).astype(np.float32)
+    single = ProbVoxelMap.create(dims, 0.05, device=cuda_device)
+    sharded = shard_map_value(single, mesh)
+
+    def same(got, want):
+        assert_sharded(got, mesh)
+        return torch.equal(got.gather().data, want.data)
+
+    for pool, kernel in ((1, "projective_free_space_exact"), (8, "projective_free_space_pooled")):
+        before = dict(raycast_cuda.launches)
+        got = sharded.insert_depth_image(frame, sensor, carve_pool=pool)
+        assert raycast_cuda.launches[kernel] == before[kernel] + 8
+        assert raycast_cuda.launches["min_pool_depth"] == before["min_pool_depth"] + (pool > 1)
+        assert same(got, single.insert_depth_image(frame, sensor, carve_pool=pool)), pool
+    rays = sensor.process_depth_image(frame, device=cuda_device)
+    assert same(sharded.insert_sensor_data(rays, sensor_origin=sensor.position),
+                single.insert_sensor_data(rays, sensor_origin=sensor.position))
+    pa = torch.tensor(rng.uniform(0, 6.4, (20000, 3)).astype(np.float32), device=cuda_device)
+    a = single.insert_point_cloud(pa)
+    b = single.insert_point_cloud(torch.cat([pa[:5000] + 0.05, pa[5000:9000]]))
+    for off in ((0, 0, 0), (1, -2, 17), (-3, 0, -40)):
+        before = collide_cuda.launches["count_and_mark_prob"]
+        cnt, marked = shard_map_value(a, mesh).collide_with_marking(b, 0.5, off)
+        w_cnt, w_marked = a.collide_with_marking(b, 0.5, off)
+        assert int(cnt) == int(w_cnt) > 0 and same(marked, w_marked), off
+        assert collide_cuda.launches["count_and_mark_prob"] > before + 8 - (off == (0, 0, 0))
+    meta = MetaPointCloud.from_clouds([pa[:3000].cpu().numpy(), pa[2000:6000].cpu().numpy()], device=cuda_device)
+    bits = BitVectorVoxelMap.create(dims, 0.05, device=cuda_device)
+    got, ok = shard_map_value(bits, mesh).insert_robot_configuration(meta, True)
+    w_map, w_ok = bits.insert_robot_configuration(meta, True)
+    assert same(got, w_map) and torch.equal(got.gather().occ, w_map.occ) and bool(ok) == bool(w_ok) is False
+    dist = DistanceVoxelMap.create(dims, 0.05, device=cuda_device).insert_point_cloud(pa[:300])
+    before = edt_cuda.launches["envelope_pass"]
+    field = shard_map_value(dist, mesh).jump_flood()
+    assert edt_cuda.launches["envelope_pass"] == before + 16
+    want = dist.jump_flood()
+    assert same(field, want) and torch.equal(field.min_distance_to(pa[9000:]), want.min_distance_to(pa[9000:]))
+    assert torch.equal(field.extract_distances(), want.extract_distances())
+    assert torch.equal(field.init_floodfill(), want.init_floodfill())
+    field.write_to_disk(tmp_path / "sharded.bin")
+    want.write_to_disk(tmp_path / "single.bin")
+    assert (tmp_path / "sharded.bin").read_bytes() == (tmp_path / "single.bin").read_bytes()
+    assert same(field.read_from_disk(tmp_path / "sharded.bin"), want)
+
+
 ENVELOPE_SHAPES = {
     # (7 * 33 = 231 lines along Y, 910 along X: neither a multiple of a warp
     # or a block; dx = 33 is no multiple of 32)

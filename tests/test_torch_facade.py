@@ -393,3 +393,44 @@ def test_multi_device_branch_names_item_13():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13b"):
         sharded.collide_with(sharded)  # octree x octree has no slab form
     assert isinstance(g.add_map(MapType.MT_PROBAB_OCTREE, "h"), _PyramidQueries)
+
+
+def test_mesh_dense_maps_answer_like_the_single_facade(tmp_path):
+    """Dense maps added with mesh= (item 13b-i) answer every facade call as
+    the unsharded facade's maps do, and stay sharded: a distance map's
+    insert, jump_flood and queries; a prob map's meta insert and
+    self-collision-aware robot insert; a bit map's meaning clear; save_map
+    bytes and load_map."""
+    from gpu_voxels_tpu_torch.geometry.pointcloud import MetaPointCloud
+    from gpu_voxels_tpu_torch.parallel import assert_sharded, make_grid_mesh
+
+    dims, mesh = (16, 16, 32), make_grid_mesh(8, devices=["cpu"])
+    rng = np.random.default_rng(23)
+    pts = (rng.uniform(0, 1, (300, 3)) * np.asarray(dims)).astype(np.float32)
+    meta = MetaPointCloud.from_clouds([pts[:100], pts[50:150]], device="cpu")
+    facades = {}
+    for key, kw in (("sharded", {"mesh": mesh}), ("single", {})):
+        g = _port_gvl(dims, 1.0)
+        g.add_robot("arm", MODELS / "pan_tilt.urdf")
+        for name, mt in (("dist", MapType.MT_DISTANCE_VOXELMAP), ("prob", MapType.MT_PROBAB_VOXELMAP),
+                         ("bit", MapType.MT_BITVECTOR_VOXELMAP)):
+            g.add_map(mt, name, **kw)
+        g.insert_point_cloud_into_map(pts, "dist")
+        g.update_map("dist", lambda m: m.jump_flood())
+        g.insert_meta_point_cloud_into_map(meta, "prob", [BitVoxelMeaning.eBVM_OCCUPIED, 40])
+        facades[key] = (g, g.insert_robot_into_map_self_collision_aware("arm", "prob"))
+        g.insert_point_cloud_into_map(pts, "bit", 7)
+        g.insert_point_cloud_into_map(pts[:40], "bit", 9)
+        g.clear_map("bit", 7)
+        for name in ("dist", "prob", "bit"):
+            g.save_map(name, tmp_path / f"{key}_{name}.bin")
+            g.load_map(name, tmp_path / f"{key}_{name}.bin")
+    (gs, clash_s), (g1, clash_1) = facades["sharded"], facades["single"]
+    assert bool(clash_s) == bool(clash_1)
+    queries = (rng.uniform(0, 1, (40, 3)) * np.asarray(dims)).astype(np.float32)
+    assert torch.equal(gs.get_map("dist").min_distance_to(queries), g1.get_map("dist").min_distance_to(queries))
+    assert torch.equal(gs.get_map("dist").squared_distances(), g1.get_map("dist").squared_distances())
+    for name in ("dist", "prob", "bit"):
+        assert_sharded(gs.get_map(name), mesh)
+        assert (tmp_path / f"sharded_{name}.bin").read_bytes() == (tmp_path / f"single_{name}.bin").read_bytes()
+        assert torch.equal(gs.get_map(name).gather().data, g1.get_map(name).data), name

@@ -163,9 +163,16 @@ def test_assert_sharded_catches_replication():
         assert_sharded(m, mesh)
     with pytest.raises(AssertionError):  # split over 4 slabs, asserted over 8
         assert_sharded(shard_map_value(m, _mesh(4)), mesh)
-    # a method with no slab form raises, naming its ROADMAP item, never gathers
+    # a method with no slab form raises, naming its ROADMAP item, never
+    # gathers: a sharded pyramid's depth insert (item 13b-ii)
+    h = TH.HierarchicalProbMap.create(DIMS, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13b"):
-        shard_map_value(m, mesh).insert_sensor_data(torch.zeros((1, 3)))
+        shard_map_value(h, mesh).insert_depth_image(np.ones((4, 4), np.float32), None)
+    # a dense map's slab form answers as the single-device call
+    pts = _cloud(2, 12) + 0.25
+    got = shard_map_value(m, mesh).insert_sensor_data(torch.tensor(pts), sensor_origin=(8.1, 7.9, 0.6))
+    assert_sharded(got, mesh)
+    assert torch.equal(got.gather().data, m.insert_sensor_data(torch.tensor(pts), sensor_origin=(8.1, 7.9, 0.6)).data)
 
 
 def test_dimz_must_divide_mesh():

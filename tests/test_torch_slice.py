@@ -199,7 +199,7 @@ def test_left_out_methods_raise(tmp_path, monkeypatch):
     # what item 12 brought: URDF robots, the map dump, the facade's and the
     # Provider's visualization, each as the reference's; item 13 the
     # facade's mesh, whose sharded values raise (item 13b) where a method
-    # has no slab form
+    # has no slab form: the pyramids' (13b-ii), not the dense maps' (13b-i)
     monkeypatch.setenv("GPU_VOXELS_VIS_DIR", str(tmp_path / "vis"))
     urdf = pathlib.Path(__file__).resolve().parent.parent / "examples" / "models" / "pan_tilt.urdf"
     tg, jg = TGvl(), JGvl()
@@ -218,8 +218,12 @@ def test_left_out_methods_raise(tmp_path, monkeypatch):
     from gpu_voxels_tpu_torch.parallel import make_grid_mesh
 
     sharded = tg.add_map(MapType.MT_PROBAB_VOXELMAP, "sharded", mesh=make_grid_mesh(4, devices=["cpu"]))
+    got = sharded.insert_sensor_data(pts, sensor_origin=(0.5, 0.5, 0.5))
+    assert torch.equal(got.gather().data, TProb.create((4, 4, 4), device="cpu").insert_sensor_data(
+        pts, sensor_origin=(0.5, 0.5, 0.5)).data)
+    octree = tg.add_map(MapType.MT_PROBAB_OCTREE, "sharded_octree", mesh=make_grid_mesh(4, devices=["cpu"]))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13b"):
-        sharded.insert_sensor_data(pts, sensor_origin=(0.5, 0.5, 0.5))
+        octree.insert_depth_image(np.ones((2, 2), np.float32), tsens.Sensor())
     # what earlier slices left out and the dense-map tier now has: the disk
     # files (item 9) among them
     assert b.write_to_disk(tmp_path / "b.bin") and torch.equal(b.read_from_disk(tmp_path / "b.bin").data, b.data)
