@@ -158,10 +158,23 @@ non-zero and prints no result. Phases, each an assert or an exception:
      5, K4, the marked map still sharded), a 4096^3 ShardedPagedWorld over
      4 slabs taking a Kinect frame whose rays cross a slab floor, and the
      facade's mesh= (a 4096^3 prob octree as a world, a 256^3 prob map as
-     a sharded value) with save_map -> load_map: every answer equal to the
-     single-device call on the card, the files to the single maps'. The
-     JFA's repair flags, the paged allocations and the files read the
-     device on purpose;
+     a sharded value) with save_map -> load_map, every dense-map method's
+     slab form (j-o), and every hierarchy method's (p-t): path 7's frame
+     into sharded 512^3 hierarchies of both tiers under three poses at
+     carve_pool 1 (K3 a slab) and 8 (K6's pool a frame, its carve a slab),
+     their launches counted around (p) alone and required exactly, and
+     check_tree after every insert; BASELINE #5's build on a sharded 1024^3
+     pyramid with and without the free box and its 315-state checker batch
+     (equal to the numpy set oracle); octree x octree at levels 0 and 3
+     (sharded x sharded, x plain both ways) and the 4096^3 paged map x a
+     sharded 256^3 hierarchy; path 1's rays into sharded 256^3 hierarchies
+     (the DDA); the UR10 configuration, collide_with_resolution,
+     extract_occupied_coords, memory_usage and the file on the fused bit
+     pyramid, and the facade's mesh octree saved and loaded: every answer
+     equal to the single-device call on the card, the files to the single
+     maps'. The JFA's repair flags, the checker, check_tree, the
+     extractions, the paged allocations and the files read the device on
+     purpose;
    - the examples path (K1, K3, K4, K5, K6): the 19 programs of
      gpu_voxels_tpu_torch/examples/ through their main() at their own sizes
      (robot_vs_environment's live loop at 256^3 with 640x480 frames from a
@@ -212,7 +225,10 @@ non-zero and prints no result. Phases, each an assert or an exception:
    of the fused 256^3 map and of a 512^3 bit map, one publish per tier,
    save_map / load_map per tier and a URDF add_robot + insert + collide
    (host clock where the work is on the host); and each path-9 call
-   sharded beside its single-device call; and each example program's wall
+   sharded beside its single-device call (the hierarchies' fusions at
+   512^3, the 1024^3 builds, BASELINE #5's batch, octree x octree, the DDA
+   frames, the UR10 insert, the extraction and the file too); and each
+   example program's wall
    time (host clock) and host waits, the live loop's processed frames and
    sustained rate at its defaults and under the accelerator contract of
    tests_tpu/test_examples_tpu.py:38-56 (90 frames, the async publish:
@@ -2737,6 +2753,8 @@ def multidevice_path(dev: torch.device, out: dict, robot: dict, dist: dict, oc: 
     md["facade"] = facade_mesh_answers(dev, mesh, frame, sensor, rays, oc["paged_inputs"]["probes"], md["arm"])
     # (j-o) every dense-tier method's slab form on the main path's data
     md["forms"] = dense_slab_forms(dev, mesh, out, md)
+    # (p-t) every hierarchy method's slab form; (p)'s launches counted alone
+    md["pyramids"] = pyramid_slab_forms(dev, mesh, out, md, oc)
     return md
 
 
@@ -2837,6 +2855,102 @@ def facade_mesh_answers(dev: torch.device, mesh, frame, sensor, rays, probes, ar
     return ans
 
 
+def counted(fn, *args):
+    """(fn(*args), each kernel's launches in that call alone): the counts
+    set to 0 just before it and read just after, then the counts from before
+    added back, so that the path's totals stay whole."""
+    before = {name: module.launches[name] for name, module, *_ in KERNELS}
+    for name, module, *_ in KERNELS:
+        module.launches[name] = 0
+    result = fn(*args)
+    got = {name: module.launches[name] for name, module, *_ in KERNELS}
+    for name, module, *_ in KERNELS:
+        module.launches[name] += before[name]
+    return result, got
+
+
+def sharded_fusions(dev: torch.device, mesh, frame: np.ndarray) -> dict:
+    """(p) path 7's frame into a sharded 512^3 HierarchicalBitMap and
+    HierarchicalProbMap under the three carve poses at carve_pool 1 (K3 once
+    a slab) and 8 (K6's pool once a frame, its carve once a slab),
+    check_tree after every insert."""
+    empty = [shard_map_value(cls.create(HIER_DIMS, HIER_SIDE, device=dev), mesh)
+             for cls in (HierarchicalProbMap, HierarchicalBitMap)]
+    fused, tree_ok = {}, []
+    for pool in (1, POOL):
+        for label, pose in carve_poses().items():
+            sensor = PosedSensor(pose)
+            prob, bit = (m.insert_depth_image(frame, sensor, pool) for m in empty)
+            with host_reads():
+                tree_ok.append(prob.check_tree() and bit.check_tree())
+            fused[(pool, label)] = (prob, bit)
+    return {"fused": fused, "tree_ok": tree_ok}
+
+
+def pyramid_slab_forms(dev: torch.device, mesh, out: dict, md: dict, oc: dict) -> dict:
+    """Path 9's slab forms of sharded hierarchies (8 slabs on the card):
+    (p) the 512^3 fusions, their launches counted alone; (q) BASELINE #5's
+    1024^3 build, with and without the free box, and the 315-state checker
+    batch over the sharded pyramid; (r) octree x octree at min_level 0 and 3
+    (sharded x sharded, x plain both ways) and the 4096^3 paged map x the
+    sharded 256^3 hierarchy of path 7; (s) path 1's 307,200 rays into a
+    sharded 256^3 hierarchy of each tier (the DDA); (t) the UR10
+    configuration with the self-collision check, collide_with_resolution at
+    levels 0-3 against the fused frame's rays as a list, extract_occupied_coords,
+    memory_usage, write_to_disk and read_from_disk on the fused 512^3 bit
+    pyramid, and the facade's mesh octree (256^3) taking a frame, saved and
+    loaded. The checker, check_tree, the extraction, the paged allocations
+    and the files read the device on purpose."""
+    pf = {}
+    frame = oc["paged_inputs"]["frame"]
+    pf["fusion"], pf["fusion_launches"] = counted(sharded_fusions, dev, mesh, frame)
+    c5 = oc["c5"]
+    env = to_device(c5["env"], torch.float32, dev)
+    empty = shard_map_value(HierarchicalBitMap.create(C5_DIMS, 1.0, device=dev), mesh)
+    pf["c5"] = [empty.build(env), empty.build(env, free_bounding_box=True)]
+    with host_reads():
+        pf["c5_counts"] = [HierarchicalValidityChecker(m, c5["arm"]).batch_colliding_voxels(c5["states"])
+                           for m in pf["c5"]]
+    prob, bit = pf["fusion"]["fused"][(1, "bench")]
+    s_prob, s_bit = oc["fusion"]["fused"][(1, "bench")][:2]
+    pf["octree"] = {level: [prob.collide_with(bit, level), prob.collide_with(s_bit, level),
+                            s_prob.collide_with(bit, level)] for level in (0, 3)}
+    hier = shard_map_value(oc["paged_inputs"]["hier"], mesh)
+    with host_reads():  # the paged insert allocates
+        paged = PagedHierarchicalMap(PAGED_DIMS, FUSION_SIDE, device=dev).insert_depth_image(
+            frame, kinect_sensor(), max_steps=128)
+    pf["paged"] = paged
+    pf["paged_hier"] = [paged.collide_with(hier), hier.collide_with(paged)]
+    origin = kinect_sensor().position
+    pf["dda"] = [shard_map_value(cls.create(FUSION_DIMS, FUSION_SIDE, device=dev), mesh)
+                 .insert_point_cloud_with_free_space(out["rays"], origin) for cls in (HierarchicalBitMap,
+                                                                                     HierarchicalProbMap)]
+    pf["robot"] = bit.insert_robot_configuration(md["arm"], True)
+    # the fused frame's rays as a list in the pyramid's own voxel frame
+    kinect = bit_vector_voxel_list(HIER_DIMS, HIER_SIDE, device=dev).insert_point_cloud(oc["paged_inputs"]["rays"])
+    pf["kinect"] = kinect
+    pf["resolution"] = [bit.collide_with_resolution(kinect, 1.0, level) for level in range(4)]
+    with tempfile.TemporaryDirectory() as tmp, host_reads():
+        pf["occupied"] = bit.extract_occupied_coords()
+        pf["memory"] = bit.memory_usage()
+        path = os.path.join(tmp, "bit.bin")
+        assert bit.write_to_disk(path)
+        pf["digest"] = digest(path)
+        pf["back"] = bit.read_from_disk(path)
+        GpuVoxels._instance = None
+        gvl = GpuVoxels.get_instance()
+        gvl.initialize(*FUSION_DIMS, FUSION_SIDE, device=dev)
+        gvl.add_map(MapType.MT_PROBAB_OCTREE, "octree", mesh=mesh)
+        gvl.update_map("octree", lambda m: m.insert_depth_image(frame, kinect_sensor()))
+        path = os.path.join(tmp, "octree.bin")
+        gvl.save_map("octree", path)
+        pf["octree_digest"] = digest(path)
+        gvl.load_map("octree", path)
+        pf["octree_loaded"] = gvl.get_map("octree")
+        GpuVoxels._instance = None
+    return pf
+
+
 def check_multidevice_path(md: dict, dev: torch.device, out: dict, robot: dict, dist: dict, oc: dict) -> None:
     """Every sharded answer of path 9 against the single-device call on the
     same card."""
@@ -2934,6 +3048,7 @@ def check_multidevice_path(md: dict, dev: torch.device, out: dict, robot: dict, 
         f"as a sharded value taking the UR10 self-collision aware (clash {bool(fa['clash'])} == single), "
         f"save_map -> load_map: files == the single-device maps', reloaded equal")
     check_dense_slab_forms(md, dev, out, dist)
+    check_pyramid_slab_forms(md, dev, out, oc)
 
 
 def gathered(m, mesh) -> torch.Tensor:
@@ -2981,6 +3096,90 @@ def check_dense_slab_forms(md: dict, dev: torch.device, out: dict, dist: dict) -
         assert torch.equal(gathered(sf[key], mesh), dist[key].data), key
     log(f"  (o) path 3's camera -> distance field on sharded maps (5 frames at P = {POOL}, merge_occupied, "
         f"jump_flood): fused map, obstacles and field == single-device")
+
+
+def same_pyramid(got, want, mesh) -> bool:
+    """A sharded pyramid (still sharded) against a single-device one: every
+    level and the prob tier's occupancy byte for byte."""
+    assert_sharded(got, mesh)
+    g = got.gather()
+    ok = len(g.pyramid) == len(want.pyramid) and all(torch.equal(a, b) for a, b in zip(g.pyramid, want.pyramid))
+    return ok and (not isinstance(want, HierarchicalProbMap) or torch.equal(g.occupancy, want.occupancy))
+
+
+# (p)'s launches: 3 poses x 2 tiers at each carve_pool, 8 slabs a fusion
+PYRAMID_FUSION_LAUNCHES = {"projective_free_space_exact": 48, "projective_free_space_pooled": 48, "min_pool_depth": 6}
+
+
+def check_pyramid_slab_forms(md: dict, dev: torch.device, out: dict, oc: dict) -> None:
+    """Path 9's hierarchy slab forms against the single-device calls on the
+    card (and BASELINE #5 against the numpy set oracle)."""
+    mesh, pf = md["mesh"], md["pyramids"]
+    fusion, launches = pf["fusion"], pf["fusion_launches"]
+    assert all(fusion["tree_ok"]) and len(fusion["tree_ok"]) == 6
+    for key, (prob, bit) in fusion["fused"].items():
+        s_prob, s_bit, _ = oc["fusion"]["fused"][key]
+        assert same_pyramid(prob, s_prob, mesh) and same_pyramid(bit, s_bit, mesh), key
+    ran = {name: count for name, count in launches.items() if count}
+    assert ran == PYRAMID_FUSION_LAUNCHES, ran
+    log(f"  (p) path 7's frame into sharded {HIER_DIMS[0]}^3 hierarchies of both tiers under "
+        f"{len(carve_poses())} poses at carve_pool 1 and {POOL}: every level and the occupancy == the single-device "
+        f"fusions, check_tree after every insert; launches counted around (p) alone {ran}")
+    c5 = oc["c5"]
+    oracle = config5_oracle(c5["env"], c5["robot"], c5["states"])
+    built, boxed = pf["c5"]
+    assert same_pyramid(built, c5["dense"], mesh)
+    want_boxed = HierarchicalBitMap.create(C5_DIMS, 1.0, device=dev).build(to_device(c5["env"], torch.float32, dev),
+                                                                            free_bounding_box=True)
+    assert same_pyramid(boxed, want_boxed, mesh)
+    del want_boxed
+    for counts in pf["c5_counts"]:
+        assert np.array_equal(counts, oracle) and np.array_equal(counts, oc["c5_dense"])
+    log(f"  (q) BASELINE #5 on a sharded {C5_DIMS[0]}^3 pyramid: build(env) and build(env, free_bounding_box=True) "
+        f"== the single-device builds; the {len(oracle)}-state checker batch over each == the numpy set oracle "
+        f"({int((oracle > 0).sum())} states collide) == path 7's dense counts")
+    s_prob, s_bit = oc["fusion"]["fused"][(1, "bench")][:2]
+    counts = {}
+    for level, got in pf["octree"].items():
+        want = int(s_prob.collide_with(s_bit, level))
+        counts[level] = [int(c) for c in got]
+        assert counts[level] == [want] * 3 and want > 0, (level, counts[level], want)
+    hier = oc["paged_inputs"]["hier"]
+    want = int(pf["paged"].collide_with(hier))
+    got = [int(c) for c in pf["paged_hier"]]
+    assert got == [want, want] and want > 0, (got, want)
+    log(f"  (r) octree x octree at {HIER_DIMS[0]}^3, sharded x sharded, x plain both ways: level 0 "
+        f"{counts[0][0]}, level 3 {counts[3][0]}; the {PAGED_DIMS[0]}^3 paged map x the sharded "
+        f"{FUSION_DIMS[0]}^3 hierarchy, both ways: {want} == single-device")
+    origin = kinect_sensor().position
+    for cls, got in zip((HierarchicalBitMap, HierarchicalProbMap), pf["dda"]):
+        want = cls.create(FUSION_DIMS, FUSION_SIDE, device=dev).insert_point_cloud_with_free_space(out["rays"], origin)
+        assert same_pyramid(got, want, mesh), cls.__name__
+    log(f"  (s) {out['rays'].shape[0]} rays into sharded {FUSION_DIMS[0]}^3 hierarchies of both tiers "
+        f"(insert_point_cloud_with_free_space, the rays walked once): == single-device")
+    got_map, ok = pf["robot"]
+    w_map, w_ok = s_bit.insert_robot_configuration(md["arm"], True)
+    assert same_pyramid(got_map, w_map, mesh) and bool(ok) == bool(w_ok)
+    kinect = pf["kinect"]
+    res = [int(c) for c in pf["resolution"]]
+    want = [int(s_bit.collide_with_resolution(kinect, 1.0, level)) for level in range(4)]
+    assert res == want and min(res) > 0, (res, want)
+    with tempfile.TemporaryDirectory() as tmp, host_reads():
+        assert np.array_equal(pf["occupied"], s_bit.extract_occupied_coords()) and len(pf["occupied"]) > 0
+        assert pf["memory"] == s_bit.memory_usage()
+        path = os.path.join(tmp, "single.bin")
+        io.write_map(s_bit, path)
+        assert pf["digest"] == digest(path)
+        single_octree = HierarchicalProbMap.create(FUSION_DIMS, FUSION_SIDE, device=dev).insert_depth_image(
+            oc["paged_inputs"]["frame"], kinect_sensor())
+        io.write_map(single_octree, path)
+        assert pf["octree_digest"] == digest(path)
+    assert same_pyramid(pf["back"], s_bit, mesh) and same_pyramid(pf["octree_loaded"], single_octree, mesh)
+    log(f"  (t) the fused {HIER_DIMS[0]}^3 bit pyramid: the UR10 configuration self-collision checked (ok "
+        f"{bool(ok)}), collide_with_resolution at levels 0-3 against the frame's rays as a list {res}, "
+        f"{len(pf['occupied'])} occupied coords, memory_usage {pf['memory']} B, the file (written slab by slab) "
+        f"and its read-back == single-device; the facade's mesh octree at {FUSION_DIMS[0]}^3: a frame, "
+        f"save_map -> load_map == the single-device map's file and map")
 
 
 def multidevice_timings(dev: torch.device, smi: str, md: dict, out: dict, robot: dict, dist: dict, oc: dict) -> None:
@@ -3056,6 +3255,7 @@ def multidevice_timings(dev: torch.device, smi: str, md: dict, out: dict, robot:
     (label, w_ms, _), (_, s_ms, _) = rows.pop(-2), rows.pop(-1)
     rows.append((label + " (host clock)", w_ms, s_ms))
     rows += dense_form_timings(dev, mesh, md, out, robot)
+    rows += pyramid_form_timings(dev, mesh, md, out, oc)
     for label, sharded_ms, single_ms in rows:
         log(f"  path 9 {label}: sharded {sharded_ms:.4f} ms, single-device {single_ms:.4f} ms  [{smi}]")
 
@@ -3114,6 +3314,58 @@ def dense_form_timings(dev: torch.device, mesh, md: dict, out: dict, robot: dict
                  time_ms(lambda: camera_frame(sfresh, sdist), 10), time_ms(lambda: camera_frame(fresh, dist_map), 10)))
     return rows
 
+
+
+def pyramid_form_timings(dev: torch.device, mesh, md: dict, out: dict, oc: dict) -> list:
+    """(label, sharded ms, single-device ms) of path 9's hierarchy slab
+    forms, each sharded call beside its single-device call on the same card
+    (the host clock where the call reads the device)."""
+    rows = []
+    frame = torch.as_tensor(oc["paged_inputs"]["frame"], device=dev)
+    sensor = PosedSensor(carve_poses()["bench"])
+    for cls in (HierarchicalBitMap, HierarchicalProbMap):
+        fresh = cls.create(HIER_DIMS, HIER_SIDE, device=dev)
+        sfresh = shard_map_value(fresh, mesh)
+        for pool in (1, POOL):
+            rows.append((f"{HIER_DIMS[0]}^3 frame into a {cls.__name__}, carve_pool {pool}",
+                         time_ms(lambda: sfresh.insert_depth_image(frame, sensor, pool), 10),
+                         time_ms(lambda: fresh.insert_depth_image(frame, sensor, pool), 10)))
+    c5 = oc["c5"]
+    env = to_device(c5["env"], torch.float32, dev)
+    fresh = HierarchicalBitMap.create(C5_DIMS, 1.0, device=dev)
+    sfresh = shard_map_value(fresh, mesh)
+    for box in (False, True):
+        rows.append((f"{C5_DIMS[0]}^3 build from {C5_OBSTACLES} points, free_bounding_box {box}",
+                     time_ms(lambda: sfresh.build(env, box), 3, warmup=1), time_ms(lambda: fresh.build(env, box), 3,
+                                                                                   warmup=1)))
+    states = to_device(c5["states"], torch.float32, dev)
+    checkers = [HierarchicalValidityChecker(m, c5["arm"]) for m in (md["pyramids"]["c5"][0], c5["dense"])]
+    rows.append((f"BASELINE #5 batch ({len(states)} states, device counts)",
+                 *(time_ms(lambda: c.colliding_voxels_device(states), 20) for c in checkers)))
+    prob, bit = md["pyramids"]["fusion"]["fused"][(1, "bench")]
+    s_prob, s_bit = oc["fusion"]["fused"][(1, "bench")][:2]
+    rows.append((f"{HIER_DIMS[0]}^3 octree x octree, level 0", time_ms(lambda: prob.collide_with(bit), 10),
+                 time_ms(lambda: s_prob.collide_with(s_bit), 10)))
+    origin = kinect_sensor().position
+    rays = out["rays"]
+    for cls in (HierarchicalBitMap, HierarchicalProbMap):
+        fresh = cls.create(FUSION_DIMS, FUSION_SIDE, device=dev)
+        sfresh = shard_map_value(fresh, mesh)
+        rows.append((f"{FUSION_DIMS[0]}^3 {cls.__name__} DDA frame ({rays.shape[0]} rays)",
+                     time_ms(lambda: sfresh.insert_point_cloud_with_free_space(rays, origin), 3, warmup=1),
+                     time_ms(lambda: fresh.insert_point_cloud_with_free_space(rays, origin), 3, warmup=1)))
+    arm = md["arm"]
+    rows.append((f"UR10 insert_robot_configuration with the self-collision check, {HIER_DIMS[0]}^3 bit pyramid",
+                 time_ms(lambda: bit.insert_robot_configuration(arm, True), 10),
+                 time_ms(lambda: s_bit.insert_robot_configuration(arm, True), 10)))
+    with tempfile.TemporaryDirectory() as tmp, host_reads():
+        rows.append((f"extract_occupied_coords of the {HIER_DIMS[0]}^3 bit pyramid (host reads)",
+                     time_ms(bit.extract_occupied_coords, 5, warmup=1),
+                     time_ms(s_bit.extract_occupied_coords, 5, warmup=1)))
+        rows.append((f"write_to_disk of the {HIER_DIMS[0]}^3 bit pyramid (host reads)",
+                     time_ms(lambda: bit.write_to_disk(os.path.join(tmp, "a.bin")), 3, warmup=1),
+                     time_ms(lambda: s_bit.write_to_disk(os.path.join(tmp, "b.bin")), 3, warmup=1)))
+    return rows
 
 
 def example(name: str):

@@ -59,6 +59,13 @@ _LISTS = {
 _DENSE_FILES = (MapType.MT_PROBAB_VOXELMAP, MapType.MT_BITVECTOR_VOXELMAP, MapType.MT_DISTANCE_VOXELMAP)
 
 
+def _slab_file(path) -> bool:
+    """A file read slab by slab onto a mesh: a dense map's, or a dense
+    hierarchy's octree file (not the paged tier's body)."""
+    map_type = map_io._file_map_type(path)
+    return map_type in _DENSE_FILES or (map_type in map_io.OCTREE_TYPES and not map_io.is_paged_octree(path))
+
+
 class GpuVoxels:
     _instance: Optional["GpuVoxels"] = None
 
@@ -297,14 +304,14 @@ class GpuVoxels:
         the tier (utils/io.read_map), the map lands on the facade's device
         and is bound to `map_name`. A sharded paged world reloads
         distributed over its own devices; a mesh-registered map reads a
-        dense map's file slab by slab onto the mesh, any other file whole,
-        then re-pinned to its slab layout."""
+        dense map's or a dense hierarchy's file slab by slab onto the mesh,
+        any other file whole, then re-pinned to its slab layout."""
         cur = self._maps.get(map_name)
         if isinstance(cur, ShardedPagedWorld):
             self._maps[map_name] = cur.read_from_disk(path)
             return True
         mesh = self._meshes.get(map_name)
-        if mesh is not None and map_io._file_map_type(path) in _DENSE_FILES:
+        if mesh is not None and _slab_file(path):
             self._maps[map_name] = read_sharded_map(path, mesh)
         else:
             self._maps[map_name] = self._pinned(map_name, map_io.read_map(path, device=self._device))

@@ -113,7 +113,7 @@ def install() -> None:
     from .maps.voxellist import VoxelList
     from .maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
     from .parallel.paged_world import ShardedPagedWorld
-    from .parallel.shard_value import ShardedDenseMap
+    from .parallel.shard_value import ShardedDenseMap, ShardedPyramid
 
     _apply(GpuVoxels, _FACADE_ALIASES)
     for cls in (
@@ -131,3 +131,4 @@ def install() -> None:
     _apply(DistanceVoxelMap, _MAP_ALIASES)
     _apply(ShardedDenseMap, _MAP_ALIASES)
     _apply(ShardedDenseMap, _DISTANCE_ALIASES)
+    _apply(ShardedPyramid, _MAP_ALIASES)

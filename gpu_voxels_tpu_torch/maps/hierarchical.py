@@ -41,7 +41,7 @@ from .. import bitops
 from ..constants import THRESHOLD_OCCUPANCY, UNKNOWN_PROBABILITY, BitVoxelMeaning, MapType, meaning_to_probability
 from ..geometry import transforms
 from ..ops import insert as insert_ops
-from ..ops import raycast, raycast_cuda
+from ..ops import raycast
 from ..ops.compact import compacted_nonzero
 from ..utils import resolve_device, to_device
 from ..utils.io import DiskIO
@@ -199,6 +199,77 @@ def meta_first_meaning(meanings):
     return BitVoxelMeaning.eBVM_OCCUPIED
 
 
+def hard_status(s: torch.Tensor, mask: torch.Tensor, occ_bit: int, map_flag: int) -> torch.Tensor:
+    """Status bytes s with the voxels of `mask` set hard to occ_bit, tagged
+    map_flag (setOccupied, kernel_common.h:219-223)."""
+    new = (s & (0xFF ^ STATUS_OCCUPANCY_MASK)) | (occ_bit | map_flag)
+    return torch.where(mask, new, s)
+
+
+def sensor_status(s: torch.Tensor, free: torch.Tensor, hits: torch.Tensor) -> torch.Tensor:
+    """The deterministic sensor update of status bytes: carved cells hard
+    FREE, then hits hard OCCUPIED (hits win), both tagged ns_DYNAMIC_MAP."""
+    return hard_status(hard_status(s, free, NS_FREE, NS_DYNAMIC_MAP), hits, NS_OCCUPIED, NS_DYNAMIC_MAP)
+
+
+def voxel_hits(points: torch.Tensor, side_length: float, dims: Dims, z_offset: int = 0) -> torch.Tensor:
+    """bool over a (padded) grid, flat: the voxels of `points`; with
+    `z_offset` z0 the grid is the z-slab [z0, z0 + dims[2]) of a larger one
+    (voxelize's rule)."""
+    idx, _ = insert_ops.voxelize(points, side_length, dims, z_offset)
+    return insert_ops.occupancy_mask(idx, dims[0] * dims[1] * dims[2]) > 0
+
+
+def store_meaning(occ: torch.Tensor, mask: torch.Tensor, meaning) -> torch.Tensor:
+    """int8 log-odds with the voxels of `mask` set to the meaning's
+    probability (meaning_to_probability, a store not an update)."""
+    return occ.masked_fill(mask, meaning_to_probability(meaning))
+
+
+def bbox_mask(points, side_length: float, dims: Dims, device, z_offset: int = 0) -> torch.Tensor:
+    """bool over a (padded) grid, flat: the points' voxel bounding box; with
+    `z_offset` z0 the grid is the z-slab [z0, z0 + dims[2]) of a larger one
+    (the box taken in the global frame, its rows shifted as integers)."""
+    pts = to_device(points, torch.float32, device).reshape(-1, 3)
+    # a true f32 division, as the reference's: CUDA divides by a host
+    # scalar as a multiply by its reciprocal
+    side = torch.full((), side_length, dtype=torch.float32, device=device)
+    lo = insert_ops.floor_to_int32(pts.amin(dim=0) / side)
+    hi = insert_ops.floor_to_int32(pts.amax(dim=0) / side)
+    px, py, pz = dims
+    ix = torch.arange(px, dtype=torch.int32, device=device)[None, None, :]
+    iy = torch.arange(py, dtype=torch.int32, device=device)[None, :, None]
+    iz = torch.arange(z_offset, z_offset + pz, dtype=torch.int32, device=device)[:, None, None]
+    inside = ((ix >= lo[0]) & (ix <= hi[0]) & (iy >= lo[1]) & (iy <= hi[1])
+              & (iz >= lo[2]) & (iz <= hi[2]))
+    return inside.reshape(-1)
+
+
+def depth_world_points(depth: torch.Tensor, pose: torch.Tensor, sensor) -> torch.Tensor:
+    """A depth frame's measurements in the world frame, the non-finite ones
+    moved to -1 (outside every grid): the deterministic depth insert's hits."""
+    fx, fy, cx, cy, inv = _sensor_scalars(sensor)
+    world = transforms.transform_points(pose, raycast.depth_image_to_point_cloud(depth, fx, fy, cx, cy, inv))
+    finite = torch.all(torch.isfinite(world), dim=-1)
+    return torch.where(finite[:, None], world, -1.0)
+
+
+def occupied_coords_of(idx: np.ndarray, padded_dims: Dims, dims: Dims) -> np.ndarray:
+    """int32[K, 3] (x, y, z) of ascending flat indices into the padded grid,
+    those outside dims dropped."""
+    px, py, _ = padded_dims
+    z, rem = np.divmod(idx, px * py)
+    y, x = np.divmod(rem, px)
+    keep = (x < dims[0]) & (y < dims[1]) & (z < dims[2])
+    return np.stack([x[keep], y[keep], z[keep]], axis=1).astype(np.int32)
+
+
+def _is_sharded_pyramid(m) -> bool:
+    from ..parallel.shard_value import ShardedPyramid
+
+    return isinstance(m, ShardedPyramid)
+
+
 def _reject_octree_offset(offset) -> None:
     """Octree x octree takes no offset. The reference logs
     GPU_VOXELS_MAP_OFFSET_ON_WRONG_DATA_STRUCTURE and drops it
@@ -260,13 +331,14 @@ class _PyramidQueries(DiskIO):
     def collide_with(self, other, min_level: int = 0, offset=(0, 0, 0)) -> torch.Tensor:
         """collideWith dispatch (GvlNTree.hpp:150-330): octree x list or
         dense map runs the probe at other + offset; octree x octree the
-        hierarchy intersection, which takes no offset."""
+        hierarchy intersection, which takes no offset (a sharded pyramid is
+        an octree too, as the reference's sharded value is)."""
         from .paged import PagedHierarchicalMap
 
         if isinstance(other, PagedHierarchicalMap):
             _reject_octree_offset(offset)
             return other.collide_with(self, min_level=min_level)
-        if isinstance(other, _PyramidQueries):
+        if isinstance(other, _PyramidQueries) or _is_sharded_pyramid(other):
             _reject_octree_offset(offset)
             return self.collide_with_hierarchical(other, min_level=min_level)
         return self._collide_probe(other, min_level, offset)[0]
@@ -288,9 +360,12 @@ class _PyramidQueries(DiskIO):
 
     def collide_with_hierarchical(self, other, min_level: int = 0) -> torch.Tensor:
         """NTree x NTree (intersect_load_balance, NTree.hpp:1139): cells
-        occupied in both hierarchies at level `min_level`."""
+        occupied in both hierarchies at level `min_level`. The count is
+        symmetric: a sharded other counts slab by slab."""
         if other.padded_dims != self.padded_dims:
             raise ValueError("hierarchies must share dimensions")
+        if _is_sharded_pyramid(other):
+            return other.collide_with_hierarchical(self, min_level).to(self.device)
         a, b = self.pyramid[min_level], other.pyramid[min_level]
         return (((a & NS_OCCUPIED) != 0) & ((b & NS_OCCUPIED) != 0)).sum(dtype=torch.int64)
 
@@ -299,11 +374,7 @@ class _PyramidQueries(DiskIO):
         z, y, x order. The mask is compacted on the device: two host reads,
         O(K) bytes."""
         idx = compacted_nonzero((self.pyramid[0] & STATUS_OCCUPANCY_MASK) == NS_OCCUPIED)
-        px, py, _ = self.padded_dims
-        z, rem = np.divmod(idx, px * py)
-        y, x = np.divmod(rem, px)
-        keep = (x < self.dims[0]) & (y < self.dims[1]) & (z < self.dims[2])
-        return np.stack([x[keep], y[keep], z[keep]], axis=1).astype(np.int32)
+        return occupied_coords_of(idx, self.padded_dims, self.dims)
 
     def memory_usage(self) -> int:
         """Device bytes of the map's tensors: the reference's sum over its
@@ -354,19 +425,7 @@ class _PyramidQueries(DiskIO):
 
     def _bbox_mask_flat(self, points) -> torch.Tensor:
         """bool over the padded grid, flat: the points' voxel bounding box."""
-        pts = to_device(points, torch.float32, self.device).reshape(-1, 3)
-        # a true f32 division, as the reference's: CUDA divides by a host
-        # scalar as a multiply by its reciprocal
-        side = torch.full((), self.side_length, dtype=torch.float32, device=self.device)
-        lo = insert_ops.floor_to_int32(pts.amin(dim=0) / side)
-        hi = insert_ops.floor_to_int32(pts.amax(dim=0) / side)
-        px, py, pz = self.padded_dims
-        ix = torch.arange(px, dtype=torch.int32, device=self.device)[None, None, :]
-        iy = torch.arange(py, dtype=torch.int32, device=self.device)[None, :, None]
-        iz = torch.arange(pz, dtype=torch.int32, device=self.device)[:, None, None]
-        inside = ((ix >= lo[0]) & (ix <= hi[0]) & (iy >= lo[1]) & (iy <= hi[1])
-                  & (iz >= lo[2]) & (iz <= hi[2]))
-        return inside.reshape(-1)
+        return bbox_mask(points, self.side_length, self.padded_dims, self.device)
 
 
 def _sensor_scalars(sensor):
@@ -448,9 +507,8 @@ class HierarchicalProbMap(_PyramidQueries):
         free_bounding_box the points' voxel box is set FREE first (NTree.h:127)."""
         m = self.clear_map()
         if free_bounding_box:
-            free_val = meaning_to_probability(BitVoxelMeaning.eBVM_FREE)
-            occ = m.occupancy.reshape(-1).masked_fill(m._bbox_mask_flat(points), free_val)
-            m = m._rebuilt_flat(occ)
+            m = m._rebuilt_flat(store_meaning(m.occupancy.reshape(-1), m._bbox_mask_flat(points),
+                                              BitVoxelMeaning.eBVM_FREE))
         return m.insert_point_cloud(points)
 
     def propagate(self) -> "HierarchicalProbMap":
@@ -503,28 +561,17 @@ class HierarchicalBitMap(_PyramidQueries):
     def clear_map(self) -> "HierarchicalBitMap":
         return self._rebuilt(torch.full_like(self.pyramid[0], NS_UNKNOWN))
 
-    def _hard_status(self, s: torch.Tensor, mask_flat: torch.Tensor, occ_bit: int, map_flag: int) -> torch.Tensor:
-        """The flat status grid s with the voxels of mask_flat set hard to
-        occ_bit, tagged map_flag."""
-        new = (s & (0xFF ^ STATUS_OCCUPANCY_MASK)) | (occ_bit | map_flag)
-        return torch.where(mask_flat, new, s)
-
     def _hard_set(self, mask_flat: torch.Tensor, occ_bit: int, map_flag: int) -> "HierarchicalBitMap":
-        s = self._hard_status(self.pyramid[0].reshape(-1), mask_flat, occ_bit, map_flag)
+        s = hard_status(self.pyramid[0].reshape(-1), mask_flat, occ_bit, map_flag)
         return self._rebuilt(s.reshape(self.pyramid[0].shape))
 
     def _hits(self, points: torch.Tensor) -> torch.Tensor:
         """bool over the padded grid, flat: the voxels of `points`."""
-        pd = self.padded_dims
-        idx, _ = insert_ops.voxelize(points, self.side_length, pd)
-        return insert_ops.occupancy_mask(idx, pd[0] * pd[1] * pd[2]) > 0
+        return voxel_hits(points, self.side_length, self.padded_dims)
 
     def _sensor_update(self, free: torch.Tensor, hits: torch.Tensor) -> "HierarchicalBitMap":
-        """Carved cells hard FREE, then hits hard OCCUPIED (hits win), both
-        tagged ns_DYNAMIC_MAP; one pyramid rebuild."""
-        s = self._hard_status(self.pyramid[0].reshape(-1), free, NS_FREE, NS_DYNAMIC_MAP)
-        s = self._hard_status(s, hits, NS_OCCUPIED, NS_DYNAMIC_MAP)
-        return self._rebuilt(s.reshape(self.pyramid[0].shape))
+        """sensor_status on level 0; one pyramid rebuild."""
+        return self._rebuilt(sensor_status(self.pyramid[0].reshape(-1), free, hits).reshape(self.pyramid[0].shape))
 
     def insert_point_cloud(self, points, meaning=BitVoxelMeaning.eBVM_OCCUPIED,
                            static_map: bool = True) -> "HierarchicalBitMap":
@@ -549,19 +596,11 @@ class HierarchicalBitMap(_PyramidQueries):
         carve_pool = 1 is the exact carve (K3 on the card), P > 1 the pooled
         conservative carve (K6); the reference takes its Pallas kernels on
         its accelerator the same way (its `_depth_fusion_bit`)."""
-        fx, fy, cx, cy, inv = _sensor_scalars(sensor)
-        pd = self.padded_dims
         depth = to_device(depth, torch.float32, self.device)
         pose = to_device(sensor.pose(), torch.float32, self.device)
-        pts = raycast.depth_image_to_point_cloud(depth, fx, fy, cx, cy, inv)
-        world = transforms.transform_points(pose, pts)
-        finite = torch.all(torch.isfinite(world), dim=-1)
-        hits = self._hits(torch.where(finite[:, None], world, -1.0))
-        if carve_pool > 1:
-            free = raycast_cuda.projective_free_space_pooled(depth, pose, fx, fy, cx, cy, self.side_length, pd,
-                                                             inv, pool=int(carve_pool))
-        else:
-            free = raycast_cuda.projective_free_space_exact(depth, pose, fx, fy, cx, cy, self.side_length, pd, inv)
+        hits = self._hits(depth_world_points(depth, pose, sensor))
+        fx, fy, cx, cy, inv = _sensor_scalars(sensor)
+        free = raycast.carve(depth, pose, fx, fy, cx, cy, self.side_length, self.padded_dims, inv, int(carve_pool))
         return self._sensor_update(free & ~hits, hits)
 
     def build(self, points, free_bounding_box: bool = False) -> "HierarchicalBitMap":

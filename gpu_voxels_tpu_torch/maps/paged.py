@@ -58,9 +58,9 @@ from ..utils import resolve_device, to_device
 from ..utils.io import DiskIO
 from ..utils.logging import log_stream
 from .hierarchical import (NS_DYNAMIC_MAP, NS_FREE, NS_OCCUPIED, NS_STATIC_MAP, NS_UNKNOWN,
-                           STATUS_OCCUPANCY_MASK, U8, _build_pyramid, _is_uniform, _num_levels, _pad_dims,
-                           _PyramidQueries, _reject_octree_offset, _status_from_occupancy, count_probe_hits,
-                           decode_status_flags, descend, meta_first_meaning, query_coords_of)
+                           STATUS_OCCUPANCY_MASK, U8, _build_pyramid, _is_sharded_pyramid, _is_uniform, _num_levels,
+                           _pad_dims, _PyramidQueries, _reject_octree_offset, _status_from_occupancy,
+                           count_probe_hits, decode_status_flags, descend, meta_first_meaning, query_coords_of)
 
 _log = log_stream("octree")
 
@@ -748,7 +748,8 @@ class PagedHierarchicalMap(DiskIO):
         list is probed at its coords + offset; a dense voxel map at level 0
         is gathered at self's occupied set (the same count,
         NTree.hpp:1006), at coarser levels probed voxel by voxel; an octree
-        (paged or dense) is intersected without an offset."""
+        (paged or dense, a sharded pyramid too) is intersected without an
+        offset."""
         from .voxellist import VoxelList
         from .voxelmap import BitVectorVoxelMap, ProbVoxelMap
 
@@ -758,7 +759,7 @@ class PagedHierarchicalMap(DiskIO):
         if isinstance(other, PagedHierarchicalMap):
             _reject_octree_offset(off)
             return _paged_collide_paged(self.snapshot(), other.snapshot(), min_level)
-        if isinstance(other, _PyramidQueries):
+        if isinstance(other, _PyramidQueries) or _is_sharded_pyramid(other):
             _reject_octree_offset(off)
             return _paged_collide_hier(self.snapshot(), other, min_level, (0, 0, 0))
         if isinstance(other, (ProbVoxelMap, BitVectorVoxelMap)):

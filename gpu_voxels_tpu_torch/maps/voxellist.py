@@ -442,12 +442,13 @@ class VoxelList(DiskIO):
         is the per-entry lookup collide (kernelCollideWithVoxelMap); list x
         octree forwards to the octree's probe at my coords + offset
         (CollidableWithBitVectorOctree, CollisionInterfaces.h:231-243: the
-        reference implements it only inside GvlNTree)."""
-        from .hierarchical import _PyramidQueries
+        reference implements it only inside GvlNTree; a sharded pyramid is
+        an octree too)."""
+        from .hierarchical import _is_sharded_pyramid, _PyramidQueries
         from .paged import PagedHierarchicalMap
         from .voxelmap import BitVectorVoxelMap, ProbVoxelMap
 
-        if isinstance(other, (_PyramidQueries, PagedHierarchicalMap)):
+        if isinstance(other, (_PyramidQueries, PagedHierarchicalMap)) or _is_sharded_pyramid(other):
             return other.collide_with(self, offset=offset)
         if isinstance(other, (BitVectorVoxelMap, ProbVoxelMap)):
             return self.collide_with_dense(other, offset=offset)

@@ -182,6 +182,27 @@ def depth_image_to_point_cloud(depth: torch.Tensor, fx, fy, cx, cy, invalid_valu
     return torch.where(valid[:, None], pts, torch.nan)
 
 
+def carve(depth: torch.Tensor, pose: torch.Tensor, fx: float, fy: float, cx: float, cy: float, side_length: float,
+          dims: Dims, invalid_value: float = 0.0, carve_pool: int = 1, z_index_offset: int = 0,
+          pooled_depth: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """bool[N]: the depth insert's free-space carve of the (slab of the)
+    grid: carve_pool = 1 the exact carve (`raycast_cuda.projective_free_space_exact`,
+    kernel K3), P > 1 the P x P pooled carve (`raycast_cuda.projective_free_space_pooled`,
+    kernel K6), against `pooled_depth` when the frame's table is prebuilt.
+    Each takes its plain spec on CPU tensors."""
+    from . import raycast_cuda
+
+    if carve_pool > 1 and pooled_depth is not None:
+        return raycast_cuda.carve_against_pooled(pooled_depth, carve_pool, depth.shape, pose, fx, fy, cx, cy,
+                                                 side_length, dims, z_index_offset=z_index_offset)
+    if carve_pool > 1:
+        return raycast_cuda.projective_free_space_pooled(depth, pose, fx, fy, cx, cy, side_length, dims,
+                                                         invalid_value, pool=carve_pool,
+                                                         z_index_offset=z_index_offset)
+    return raycast_cuda.projective_free_space_exact(depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value,
+                                                    z_index_offset=z_index_offset)
+
+
 def insert_depth_image(
     data: torch.Tensor,
     depth: torch.Tensor,
@@ -215,8 +236,6 @@ def insert_depth_image(
     the frame's min_pool_depth table at `carve_pool` built once for every
     slab of a frame, spares the pool.
     """
-    from . import raycast_cuda
-
     depth = to_device(depth, F32, data.device)
     pose = to_device(pose, F32, data.device)
     pts = depth_image_to_point_cloud(depth, fx, fy, cx, cy, invalid_value)
@@ -232,20 +251,8 @@ def insert_depth_image(
     hit_counts = hit_counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))[:n]
     if cut_real_robot and robot_occupied_mask is not None:
         hit_counts = torch.where(robot_occupied_mask, 0, hit_counts)
-    if carve_pool > 1 and pooled_depth is not None:
-        free = raycast_cuda.carve_against_pooled(
-            pooled_depth, carve_pool, depth.shape, pose, fx, fy, cx, cy, side_length, dims,
-            z_index_offset=z_index_offset,
-        )
-    elif carve_pool > 1:
-        free = raycast_cuda.projective_free_space_pooled(
-            depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, pool=carve_pool,
-            z_index_offset=z_index_offset,
-        )
-    else:
-        free = raycast_cuda.projective_free_space_exact(
-            depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, z_index_offset=z_index_offset
-        )
+    free = carve(depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, carve_pool, z_index_offset,
+                 pooled_depth)
     carved = (free & (hit_counts == 0)).to(torch.int32)
     delta = hit_counts * SENSOR_MODEL_OCCUPIED + carved * SENSOR_MODEL_FREE
     return torch.where(delta != 0, probability.update_occupancy(data, delta), data)

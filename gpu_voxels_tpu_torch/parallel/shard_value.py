@@ -42,13 +42,32 @@ class has a slab form that gives the single-device call's answer:
     slab by slab, read_from_disk (and `read_sharded_map`) reads each slab's
     body onto its device.
 
-Hierarchical pyramids (`ShardedPyramid`): levels whose z extent divides
-over the mesh are split into slabs, the coarse tail is kept once on the
-mesh's first device; `probe` and the probe collides descend across them,
-and a point insert sets level 0 slab by slab and rebuilds the levels above.
-Any other public method of a pyramid's class raises NotImplementedError
-naming ROADMAP Queue 1 item 13b-ii instead of gathering silently;
-`gather()` makes a single-device copy on request.
+Hierarchical pyramids (`ShardedPyramid`: HierarchicalBitMap,
+HierarchicalProbMap): levels whose z extent divides over the mesh are split
+into slabs (the prob tier's occupancy grid with level 0), the coarse tail is
+kept once on the mesh's first device. Every public instance method of the
+class has a slab form that gives the single-device call's answer:
+
+  * inserts (points, meta clouds with the first meaning, robot
+    configurations with the clash ORed over the slabs, build with its free
+    box): level 0 (the occupancy) updated slab by slab in the global frame,
+    z shifted as an integer, then the levels above rebuilt across the
+    slabs (a split level from its slab, the first whole level from the
+    joined finer one);
+  * sensing: insert_depth_image over the padded grid's slabs (K3 once a
+    slab, or K6's carve once a slab against the frame's one pooled table),
+    the DDA insert with the rays walked once for all slabs;
+  * probes and collides: the descent across the slabs; octree x octree (a
+    plain or sharded other) an AND count a slab at a split level;
+  * maintenance, queries and files: check_tree reads one verdict, status
+    is level 0 joined on the first device, extract_occupied_coords compacts
+    each slab, write_to_disk writes the single map's bytes slab by slab,
+    read_from_disk (and `read_sharded_map`) reads each slab onto its device.
+
+A bit pyramid whose padded z extent does not divide the mesh keeps every
+level whole on the first device (the reference replicates it); a prob
+pyramid's raises, as the reference's device_put of its occupancy does.
+`to` raises; `gather()` makes a single-device copy on request.
 
 A plain map given as the other operand is split the same way.
 
@@ -65,6 +84,7 @@ from __future__ import annotations
 from dataclasses import fields
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..constants import UNKNOWN_PROBABILITY, BitVoxelMeaning, MapType, float_to_probability
@@ -72,13 +92,15 @@ from ..geometry import transforms
 from ..maps.distance_map import DistanceVoxelMap
 from ..maps.hierarchical import (NS_DYNAMIC_MAP, NS_FREE, NS_OCCUPIED, NS_STATIC_MAP, NS_UNKNOWN,
                                  STATUS_OCCUPANCY_MASK, U8, HierarchicalBitMap, HierarchicalProbMap, _axis_index,
-                                 _build_pyramid, _is_uniform, _status_from_occupancy, count_probe_hits,
-                                 decode_status_flags, query_coords_of)
+                                 _build_pyramid, _is_uniform, _PyramidQueries, _sensor_scalars, _status_from_occupancy,
+                                 bbox_mask, count_probe_hits, decode_status_flags, depth_world_points, hard_status,
+                                 occupied_coords_of, query_coords_of, sensor_status, store_meaning, voxel_hits)
 from ..maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap, _DenseMap, print_voxel_dump
 from ..maps.voxelmap import replace as map_replace
 from ..ops import collide as collide_ops
 from ..ops import collide_cuda, edt, raycast, raycast_cuda
 from ..ops import insert as insert_ops
+from ..ops.compact import compacted_nonzero
 from ..utils import io as map_io
 from ..utils import to_device
 from . import sharded_edt
@@ -87,7 +109,6 @@ from .sharded_edt_exact import build_sharded_parallel_banding, flood_z_slabs, l1
 
 Dims = Tuple[int, int, int]
 F32 = torch.float32
-ITEM_13B = "ROADMAP Queue 1 item 13b-ii"
 
 
 def _axis_devices(mesh: GridMesh, axis: str) -> list:
@@ -117,8 +138,6 @@ class _ShardedValue:
         self.dims = tuple(int(d) for d in dims)
         self.side_length = float(side_length)
         self.map_type = map_type
-        self.slab_dz = self.dims[2] // len(self.devices)
-        self.z0s = [k * self.slab_dz for k in range(len(self.devices))]
 
     @property
     def device(self) -> torch.device:
@@ -176,6 +195,8 @@ class ShardedDenseMap(_ShardedValue):
         first = slabs[0]
         self._init_common(type(first), mesh, axis, dims, first.side_length, first.map_type)
         self.slabs = tuple(slabs)
+        self.slab_dz = self.dims[2] // len(self.devices)
+        self.z0s = [k * self.slab_dz for k in range(len(self.devices))]
         # the stored Sensor (init_sensor_settings), carried onto every derived value
         self._sensor = sensor if sensor is not None else getattr(first, "_sensor", None)
 
@@ -703,21 +724,31 @@ for _name in ("clear_map", "clear_voxel_meaning", "clear_bit", "clear_bits", "cl
 
 
 # -- hierarchical pyramids -------------------------------------------------------
+def _rebuild_levels(status0, split: list, device) -> list:
+    """A pyramid over level 0 (a list of slabs, or one tensor), level l from
+    level l - 1 as `split[l]` lays it out: each split level slab by slab (a
+    2-cube never crosses a slab where the coarser level still splits), the
+    first whole level from the finer one joined on `device`, the tail from
+    that."""
+    pyr, cur = [status0], status0
+    for splits in split[1:]:
+        if isinstance(cur, list) and not splits:
+            cur = torch.cat([c.to(device) for c in cur])
+        cur = [_build_pyramid(c, 1)[1] for c in cur] if isinstance(cur, list) else _build_pyramid(cur, 1)[1]
+        pyr.append(cur)
+    return pyr
+
+
 class ShardedPyramid(_ShardedValue):
     """A dense hierarchical map (HierarchicalBitMap, HierarchicalProbMap)
     with every pyramid level whose z extent divides over the mesh split into
-    slabs and the coarse tail kept once on the mesh's first device. A public
-    method of the class with no slab form here raises NotImplementedError
-    naming its ROADMAP item instead of gathering silently."""
-
-    def __getattr__(self, name: str):
-        if name.startswith("_"):
-            raise AttributeError(name)
-        if hasattr(self.__dict__.get("_base_cls"), name):
-            raise NotImplementedError(
-                f"{self._base_cls.__name__}.{name} has no slab form on a sharded value ({ITEM_13B}); "
-                "gather() makes a single-device copy")
-        raise AttributeError(name)
+    slabs (the prob tier's occupancy grid with level 0) and the coarse tail
+    kept once on the mesh's first device. Every public method of the class
+    has a slab form here, equal to the single-device call: level 0 (and the
+    occupancy) is updated slab by slab in the global frame and the levels
+    above are rebuilt across the slabs. A bit pyramid whose padded z extent
+    does not divide the mesh keeps every level whole on the first device, as
+    the reference's sharded value replicates it; its methods run there."""
 
     def __init__(self, base_cls, dims: Dims, side_length: float, levels: int, map_type, pyramid, occupancy,
                  mesh: GridMesh, axis: str):
@@ -726,17 +757,223 @@ class ShardedPyramid(_ShardedValue):
         self.pyramid = list(pyramid)  # per level: a list of slabs, or one tensor
         self.occupancy = occupancy  # slabs of the prob tier's log-odds, or None
 
+    def _prob(self) -> bool:
+        return issubclass(self._base_cls, HierarchicalProbMap)
+
+    def _parts(self, lvl: int = 0) -> list:
+        """Level `lvl` as (part [zl, Y, X], its device, its first row): the
+        slabs of a split level, else the whole level on the first device."""
+        lv = self.pyramid[lvl]
+        if not isinstance(lv, list):
+            return [(lv, self.device, 0)]
+        return [(p, d, k * p.shape[0]) for k, (p, d) in enumerate(zip(lv, self.devices))]
+
+    @staticmethod
+    def _local(part: torch.Tensor) -> Dims:
+        """A slab's (padded) dims (x, y, z) from its [z, y, x] tensor."""
+        zl, py, px = part.shape
+        return (px, py, zl)
+
+    def _with_level0(self, status0: list, occupancy=None) -> "ShardedPyramid":
+        """The pyramid rebuilt from new level-0 parts, laid out as this one."""
+        l0 = status0 if isinstance(self.pyramid[0], list) else status0[0]
+        pyr = _rebuild_levels(l0, [isinstance(lv, list) for lv in self.pyramid], self.device)
+        return ShardedPyramid(self._base_cls, self.dims, self.side_length, self.levels, self.map_type, pyr,
+                              occupancy, self.mesh, self.axis)
+
+    def _with_occupancy(self, occupancy: list) -> "ShardedPyramid":
+        """The prob tier rebuilt from new occupancy slabs."""
+        return self._with_level0([_status_from_occupancy(o) for o in occupancy], occupancy)
+
+    # -- properties and maintenance --------------------------------------------
+    @property
+    def padded_dims(self) -> Dims:
+        _, py, px = self._parts(0)[0][0].shape
+        return (px, py, sum(p.shape[0] for p, _, _ in self._parts(0)))
+
+    @property
+    def status(self) -> torch.Tensor:
+        """The bit tier's status grid, a whole-grid tensor: level 0's slabs
+        joined on the mesh's first device."""
+        if self._prob():
+            raise AttributeError("'HierarchicalProbMap' object has no attribute 'status'")
+        return torch.cat([p.to(self.device) for p, _, _ in self._parts(0)])
+
+    def fine_slabs(self) -> list:
+        """The ground truth's z-slabs, in z order: the prob tier's occupancy,
+        the bit tier's level 0 (one whole part where level 0 does not split)."""
+        return list(self.occupancy) if self._prob() else [p for p, _, _ in self._parts(0)]
+
+    def to(self, device):
+        raise TypeError("a sharded pyramid stays on its mesh: gather(device) makes a single-device copy, "
+                        "shard_map_value(m, mesh) lays a map over another mesh")
+
     def gather(self, device=None):
         """A single-device copy of the whole map on `device` (default: the
         mesh's first device)."""
         device = self.device if device is None else device
         pyr = tuple(torch.cat([p.to(device) for p in lv]) if isinstance(lv, list) else lv.to(device)
                     for lv in self.pyramid)
-        if issubclass(self._base_cls, HierarchicalProbMap):
+        if self._prob():
             occ = torch.cat([p.to(device) for p in self.occupancy])
             return HierarchicalProbMap(occ, pyr, self.dims, self.side_length, self.levels)
         return HierarchicalBitMap(pyr, self.dims, self.side_length, self.levels)
 
+    def memory_usage(self) -> int:
+        """Device bytes over every slab and the tail: the single map's."""
+        tensors = [p for lv in self.pyramid for p in (lv if isinstance(lv, list) else [lv])]
+        tensors += list(self.occupancy) if self._prob() else []
+        return int(sum(t.numel() * t.element_size() for t in tensors))
+
+    needs_rebuild = _PyramidQueries.needs_rebuild
+    rebuild = _PyramidQueries.rebuild
+    clear_collision_flags = _PyramidQueries.clear_collision_flags
+    clear_voxel_meaning = _PyramidQueries.clear_voxel_meaning
+
+    def propagate(self) -> "ShardedPyramid":
+        """NTree::propagate: the levels rebuilt from level 0's slabs (the prob
+        tier's status from its occupancy slabs)."""
+        if self._prob():
+            return self._with_occupancy(self.occupancy)
+        return self._with_level0([p for p, _, _ in self._parts(0)])
+
+    def check_tree(self) -> bool:
+        """NTree::checkTree: each split level against its finer slab's 2x2x2
+        fusion, the first whole level against the joined finer one, the tail
+        as the single tier checks it; the verdicts land on the mesh's first
+        device and are read once."""
+        want = _rebuild_levels(self.pyramid[0], [isinstance(lv, list) for lv in self.pyramid], self.device)
+        oks = []
+        for w, have in zip(want[1:], self.pyramid[1:]):
+            for a, b in zip(w if isinstance(w, list) else [w], have if isinstance(have, list) else [have]):
+                if a.shape != b.shape:
+                    return False
+                oks.append((a == b).all().to(self.device))
+        return bool(torch.stack(oks).all()) if oks else True
+
+    def clear_map(self) -> "ShardedPyramid":
+        """The pristine UNKNOWN map, every level filled in place of a rebuild."""
+        prob = self._prob()
+        status = NS_UNKNOWN
+        if prob:
+            status = int(_status_from_occupancy(torch.full((1,), UNKNOWN_PROBABILITY, dtype=torch.int8))[0])
+        pyr = [[torch.full_like(p, status) for p in lv] if isinstance(lv, list) else torch.full_like(lv, status)
+               for lv in self.pyramid]
+        occ = [torch.full_like(p, UNKNOWN_PROBABILITY) for p in self.occupancy] if prob else None
+        return ShardedPyramid(self._base_cls, self.dims, self.side_length, self.levels, self.map_type, pyr, occ,
+                              self.mesh, self.axis)
+
+    # -- inserts ------------------------------------------------------------------
+    def insert_point_cloud(self, points, meaning=BitVoxelMeaning.eBVM_OCCUPIED, static_map: bool = True):
+        """The single-device point insert, slab by slab on level 0 (points
+        voxelized in the global frame, z shifted by the slab's first row as
+        an integer), then the pyramid rebuilt across the slabs. The
+        deterministic tier sets hard statuses tagged by `static_map`; the
+        probabilistic one stores the meaning's probability."""
+        pts = to_device(points, F32, self.device).reshape(-1, 3)
+        if self._prob():
+            occ = []
+            for (_, dev, z0), o in zip(self._parts(0), self.occupancy):
+                flat, _ = insert_ops.insert_prob(o.reshape(-1), pts.to(dev), self.side_length, self._local(o), meaning,
+                                                 z0)
+                occ.append(flat.reshape(o.shape))
+            return self._with_occupancy(occ)
+        occ_bit = NS_FREE if int(meaning) == int(BitVoxelMeaning.eBVM_FREE) else NS_OCCUPIED
+        flag = NS_STATIC_MAP if static_map else NS_DYNAMIC_MAP
+        status0 = []
+        for s0, dev, z0 in self._parts(0):
+            hits = voxel_hits(pts.to(dev), self.side_length, self._local(s0), z0)
+            status0.append(hard_status(s0.reshape(-1), hits, occ_bit, flag).reshape(s0.shape))
+        return self._with_level0(status0)
+
+    insert_meta_point_cloud = _PyramidQueries.insert_meta_point_cloud
+
+    def insert_robot_configuration(self, robot_links, with_self_collision_test: bool = False):
+        """(new map, ok device bool): the meta insert, ok False where two
+        sub-clouds share a voxel of the padded grid (the OR of the slabs'
+        clashes, on the mesh's first device)."""
+        clash = torch.zeros((), dtype=torch.bool, device=self.device)
+        if with_self_collision_test:
+            for s0, dev, z0 in self._parts(0):
+                clash = clash | insert_ops.self_collision_clash(robot_links.to(dev), self.side_length,
+                                                                self._local(s0), z0).to(self.device)
+        return self.insert_meta_point_cloud(robot_links), ~clash
+
+    def build(self, points, free_bounding_box: bool = False) -> "ShardedPyramid":
+        """NTree::build slab by slab: the cleared map; with free_bounding_box
+        the points' voxel box (taken in the global frame) set FREE on every
+        slab it reaches (the bit tier tagged ns_STATIC_MAP); then the points
+        inserted."""
+        m = self.clear_map()
+        points = to_device(points, F32, self.device).reshape(-1, 3)
+        if free_bounding_box:
+            if self._prob():
+                m = m._with_occupancy([store_meaning(o.reshape(-1), bbox_mask(points, self.side_length,
+                                                                               self._local(o), dev, z0),
+                                                     BitVoxelMeaning.eBVM_FREE).reshape(o.shape)
+                                       for (_, dev, z0), o in zip(m._parts(0), m.occupancy)])
+            else:
+                m = m._with_level0([hard_status(s0.reshape(-1), bbox_mask(points, self.side_length, self._local(s0),
+                                                                          dev, z0),
+                                                NS_FREE, NS_STATIC_MAP).reshape(s0.shape)
+                                    for s0, dev, z0 in m._parts(0)])
+        return m.insert_point_cloud(points)
+
+    # -- sensing ------------------------------------------------------------------
+    def insert_depth_image(self, depth, sensor, carve_pool: int = 1) -> "ShardedPyramid":
+        """Projective fusion over the padded grid's z-slabs, in the global
+        frame, each slab carved with its first row as its z offset (K3 once a
+        slab; with carve_pool > 1 K6's carve once a slab against the frame's
+        one pooled table). The prob tier runs the dense depth insert on its
+        occupancy slabs; the bit tier sets FREE where carved and not hit,
+        then OCCUPIED at the hits, both tagged DYNAMIC. Then one rebuild."""
+        pool = int(carve_pool)
+        fx, fy, cx, cy, inv = _sensor_scalars(sensor)
+        depth = to_device(depth, F32, self.device)
+        pose = to_device(sensor.pose(), F32, self.device)
+        pooled = raycast_cuda.min_pool_depth(depth, pool, inv) if pool > 1 else None
+        if self._prob():
+            occ = []
+            for (_, dev, z0), o in zip(self._parts(0), self.occupancy):
+                flat = raycast.insert_depth_image(
+                    o.reshape(-1), depth.to(dev), pose.to(dev), fx, fy, cx, cy, self.side_length, self._local(o),
+                    invalid_value=inv, carve_pool=pool, z_index_offset=z0,
+                    pooled_depth=None if pooled is None else pooled.to(dev))
+                occ.append(flat.reshape(o.shape))
+            return self._with_occupancy(occ)
+        world = depth_world_points(depth, pose, sensor)
+        status0 = []
+        for s0, dev, z0 in self._parts(0):
+            local = self._local(s0)
+            hits = voxel_hits(world.to(dev), self.side_length, local, z0)
+            free = raycast.carve(depth.to(dev), pose.to(dev), fx, fy, cx, cy, self.side_length, local, inv, pool,
+                                 z0, None if pooled is None else pooled.to(dev))
+            status0.append(sensor_status(s0.reshape(-1), free & ~hits, hits).reshape(s0.shape))
+        return self._with_level0(status0)
+
+    def insert_point_cloud_with_free_space(self, points, sensor_origin=(0.0, 0.0, 0.0),
+                                           max_steps: int = 256) -> "ShardedPyramid":
+        """The DDA sensor insert over the padded grid's slabs: the rays walked
+        once, every step's voxels counted on the slab that owns them
+        (raycast.ray_crossing_counts_slabs). The prob tier takes the dense
+        DDA update on its occupancy slabs; the bit tier sets the crossed
+        cells FREE, then the hits OCCUPIED."""
+        origin = tuple(float(v) for v in sensor_origin)
+        pts = to_device(points, F32, self.device).reshape(-1, 3)
+        parts = self._parts(0)
+        free = raycast.ray_crossing_counts_slabs(origin, pts, self.side_length, self.padded_dims,
+                                                 [dev for _, dev, _ in parts], max_steps)
+        if self._prob():
+            return self._with_occupancy([
+                raycast.insert_sensor_data(o.reshape(-1), origin, pts.to(dev), self.side_length, self._local(o),
+                                           enable_raycasting=True, max_steps=max_steps, z_index_offset=z0,
+                                           free_counts=fc).reshape(o.shape)
+                for (_, dev, z0), o, fc in zip(parts, self.occupancy, free)])
+        return self._with_level0([
+            sensor_status(s0.reshape(-1), fc > 0, voxel_hits(pts.to(dev), self.side_length, self._local(s0), z0))
+            .reshape(s0.shape) for (s0, dev, z0), fc in zip(parts, free)])
+
+    # -- probes and collides -------------------------------------------------------
     def _level_at(self, lvl: int, x, y, z, in_range: bool) -> torch.Tensor:
         """Level `lvl`'s status at int64 level coords, with the single-device
         gather's out-of-range rule; a split level answers from the owning
@@ -775,80 +1012,71 @@ class ShardedPyramid(_ShardedValue):
     def probe_status(self, coords, min_level: int = 0) -> torch.Tensor:
         return self._descend(int(min_level), coords, in_range=False)
 
-    def _with_level0(self, status0: list, occupancy=None) -> "ShardedPyramid":
-        """The pyramid rebuilt from new level-0 slabs: each split level from
-        its slab's finer level (a 2-cube never crosses a slab where the
-        coarser level still splits), the first whole level from the
-        gathered finer one, the tail from that."""
-        pyr, cur = [status0], status0
-        for lvl in range(1, self.levels + 1):
-            if isinstance(cur, list) and not isinstance(self.pyramid[lvl], list):
-                cur = torch.cat([c.to(self.device) for c in cur])
-            cur = [_build_pyramid(c, 1)[1] for c in cur] if isinstance(cur, list) else _build_pyramid(cur, 1)[1]
-            pyr.append(cur)
-        return ShardedPyramid(self._base_cls, self.dims, self.side_length, self.levels, self.map_type, pyr,
-                              occupancy, self.mesh, self.axis)
-
-    def insert_point_cloud(self, points, meaning=BitVoxelMeaning.eBVM_OCCUPIED, static_map: bool = True):
-        """The single-device point insert, slab by slab on level 0 (points
-        voxelized in the global frame, z shifted by the slab's first row as
-        an integer), then the pyramid rebuilt across the slabs. The
-        deterministic tier sets hard statuses tagged by `static_map`; the
-        probabilistic one sets the meaning's probability."""
-        if not isinstance(self.pyramid[0], list):
-            raise NotImplementedError(f"a pyramid whose level 0 is not split has no slab insert ({ITEM_13B})")
-        prob = issubclass(self._base_cls, HierarchicalProbMap)
-        occ_bit = NS_FREE if int(meaning) == int(BitVoxelMeaning.eBVM_FREE) else NS_OCCUPIED
-        flag = NS_STATIC_MAP if static_map else NS_DYNAMIC_MAP
-        status0, occupancy = [], [] if prob else None
-        for k, (s0, dev) in enumerate(zip(self.pyramid[0], self.devices)):
-            local = (s0.shape[2], s0.shape[1], s0.shape[0])
-            pts = to_device(points, torch.float32, dev).reshape(-1, 3)
-            if prob:
-                flat, _ = insert_ops.insert_prob(self.occupancy[k].reshape(-1), pts, self.side_length, local,
-                                                 meaning, k * s0.shape[0])
-                occupancy.append(flat.reshape(s0.shape))
-                status0.append(_status_from_occupancy(occupancy[-1]))
-            else:
-                idx, _ = insert_ops.voxelize(pts, self.side_length, local, k * s0.shape[0])
-                hits = insert_ops.occupancy_mask(idx, s0.numel()).reshape(s0.shape) > 0
-                status0.append(torch.where(hits, (s0 & (0xFF ^ STATUS_OCCUPANCY_MASK)) | (occ_bit | flag), s0))
-        return self._with_level0(status0, occupancy)
-
-    def probe(self, coords, min_level: int = 0):
-        return decode_status_flags(self.probe_status(coords, min_level))
+    probe = _PyramidQueries.probe
 
     def probe_clamped(self, coords: torch.Tensor, min_level: int = 0):
         return decode_status_flags(self._descend(int(min_level), coords, in_range=True))
 
-    def _collide_probe(self, other, min_level: int, offset):
-        from ..maps.hierarchical import _PyramidQueries
-        from ..maps.paged import PagedHierarchicalMap
-
-        if isinstance(other, (_PyramidQueries, PagedHierarchicalMap, _ShardedValue)):
-            raise NotImplementedError(f"octree x octree collides have no slab form ({ITEM_13B})")
+    def _collide_probe(self, other, min_level: int = 0, offset=(0, 0, 0)):
+        """Probe self at other's voxel list entries or dense voxels + offset."""
         coords, valid = query_coords_of(other)
         return count_probe_hits(self.probe_clamped, coords.to(self.device), valid.to(self.device), self.dims,
                                 int(min_level), offset)
 
-    def collide_with(self, other, min_level: int = 0, offset=(0, 0, 0)) -> torch.Tensor:
-        """Probe self at other's voxel list entries or dense voxels + offset."""
-        return self._collide_probe(other, min_level, offset)[0]
+    collide_with = _PyramidQueries.collide_with
+    collide_with_resolution = _PyramidQueries.collide_with_resolution
+    collide_with_counting_unknown = _PyramidQueries.collide_with_counting_unknown
 
-    def collide_with_counting_unknown(self, other, min_level: int = 0, offset=(0, 0, 0)):
-        return self._collide_probe(other, min_level, offset)
+    def _rows_of(self, other, lvl: int) -> list:
+        """The other pyramid's (plain or sharded) level `lvl`, cut as this
+        one's level `lvl` is, each part on its device."""
+        theirs = other.pyramid[lvl]
+        out = []
+        for p, dev, z0 in self._parts(lvl):
+            if isinstance(theirs, list):
+                out.append(gather_rows(theirs, z0, z0 + p.shape[0], dev, 0))
+            else:
+                out.append(theirs[z0:z0 + p.shape[0]].to(dev))
+        return out
 
-    def clear_map(self) -> "ShardedPyramid":
-        """The pristine UNKNOWN map, every level filled in place of a rebuild."""
-        prob = issubclass(self._base_cls, HierarchicalProbMap)
-        status = NS_UNKNOWN
-        if prob:
-            status = int(_status_from_occupancy(torch.full((1,), UNKNOWN_PROBABILITY, dtype=torch.int8))[0])
-        pyr = [[torch.full_like(p, status) for p in lv] if isinstance(lv, list) else torch.full_like(lv, status)
-               for lv in self.pyramid]
-        occ = [torch.full_like(p, UNKNOWN_PROBABILITY) for p in self.occupancy] if prob else None
-        return ShardedPyramid(self._base_cls, self.dims, self.side_length, self.levels, self.map_type, pyr, occ,
-                              self.mesh, self.axis)
+    def collide_with_hierarchical(self, other, min_level: int = 0) -> torch.Tensor:
+        """NTree x NTree: the cells occupied in both hierarchies at level
+        `min_level`, an AND count a slab where the level splits (the other
+        pyramid, plain or sharded, cut the same way), one where it is whole,
+        summed on the mesh's first device."""
+        if other.padded_dims != self.padded_dims:
+            raise ValueError("hierarchies must share dimensions")
+        lvl = int(min_level)
+        counts = [(((a & NS_OCCUPIED) != 0) & ((b & NS_OCCUPIED) != 0)).sum(dtype=torch.int64)
+                  for (a, _, _), b in zip(self._parts(lvl), self._rows_of(other, lvl))]
+        return psum(counts, self.device)
+
+    # -- queries and files -----------------------------------------------------------
+    def extract_occupied_coords(self) -> np.ndarray:
+        """int32[K, 3] (x, y, z) of the occupied voxels inside dims, in z, y, x
+        order: each slab's compacted mask (two host reads a slab, O(K)
+        bytes), its indices moved by the slab's first row."""
+        px, py, _ = self.padded_dims
+        idx = [compacted_nonzero((s0 & STATUS_OCCUPANCY_MASK) == NS_OCCUPIED) + z0 * px * py
+               for s0, _, z0 in self._parts(0)]
+        return occupied_coords_of(np.concatenate(idx), self.padded_dims, self.dims)
+
+    def write_to_disk(self, path) -> bool:
+        """writeToDisk: the single map's bytes, the header then each slab's
+        fine rows in turn (one host read a slab, never the map gathered)."""
+        map_io.write_hierarchical_map(self, path)
+        return True
+
+    def read_from_disk(self, path):
+        """readFromDisk: the file's map of this MapType, a dense body read
+        slab by slab onto this value's mesh; a paged body as the single call
+        reads it (a paged map on the mesh's first device)."""
+        map_type = map_io._file_map_type(path)
+        if map_type != MapType(int(self.map_type)):
+            raise ValueError(f"file holds {map_type.name}, map is {MapType(int(self.map_type)).name}")
+        if map_io.is_paged_octree(path):
+            return map_io.read_hierarchical_map(path, device=self.device)
+        return read_sharded_map(path, self.mesh, self.axis)
 
 
 # -- the public functions ------------------------------------------------------------
@@ -869,21 +1097,49 @@ def shard_map_value(m, mesh: GridMesh, axis: str = "z"):
     if isinstance(m, _DenseMap):
         return ShardedDenseMap(_split_map(m, devices, m.dims), mesh, axis, m.dims)
     if isinstance(m, (HierarchicalProbMap, HierarchicalBitMap)):
+        prob = isinstance(m, HierarchicalProbMap)
+        _check_padded_divides(prob, m.padded_dims[2], nz, axis)
+
         def split_level(lv):
             return split_slabs(lv, devices, axis=0) if lv.shape[0] % nz == 0 else lv.to(devices[0])
 
-        occ = split_slabs(m.occupancy, devices, axis=0) if isinstance(m, HierarchicalProbMap) else None
+        occ = split_slabs(m.occupancy, devices, axis=0) if prob else None
         return ShardedPyramid(type(m), m.dims, m.side_length, m.levels, m.map_type,
                               [split_level(lv) for lv in m.pyramid], occ, mesh, axis)
     raise TypeError(f"no sharding layout for {type(m)}")
 
 
-def read_sharded_map(path, mesh: GridMesh, axis: str = "z") -> ShardedDenseMap:
-    """A dense map file (utils/io's VoxelMap format) read as a value
-    sharded over `mesh`'s `axis`, each slab's body read straight onto its
-    device: never the whole map on one device."""
-    maps, dims = map_io.read_voxel_map_slabs(path, _axis_devices(mesh, axis))
-    return ShardedDenseMap(maps, mesh, axis, dims)
+def _check_padded_divides(prob: bool, padded_z: int, nz: int, axis: str) -> None:
+    """The prob tier's occupancy grid is always split, as the reference's
+    device_put of it is, so its padded z extent must divide the mesh. (A bit
+    pyramid whose padded extent does not divide keeps every level whole,
+    replicated in the reference.)"""
+    if prob and padded_z % nz:
+        raise ValueError(f"a HierarchicalProbMap's padded z extent {padded_z} must divide the mesh '{axis}' axis "
+                         f"({nz}): its occupancy grid is split into z-slabs")
+
+
+def read_sharded_map(path, mesh: GridMesh, axis: str = "z"):
+    """A dense map file (utils/io's VoxelMap format) or a dense hierarchy's
+    octree file read as a value sharded over `mesh`'s `axis`, each slab's
+    body read straight onto its device: never the whole map on one device.
+    A hierarchy's levels are rebuilt across the slabs, laid out as
+    shard_map_value lays them."""
+    devices = _axis_devices(mesh, axis)
+    if map_io._file_map_type(path) not in map_io.OCTREE_TYPES:
+        maps, dims = map_io.read_voxel_map_slabs(path, devices)
+        return ShardedDenseMap(maps, mesh, axis, dims)
+    map_type, dims, side, levels, fine = map_io.read_hierarchical_slabs(path, devices)
+    prob = map_type == MapType.MT_PROBAB_OCTREE
+    padded_z, nz = sum(p.shape[0] for p in fine), len(devices)
+    _check_padded_divides(prob, padded_z, nz, axis)
+    if dims[2] % nz:
+        raise ValueError(f"map dimz {dims[2]} must divide the mesh '{axis}' axis ({nz}) for z-slab sharding")
+    status0 = [_status_from_occupancy(p) for p in fine] if prob else fine
+    split = [(padded_z >> lvl) % nz == 0 for lvl in range(levels + 1)]
+    pyr = _rebuild_levels(status0 if split[0] else status0[0], split, devices[0])
+    return ShardedPyramid(HierarchicalProbMap if prob else HierarchicalBitMap, dims, side, levels, map_type, pyr,
+                          fine if prob else None, mesh, axis)
 
 
 def _sharded_arrays(m):

@@ -207,21 +207,32 @@ def _write_octree_ascii_header(f, map_type: int, side_length: float, dims, level
 
 
 def write_hierarchical_map(h, path, ascii: bool = False) -> None:
-    """A dense hierarchy's fine grid and metadata (host read): the status
-    grid of a HierarchicalBitMap, the occupancy grid of a HierarchicalProbMap."""
+    """A dense hierarchy's fine grid and metadata: the status grid of a
+    HierarchicalBitMap, the occupancy grid of a HierarchicalProbMap. The
+    body is z-major, so a sharded pyramid writes its slabs' rows in turn
+    (ShardedPyramid.fine_slabs): one host read a slab, the whole map's bytes."""
     from ..maps.hierarchical import HierarchicalBitMap
+    from ..parallel.shard_value import ShardedPyramid
 
-    fine = (h.status if isinstance(h, HierarchicalBitMap) else h.occupancy).cpu().numpy()
+    if isinstance(h, ShardedPyramid):
+        parts = h.fine_slabs()
+    else:
+        parts = [h.status if isinstance(h, HierarchicalBitMap) else h.occupancy]
+    shape = (sum(p.shape[0] for p in parts),) + tuple(parts[0].shape[1:])
     with open(path, "wb") as f:
         if ascii:
             _write_octree_ascii_header(f, int(h.map_type), h.side_length, h.dims, h.levels)
-            f.write(("shape %d %d %d\n" % fine.shape).encode())
-            np.savetxt(f, fine.reshape(fine.shape[0], -1), fmt="%d")
-            return
-        f.write(_header(h))
-        f.write(np.int32(h.levels).tobytes())
-        f.write(np.asarray(fine.shape, "<i4").tobytes())
-        fine.tofile(f)
+            f.write(("shape %d %d %d\n" % shape).encode())
+        else:
+            f.write(_header(h))
+            f.write(np.int32(h.levels).tobytes())
+            f.write(np.asarray(shape, "<i4").tobytes())
+        for p in parts:
+            fine = p.cpu().numpy()
+            if ascii:
+                np.savetxt(f, fine.reshape(fine.shape[0], -1), fmt="%d")
+            else:
+                fine.tofile(f)
 
 
 def write_paged_map(m, path, ascii: bool = False) -> None:
@@ -280,27 +291,39 @@ def _hierarchy_from_fine(map_type, dims, side: float, levels: int, fine: np.ndar
     return HierarchicalProbMap(occ, tuple(_build_pyramid(_status_from_occupancy(occ), levels)), dims, side, levels)
 
 
-def _read_octree_ascii(f, device):
-    """Either octree tier's ascii file, after its magic line."""
-    fields = {}
-    for _ in range(4):
-        k, v = f.readline().decode().split(None, 1)
-        fields[k] = v.strip()
-    map_type = MapType(int(fields["map_type"]))
-    side = float.fromhex(fields["side_length"])
-    dims = tuple(int(v) for v in fields["dims"].split())
-    levels = int(fields["levels"])
-    parts = f.readline().decode().split()
-    args = [int(v) for v in parts[1:]]
-    if levels < 0:  # the paged body: "tiles n", one line per tile
-        from ..maps.paged import TILE
+def _octree_head(f) -> tuple:
+    """Either octree file's metadata, f left at its body: (map_type, dims,
+    side, levels, ascii, args), args the paged body's [n tiles] (levels
+    < 0) or the dense body's [Z, Y, X] shape."""
+    if f.read(len(_ASCII_MAGIC)) == _ASCII_MAGIC:
+        f.readline()
+        fields = {}
+        for _ in range(4):
+            k, v = f.readline().decode().split(None, 1)
+            fields[k] = v.strip()
+        levels = int(fields["levels"])
+        parts = f.readline().decode().split()
+        args = [int(v) for v in parts[1:]]
+        if levels >= 0 and (parts[0] != "shape" or len(args) != 3):
+            raise ValueError(f"not an octree ascii body: {parts}")
+        return (MapType(int(fields["map_type"])), tuple(int(v) for v in fields["dims"].split()),
+                float.fromhex(fields["side_length"]), levels, True, args)
+    f.seek(0)
+    header = np.frombuffer(f.read(_HEADER.itemsize), dtype=_HEADER)[0]
+    levels = int(np.frombuffer(f.read(4), "<i4")[0])
+    args = [int(v) for v in np.frombuffer(f.read(4 if levels < 0 else 12), "<i4")]
+    return (MapType(int(header["map_type"])), tuple(int(v) for v in header["dims"]), float(header["side_length"]),
+            levels, False, args)
 
-        body = np.loadtxt(f, dtype=np.int64, ndmin=2) if args[0] else np.zeros((0, 3 + TILE), np.int64)
-        return _paged_from_tiles(map_type, dims, side, body[:, :3], body[:, 3:], device)
-    if parts[0] != "shape" or len(args) != 3:
-        raise ValueError(f"not an octree ascii body: {parts}")
-    fine = np.loadtxt(f, dtype=np.int64, ndmin=2).reshape(args)
-    return _hierarchy_from_fine(map_type, dims, side, levels, fine, device)
+
+def _fine_dtype(map_type):
+    return np.uint8 if map_type == MapType.MT_BITVECTOR_OCTREE else np.int8
+
+
+def is_paged_octree(path) -> bool:
+    """An octree file whose body is the paged tier's (levels field < 0)."""
+    with open(path, "rb") as f:
+        return _octree_head(f)[3] < 0
 
 
 def read_hierarchical_map(path, device=None):
@@ -308,47 +331,65 @@ def read_hierarchical_map(path, device=None):
     card): a negative levels field marks the paged body."""
     device = resolve_device(device)
     with open(path, "rb") as f:
-        if f.read(len(_ASCII_MAGIC)) == _ASCII_MAGIC:
-            f.readline()
-            return _read_octree_ascii(f, device)
-        f.seek(0)
-        header = np.frombuffer(f.read(_HEADER.itemsize), dtype=_HEADER)[0]
-        map_type = MapType(int(header["map_type"]))
-        dims = tuple(int(v) for v in header["dims"])
-        side = float(header["side_length"])
-        levels = int(np.frombuffer(f.read(4), "<i4")[0])
+        map_type, dims, side, levels, ascii, args = _octree_head(f)
         if levels < 0:
             from ..maps.paged import TILE
 
-            n = int(np.frombuffer(f.read(4), "<i4")[0])
+            n = args[0]
+            if ascii:  # one line per tile: its block coords, then its 512 cells
+                body = np.loadtxt(f, dtype=np.int64, ndmin=2) if n else np.zeros((0, 3 + TILE), np.int64)
+                return _paged_from_tiles(map_type, dims, side, body[:, :3], body[:, 3:], device)
             slot_block = np.frombuffer(f.read(n * 12), "<i4").reshape(n, 3)
-            dtype = np.int8 if map_type == MapType.MT_PROBAB_OCTREE else np.uint8
-            pool = np.frombuffer(f.read(n * TILE), dtype).reshape(n, TILE)
+            pool = np.frombuffer(f.read(n * TILE), _fine_dtype(map_type)).reshape(n, TILE)
             return _paged_from_tiles(map_type, dims, side, slot_block, pool, device)
-        shape = tuple(int(v) for v in np.frombuffer(f.read(12), "<i4"))
-        dtype = np.uint8 if map_type == MapType.MT_BITVECTOR_OCTREE else np.int8
-        fine = np.frombuffer(f.read(), dtype).reshape(shape)
+        if ascii:
+            fine = np.loadtxt(f, dtype=np.int64, ndmin=2).reshape(args)
+        else:
+            fine = np.frombuffer(f.read(), _fine_dtype(map_type)).reshape(args)
     return _hierarchy_from_fine(map_type, dims, side, levels, fine, device)
+
+
+def read_hierarchical_slabs(path, devices) -> tuple:
+    """A dense hierarchy's octree file, its fine grid read as len(devices)
+    equal z-slabs, slab k's rows read straight onto devices[k] (one whole
+    part on devices[0] where the padded z extent does not divide):
+    (map_type, dims, side, levels, [uint8 or int8 [zl, Y, X] slabs])."""
+    with open(path, "rb") as f:
+        map_type, dims, side, levels, ascii, args = _octree_head(f)
+        if levels < 0:
+            raise ValueError("a paged octree body has no z-slabs: read_hierarchical_map reads it whole")
+        z, y, x = args
+        if z % len(devices):
+            devices = devices[:1]
+        zl = z // len(devices)
+        dtype = _fine_dtype(map_type)
+        parts = []
+        for device in devices:
+            if ascii:
+                rows = np.loadtxt([f.readline().decode() for _ in range(zl)], dtype=np.int64, ndmin=2)
+                fine = rows.astype(dtype)
+            else:
+                fine = np.frombuffer(f.read(zl * y * x), dtype).copy()
+            parts.append(torch.from_numpy(fine.reshape(zl, y, x)).to(resolve_device(device)))
+    return map_type, dims, side, levels, parts
 
 
 def write_map(m, path) -> None:
     """writeToDisk of any ported map (GpuVoxelsMap.h:200-204): each type to
     its reference format. A ShardedPagedWorld writes the single-device paged
     format (its slabs gathered, as the reference's io.py:397-401 does); a
-    slab-sharded dense map writes the single-device map's bytes slab by
-    slab (its own write_to_disk), a sharded pyramid its gathered map: the
-    bytes the reference writes of its sharded arrays."""
+    slab-sharded dense map or pyramid writes the single-device map's bytes
+    slab by slab (its own write_to_disk): the bytes the reference writes of
+    its sharded arrays."""
     from ..maps.hierarchical import _PyramidQueries
     from ..maps.paged import PagedHierarchicalMap
     from ..maps.voxellist import VoxelList
     from ..parallel.paged_world import ShardedPagedWorld
-    from ..parallel.shard_value import ShardedDenseMap, _ShardedValue
+    from ..parallel.shard_value import _ShardedValue
 
-    if isinstance(m, ShardedDenseMap):
+    if isinstance(m, _ShardedValue):
         m.write_to_disk(path)
         return
-    if isinstance(m, _ShardedValue):
-        m = m.gather()
     if isinstance(m, VoxelList):
         write_voxel_list(m, path)
     elif isinstance(m, ShardedPagedWorld):

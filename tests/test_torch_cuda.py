@@ -913,3 +913,87 @@ def test_facade_round_trip_on_the_card(cuda_device, tmp_path):
         assert card == cpu, name
     for f in (tmp_path / "cpu").glob("*.cubes.json"):
         assert (tmp_path / "cuda" / f.name).read_bytes() == f.read_bytes(), f.name
+
+
+def _hier_pose() -> np.ndarray:
+    """A camera at the centre of the 5.12 m cube's z = 0 face, tilted, looking +z."""
+    from gpu_voxels_tpu_torch.sensors import Sensor
+
+    return Sensor(position=np.asarray([2.5612, 2.5587, 0.0213], np.float32),
+                  orientation_rpy=np.asarray([0.031, -0.027, 0.013], np.float32)).pose()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bit", "prob"])
+def test_sharded_hierarchy_fusion_runs_k3_k6_per_slab(cuda_device, kind):
+    """A 640x480 frame into a sharded 512^3 hierarchy (8 slabs on the card):
+    K3 once a slab at carve_pool 1; at 8, K6's pool once a frame and its
+    carve once a slab; every level (and the occupancy) equals the
+    single-device fusion on the card, and check_tree holds."""
+    from gpu_voxels_tpu_torch.maps import hierarchical
+    from gpu_voxels_tpu_torch.parallel import assert_sharded, make_grid_mesh, shard_map_value
+
+    class Posed:
+        fx, fy, cx, cy, invalid_value = 525.0, 525.0, 320.0, 240.0, 0.0
+
+        def pose(self):
+            return _hier_pose()
+
+    cls = hierarchical.HierarchicalBitMap if kind == "bit" else hierarchical.HierarchicalProbMap
+    mesh = make_grid_mesh(8)
+    rng = np.random.default_rng(12)
+    frame = rng.uniform(0.8, 4.5, (480, 640)).astype(np.float32)
+    frame[100:140, 200:260] = 0.0
+    single = cls.create((512, 512, 512), 0.01, device=cuda_device)
+    sharded = shard_map_value(single, mesh)
+    for pool, want_launches in ((1, {"projective_free_space_exact": 8}),
+                                (8, {"projective_free_space_pooled": 8, "min_pool_depth": 1})):
+        before = dict(raycast_cuda.launches)
+        got = sharded.insert_depth_image(frame, Posed(), carve_pool=pool)
+        ran = {name: n - before[name] for name, n in raycast_cuda.launches.items() if n != before[name]}
+        assert ran == want_launches, (pool, ran)
+        want = single.insert_depth_image(frame, Posed(), carve_pool=pool)
+        assert_sharded(got, mesh)
+        g = got.gather()
+        assert all(torch.equal(a, b) for a, b in zip(g.pyramid, want.pyramid, strict=True)), pool
+        assert kind == "bit" or torch.equal(g.occupancy, want.occupancy)
+        assert got.check_tree() and int(hierarchical.decode_status_flags(want.pyramid[0])[2].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_sharded_pyramid_build_at_1024_on_card(cuda_device):
+    """BASELINE #5's environment (200,000 uniform obstacles at 1024^3, 1.0 m)
+    built on a sharded pyramid, with and without the free box: every level
+    equals the single-device build, and a 400-point robot's colliding
+    voxels over 315 states equal the single-device checker's."""
+    from gpu_voxels_tpu_torch.geometry.pointcloud import MetaPointCloud
+    from gpu_voxels_tpu_torch.maps.hierarchical import HierarchicalBitMap
+    from gpu_voxels_tpu_torch.parallel import assert_sharded, make_grid_mesh, shard_map_value
+    from gpu_voxels_tpu_torch.planning import HierarchicalValidityChecker
+
+    class Translated:
+        def __init__(self, cloud):
+            self.cloud = MetaPointCloud.from_clouds([cloud], device=cuda_device)
+
+        def transformed_clouds_for(self, cfg):
+            from dataclasses import replace
+
+            cfg = torch.as_tensor(cfg, dtype=torch.float32, device=cuda_device)
+            return replace(self.cloud, points=self.cloud.points + cfg[..., None, :])
+
+    rng = np.random.default_rng(5)
+    env = torch.tensor(rng.uniform(0, 1024, (200000, 3)).astype(np.float32), device=cuda_device)
+    robot = Translated(rng.uniform(-2, 2, (400, 3)).astype(np.float32))
+    states = rng.uniform(100.0, 900.0, (315, 3)).astype(np.float32)
+    mesh = make_grid_mesh(8)
+    single = HierarchicalBitMap.create((1024, 1024, 1024), 1.0, device=cuda_device)
+    sharded = shard_map_value(single, mesh)
+    for box in (False, True):
+        got, want = sharded.build(env, box), single.build(env, box)
+        assert_sharded(got, mesh)
+        g = got.gather()
+        assert all(torch.equal(a, b) for a, b in zip(g.pyramid, want.pyramid, strict=True)), box
+        del g
+        counts = HierarchicalValidityChecker(got, robot).batch_colliding_voxels(states)
+        assert np.array_equal(counts, HierarchicalValidityChecker(want, robot).batch_colliding_voxels(states))
+        assert counts.sum() > 0

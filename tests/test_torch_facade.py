@@ -382,17 +382,35 @@ def test_camelcase_alias_tables():
 
 
 def test_multi_device_branch_names_item_13():
-    """The facade's mesh (item 13) builds a slab-sharded value; what that
-    value has no slab form for raises naming ROADMAP item 13b."""
+    """The facade's mesh (item 13) builds a slab-sharded value; its octree x
+    octree collide (item 13b-ii) answers as the single-device map's."""
     from gpu_voxels_tpu_torch.parallel import assert_sharded, make_grid_mesh
 
     g = _port_gvl((8, 8, 8), 1.0)
     mesh = make_grid_mesh(8, devices=["cpu"])
-    sharded = g.add_map(MapType.MT_PROBAB_OCTREE, "sharded", mesh=mesh)
-    assert_sharded(sharded, mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13b"):
-        sharded.collide_with(sharded)  # octree x octree has no slab form
+    g.add_map(MapType.MT_PROBAB_OCTREE, "sharded", mesh=mesh)
     assert isinstance(g.add_map(MapType.MT_PROBAB_OCTREE, "h"), _PyramidQueries)
+    pts = np.asarray([[0.5, 0.5, 0.5], [3.5, 2.5, 6.5], [7.5, 7.5, 7.5]], np.float32)
+    for name in ("sharded", "h"):
+        g.insert_point_cloud_into_map(pts, name)
+    sharded, single = g.get_map("sharded"), g.get_map("h")
+    assert_sharded(sharded, mesh)
+    for level in (0, 2):
+        assert int(sharded.collide_with(sharded, level)) == int(single.collide_with(single, level)) > 0
+
+
+def test_sharded_pyramid_takes_the_camelcase_aliases():
+    """compat.install gives a sharded pyramid the map aliases, as it gives
+    the sharded dense maps: collideWith answers as the single map's."""
+    from gpu_voxels_tpu_torch.parallel import make_grid_mesh, shard_map_value
+    from gpu_voxels_tpu_torch.parallel.shard_value import ShardedPyramid
+
+    single = HierarchicalBitMap.create((16, 16, 16), device="cpu").insert_point_cloud(
+        np.asarray([[1.5, 2.5, 3.5], [9.5, 9.5, 14.5]], np.float32))
+    sharded = shard_map_value(single, make_grid_mesh(8, devices=["cpu"]))
+    assert ShardedPyramid.collideWith is ShardedPyramid.collide_with
+    assert int(sharded.collideWith(single)) == int(single.collideWith(single)) == 2
+    assert int(sharded.insertPointCloud(np.full((1, 3), 5.5, np.float32)).collideWith(single)) == 2
 
 
 def test_mesh_dense_maps_answer_like_the_single_facade(tmp_path):

@@ -33,6 +33,7 @@ from gpu_voxels_tpu_torch.parallel import (ShardedPagedWorld, assert_sharded, bu
                                            build_sharded_paged_probe, make_grid_mesh, reshard_like, shard_map_value)
 from gpu_voxels_tpu_torch.parallel.sharded_edt import build_sharded_edt
 from gpu_voxels_tpu_torch.parallel.sharded_edt_exact import build_sharded_parallel_banding
+from gpu_voxels_tpu_torch.sensors import Sensor as TSensor
 
 
 @pytest.fixture(autouse=True)
@@ -163,16 +164,44 @@ def test_assert_sharded_catches_replication():
         assert_sharded(m, mesh)
     with pytest.raises(AssertionError):  # split over 4 slabs, asserted over 8
         assert_sharded(shard_map_value(m, _mesh(4)), mesh)
-    # a method with no slab form raises, naming its ROADMAP item, never
-    # gathers: a sharded pyramid's depth insert (item 13b-ii)
+    # a sharded pyramid's depth insert (item 13b-ii) answers as the
+    # single-device call, slab by slab, and stays sharded
     h = TH.HierarchicalProbMap.create(DIMS, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        shard_map_value(h, mesh).insert_depth_image(np.ones((4, 4), np.float32), None)
+    sensor = TSensor(position=np.asarray([8.0, 8.0, 0.0], np.float32), data_width=8, data_height=6, fx=4.0, fy=4.0,
+                     cx=4.1, cy=3.1)
+    depth = np.full((6, 8), 20.3, np.float32)
+    got, want = shard_map_value(h, mesh).insert_depth_image(depth, sensor), h.insert_depth_image(depth, sensor)
+    assert_sharded(got, mesh)
+    assert torch.equal(got.gather().occupancy, want.occupancy) and not torch.equal(want.occupancy, h.occupancy)
+    assert all(torch.equal(a, b) for a, b in zip(got.gather().pyramid, want.pyramid, strict=True))
     # a dense map's slab form answers as the single-device call
     pts = _cloud(2, 12) + 0.25
     got = shard_map_value(m, mesh).insert_sensor_data(torch.tensor(pts), sensor_origin=(8.1, 7.9, 0.6))
     assert_sharded(got, mesh)
     assert torch.equal(got.gather().data, m.insert_sensor_data(torch.tensor(pts), sensor_origin=(8.1, 7.9, 0.6)).data)
+
+
+@pytest.mark.parametrize("cls_name", ["HierarchicalBitMap", "HierarchicalProbMap"])
+def test_sharded_pyramid_is_an_octree_operand(cls_name):
+    """A sharded pyramid given as the other operand is an octree, as the
+    reference's sharded value is: a voxel list, a plain pyramid and a paged
+    octree collide with it as with the single-device pyramid (the list and
+    the paged map by their probes of it, the plain pyramid by the
+    hierarchy intersection, which takes no offset)."""
+    mesh = _mesh()
+    cls = getattr(TH, cls_name)
+    single = cls.create(DIMS, device="cpu").insert_point_cloud(torch.tensor(_cloud(3, 11)))
+    sharded = shard_map_value(single, mesh)
+    plain = cls.create(DIMS, device="cpu").insert_point_cloud(torch.tensor(_cloud(6, 14)))
+    lst = TL.VoxelList.create(DIMS, 1.0, "bit", 1024, device="cpu").insert_point_cloud(torch.tensor(_cloud(5, 9)))
+    paged = TP.PagedHierarchicalMap((64, 64, 64), 1.0, device="cpu").insert_point_cloud(torch.tensor(_cloud(7, 12)))
+    for level in (0, 1):
+        assert int(plain.collide_with(sharded, level)) == int(plain.collide_with(single, level)) > 0
+        assert int(paged.collide_with(sharded, level)) == int(paged.collide_with(single, level)) > 0
+    assert int(lst.collide_with(sharded, offset=(1, 0, 2))) == int(lst.collide_with(single, offset=(1, 0, 2))) > 0
+    assert int(lst.collide_with(sharded)) == int(lst.collide_with(single)) == 64
+    with pytest.raises(ValueError, match="offset"):
+        plain.collide_with(sharded, offset=(1, 0, 0))
 
 
 def test_dimz_must_divide_mesh():

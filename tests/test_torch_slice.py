@@ -198,8 +198,8 @@ def test_left_out_methods_raise(tmp_path, monkeypatch):
     b = TBit.create((4, 4, 4), device="cpu")
     # what item 12 brought: URDF robots, the map dump, the facade's and the
     # Provider's visualization, each as the reference's; item 13 the
-    # facade's mesh, whose sharded values raise (item 13b) where a method
-    # has no slab form: the pyramids' (13b-ii), not the dense maps' (13b-i)
+    # facade's mesh, whose sharded values answer as the single-device maps
+    # (the dense maps' slab forms, item 13b-i; the pyramids', 13b-ii)
     monkeypatch.setenv("GPU_VOXELS_VIS_DIR", str(tmp_path / "vis"))
     urdf = pathlib.Path(__file__).resolve().parent.parent / "examples" / "models" / "pan_tilt.urdf"
     tg, jg = TGvl(), JGvl()
@@ -222,8 +222,12 @@ def test_left_out_methods_raise(tmp_path, monkeypatch):
     assert torch.equal(got.gather().data, TProb.create((4, 4, 4), device="cpu").insert_sensor_data(
         pts, sensor_origin=(0.5, 0.5, 0.5)).data)
     octree = tg.add_map(MapType.MT_PROBAB_OCTREE, "sharded_octree", mesh=make_grid_mesh(4, devices=["cpu"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13b"):
-        octree.insert_depth_image(np.ones((2, 2), np.float32), tsens.Sensor())
+    camera = tsens.Sensor(position=np.asarray([2.0, 2.0, 0.0], np.float32), data_width=2, data_height=2, fx=1.0,
+                          fy=1.0, cx=1.1, cy=1.1)
+    got = octree.insert_depth_image(np.full((2, 2), 3.3, np.float32), camera).gather()
+    want = tg.add_map(MapType.MT_PROBAB_OCTREE, "octree").insert_depth_image(np.full((2, 2), 3.3, np.float32), camera)
+    assert torch.equal(got.occupancy, want.occupancy) and int((want.occupancy != -128).sum()) > 0
+    assert all(torch.equal(a, b) for a, b in zip(got.pyramid, want.pyramid, strict=True))
     # what earlier slices left out and the dense-map tier now has: the disk
     # files (item 9) among them
     assert b.write_to_disk(tmp_path / "b.bin") and torch.equal(b.read_from_disk(tmp_path / "b.bin").data, b.data)
