@@ -172,7 +172,15 @@ non-zero and prints no result. Phases, each an assert or an exception:
      extract_occupied_coords, memory_usage and the file on the fused bit
      pyramid, and the facade's mesh octree saved and loaded: every answer
      equal to the single-device call on the card, the files to the single
-     maps'. The JFA's repair flags, the checker, check_tree, the
+     maps'; and (u) the collision matrix's 256^3 scene (path 8's, 300,000
+     points a map) with every shardable operand (prob, bit, hierbit,
+     hierprob) sharded over the 8 slabs: every pyramid, list, dense map,
+     paged map and paged world taking a sharded operand, both orders where
+     the reference answers both, the refused pairs' TypeError message that
+     of the single call, and extract_cubes of the sharded maps, each answer
+     equal to the single-device pair and every count to the set oracle,
+     launches counted around (u) alone (K1, K2, K4, K7 once per run of
+     slabs, no kernel for the probes). The JFA's repair flags, the checker, check_tree, the
      extractions, the paged allocations and the files read the device on
      purpose;
    - the examples path (K1, K3, K4, K5, K6): the 19 programs of
@@ -281,6 +289,7 @@ from gpu_voxels_tpu_torch.parallel import (ShardedPagedWorld, assert_sharded, bu
                                            build_sharded_hier_probe, build_sharded_list_collide,
                                            build_sharded_paged_probe, build_sharded_sensor_cycle, make_grid_mesh,
                                            shard_map_value)
+from gpu_voxels_tpu_torch.parallel.shard_value import ShardedDenseMap
 from gpu_voxels_tpu_torch.parallel.sharded_edt import build_sharded_edt
 from gpu_voxels_tpu_torch.parallel.sharded_edt_exact import build_sharded_parallel_banding
 from gpu_voxels_tpu_torch.planning import (GvlValidityChecker, HierarchicalValidityChecker, JointSpace, MotionValidator,
@@ -2755,6 +2764,8 @@ def multidevice_path(dev: torch.device, out: dict, robot: dict, dist: dict, oc: 
     md["forms"] = dense_slab_forms(dev, mesh, out, md)
     # (p-t) every hierarchy method's slab form; (p)'s launches counted alone
     md["pyramids"] = pyramid_slab_forms(dev, mesh, out, md, oc)
+    # (u) sharded values as operands of every tier; its launches counted alone
+    md["operands"] = operand_matrix(dev, mesh)
     return md
 
 
@@ -3049,6 +3060,7 @@ def check_multidevice_path(md: dict, dev: torch.device, out: dict, robot: dict, 
         f"save_map -> load_map: files == the single-device maps', reloaded equal")
     check_dense_slab_forms(md, dev, out, dist)
     check_pyramid_slab_forms(md, dev, out, oc)
+    check_operand_matrix(md, dev)
 
 
 def gathered(m, mesh) -> torch.Tensor:
@@ -3182,6 +3194,198 @@ def check_pyramid_slab_forms(md: dict, dev: torch.device, out: dict, oc: dict) -
         f"save_map -> load_map == the single-device map's file and map")
 
 
+# (u): the pairs whose sharded operand is a dense map or a pyramid, per
+# fault family of ROADMAP Queue 3 (F26 a pyramid probing a sharded dense map,
+# F27 a plain dense map against a sharded one, F28 a voxel list against a
+# sharded dense map, F29 the paged tiers against a sharded dense map)
+OPERAND_SHARDABLE = ("prob", "bit", "hierbit", "hierprob")
+OPERAND_LISTS = {"bitlist": ("bit", "linear"), "mortonlist": ("bit", "morton"), "problist": ("prob", "linear"),
+                 "countlist": ("count", "linear")}
+OPERAND_SV = (10, 12)  # the swept-volume pair's meanings, two steps apart
+OPERAND_WORLD_SLABS = 4  # the 256^3 ShardedPagedWorld: 64-deep slabs, one page row each
+# (u)'s launches: K1 prob x prob, K2 the marking, K4 the types collide and the
+# bit check, K7 the raw-plane pair, each once per slab in both orders
+OPERAND_LAUNCHES = {"count_prob_prob": 16, "count_and_mark_prob": 16, "collide_types_bit_bit": 32,
+                    "count_bit_bit": 16}
+
+
+def operand_scene(dev: torch.device, mesh) -> dict:
+    """Path 8's collision-matrix scene at MATRIX_DIMS: the A and B maps of
+    every tier (bit maps also as raw planes, K7's operands, and with
+    swept-volume meanings two steps apart, K4's), a paged map and a
+    ShardedPagedWorld of A, and the shardable maps sharded over `mesh`."""
+    a, b = matrix_scene()
+    maps, clouds = {}, {"A": to_device(a, torch.float32, dev), "B": to_device(b, torch.float32, dev)}
+    for side, pts in clouds.items():
+        for name, cls in (("prob", ProbVoxelMap), ("bit", BitVectorVoxelMap), ("hierbit", HierarchicalBitMap),
+                          ("hierprob", HierarchicalProbMap)):
+            maps[side, name] = cls.create(MATRIX_DIMS, 1.0, device=dev).insert_point_cloud(pts)
+        for name, (kind, mode) in OPERAND_LISTS.items():
+            maps[side, name] = VoxelList.create(MATRIX_DIMS, 1.0, kind=kind, id_mode=mode,
+                                                device=dev).insert_point_cloud(pts)
+        maps[side, "raw"] = raw_planes(maps[side, "bit"])
+        maps[side, "sv"] = BitVectorVoxelMap.create(MATRIX_DIMS, 1.0, device=dev).insert_point_cloud(
+            pts, OPERAND_SV[side == "B"])
+    with host_reads():  # the paged inserts allocate
+        maps["A", "paged"] = PagedHierarchicalMap(MATRIX_DIMS, 1.0, device=dev).insert_point_cloud(clouds["A"])
+        maps["A", "world"] = ShardedPagedWorld(MATRIX_DIMS, 1.0, devices=[dev] * OPERAND_WORLD_SLABS)
+        maps["A", "world"].insert_point_cloud(clouds["A"])
+    sharded = {key: shard_map_value(m, mesh) for key, m in maps.items() if key[1] in OPERAND_SHARDABLE + ("raw", "sv")}
+    return {"maps": maps, "sharded": sharded, "oracle": matrix_oracle(a, b)}
+
+
+def operand_cases(sc: dict) -> list:
+    """(label, (self, other) with the sharded operand, (self, other)
+    single-device, call, keyword arguments, whether the count is the set
+    oracle's): every call of F26-F29, in both orders where the reference
+    answers both."""
+    m, s = sc["maps"], sc["sharded"]
+    cases = []
+    for tier in ("hierbit", "hierprob"):  # F26
+        for other in ("prob", "bit"):
+            for call in ("collide_with", "collide_with_resolution", "collide_with_counting_unknown"):
+                for label, mine in (("plain", m["A", tier]), ("sharded", s["A", tier])):
+                    cases.append((f"F26 {label} {tier} x sharded {other} {call}", (mine, s["B", other]),
+                                  (m["A", tier], m["B", other]), call, {}, True))
+    pairs = [("prob", "prob", "collide_with", {}, True), ("prob", "bit", "collide_with", {}, True),
+             ("bit", "bit", "collide_with", {}, True), ("bit", "prob", "collide_with", {}, True),
+             ("raw", "raw", "collide_with", {}, True), ("prob", "prob", "collide_with_resolution", {}, True),
+             ("prob", "bit", "collide_with_resolution", {}, True), ("bit", "bit", "collide_with_resolution", {}, True),
+             ("bit", "prob", "collide_with_resolution", {}, True), ("prob", "prob", "collide_with_marking", {}, True),
+             ("sv", "sv", "collide_with_types", {"sv_window": 2}, True), ("sv", "prob", "collide_with_types", {}, False),
+             ("sv", "sv", "collide_with_bitcheck", {"margin": 2}, True), ("prob", "prob", "merge", {}, False),
+             ("bit", "sv", "merge", {}, False), ("sv", "bit", "merge", {"new_meaning": 20}, False)]
+    for x, y, call, kw, oracle in pairs:  # F27, both orders
+        cases.append((f"F27 {x} x sharded {y} {call}", (m["A", x], s["B", y]), (m["A", x], m["B", y]), call, kw,
+                      oracle))
+        cases.append((f"F27 sharded {x} x {y} {call}", (s["A", x], m["B", y]), (m["A", x], m["B", y]), call, kw,
+                      oracle))
+    for lst in OPERAND_LISTS:  # F28
+        for other in ("prob", "bit"):
+            for call in ("collide_with", "collide_with_resolution", "collide_with_dense"):
+                cases.append((f"F28 {lst} x sharded {other} {call}", (m["A", lst], s["B", other]),
+                              (m["A", lst], m["B", other]), call, {}, True))
+    for other in ("prob", "bit"):  # F29
+        cases.append((f"F29 paged x sharded {other}", (m["A", "paged"], s["B", other]),
+                      (m["A", "paged"], m["B", other]), "collide_with", {}, True))
+        cases.append((f"F29 world x sharded {other}", (m["A", "world"], s["B", other]),
+                      (m["A", "paged"], m["B", other]), "collide_with", {}, True))
+    return cases
+
+
+def operand_refusals(sc: dict) -> list:
+    """(label, the single call's TypeError message, the sharded forms'):
+    dense x list and dense x octree (tests/test_collision_matrix.py:40-44)."""
+    m, s = sc["maps"], sc["sharded"]
+    out = []
+    for x in ("prob", "bit"):
+        for y in tuple(OPERAND_LISTS) + ("hierbit", "hierprob", "paged"):
+            other = m["A", "paged"] if y == "paged" else m["B", y]
+            pairs = [(m["A", x], other), (s["A", x], other)]
+            if y in OPERAND_SHARDABLE:
+                pairs += [(m["A", x], s["B", y]), (s["A", x], s["B", y])]
+            messages = []
+            for mine, other in pairs:
+                try:
+                    mine.collide_with(other)
+                except TypeError as e:
+                    messages.append(str(e))
+                else:
+                    raise AssertionError(f"{x} x {y} must raise TypeError")
+            out.append((f"{x} x {y}", messages[0], messages[1:]))
+    return out
+
+
+def operand_matrix(dev: torch.device, mesh) -> dict:
+    """(u) sharded values as operands of every tier at MATRIX_DIMS: every
+    call of operand_cases with its sharded operand (launches counted around
+    them alone) and single-device, the refusals, and extract_cubes of each
+    sharded map beside the single map's (host reads on purpose)."""
+    sc = operand_scene(dev, mesh)
+    cases = operand_cases(sc)
+    got, launches = counted(lambda: [getattr(x, call)(y, **kw) for _, (x, y), _, call, kw, _ in cases])
+    want = [getattr(x, call)(y, **kw) for _, _, (x, y), call, kw, _ in cases]
+    sc.update(cases=cases, got=got, want=want, launches=launches, refusals=operand_refusals(sc))
+    with host_reads():
+        sc["cubes"] = {k: (vis_extract.extract_cubes(sc["sharded"]["A", k]), vis_extract.extract_cubes(
+            sc["maps"]["A", k])) for k in OPERAND_SHARDABLE + ("sv",)}
+    return sc
+
+
+def same_operand_answer(got, want) -> bool:
+    """A (u) answer against the single-device one: counts, meanings and maps
+    (a sharded self's map still sharded, joined for the compare) exactly."""
+    if isinstance(want, tuple):
+        return isinstance(got, tuple) and len(got) == len(want) and all(
+            same_operand_answer(g, w) for g, w in zip(got, want))
+    if isinstance(want, torch.Tensor):
+        return got.device == want.device and torch.equal(got, want)
+    if isinstance(got, ShardedDenseMap):
+        got = got.gather()
+    elif type(got) is not type(want):
+        return False
+    occ = getattr(want, "occ", None)
+    return torch.equal(got.data, want.data) and (occ is None or torch.equal(got.occ, occ))
+
+
+def check_operand_matrix(md: dict, dev: torch.device) -> None:
+    """(u)'s answers against the single-device calls and the set oracle."""
+    sc = md["operands"]
+    oracle = sc["oracle"]
+    for (label, _, _, _, _, is_oracle), got, want in zip(sc["cases"], sc["got"], sc["want"]):
+        assert same_operand_answer(got, want), label
+        if is_oracle:
+            assert int(count_of(got)) == oracle, (label, int(count_of(got)), oracle)
+    for label, single, sharded in sc["refusals"]:
+        assert all(m == single for m in sharded), (label, single, sharded)
+    for k, (got, want) in sc["cubes"].items():
+        assert all(np.array_equal(g, w) for g, w in zip(got, want)) and len(want[0]) > 0, k
+    ran = {name: count for name, count in sc["launches"].items() if count}
+    assert ran == OPERAND_LAUNCHES, ran
+    log(f"  (u) the {MATRIX_DIMS[0]}^3 collision matrix with prob, bit, hierbit and hierprob sharded over "
+        f"{MD_SLABS} slabs: {len(sc['cases'])} calls (F26-F29, both orders where the reference answers both) == "
+        f"the single-device pairs, every count == the set oracle {oracle}; {len(sc['refusals'])} refused pairs "
+        f"raise the single call's TypeError; extract_cubes of {len(sc['cubes'])} sharded maps == the single maps' "
+        f"({len(sc['cubes']['bit'][1][0])} cubes a map); launches counted around (u) alone {ran}")
+
+
+def operand_timings(md: dict) -> list:
+    """(label, sharded ms, single-device ms) of one call per fault family of
+    (u), the sharded operand beside the single-device pair on the same card
+    (the host clock's share where the call reads the device)."""
+    sc = md["operands"]
+    m, s = sc["maps"], sc["sharded"]
+    rows = []
+    for label, (x, y), (sx, sy), call, kw in (
+            ("F26 HierarchicalBitMap x sharded prob map, collide_with (the probe)",
+             (m["A", "hierbit"], s["B", "prob"]), (m["A", "hierbit"], m["B", "prob"]), "collide_with", {}),
+            ("F26 sharded HierarchicalProbMap x sharded bit map, collide_with_counting_unknown",
+             (s["A", "hierprob"], s["B", "bit"]), (m["A", "hierprob"], m["B", "bit"]),
+             "collide_with_counting_unknown", {}),
+            ("F27 prob x sharded prob, collide_with (K1 per slab)", (m["A", "prob"], s["B", "prob"]),
+             (m["A", "prob"], m["B", "prob"]), "collide_with", {}),
+            ("F27 prob x sharded prob, collide_with_marking (K2 per slab)", (m["A", "prob"], s["B", "prob"]),
+             (m["A", "prob"], m["B", "prob"]), "collide_with_marking", {}),
+            ("F27 bit x sharded bit, collide_with_types window 2 (K4 per slab)", (m["A", "sv"], s["B", "sv"]),
+             (m["A", "sv"], m["B", "sv"]), "collide_with_types", {"sv_window": 2}),
+            ("F27 raw planes x sharded raw planes, collide_with (K7 per slab)", (m["A", "raw"], s["B", "raw"]),
+             (m["A", "raw"], m["B", "raw"]), "collide_with", {}),
+            ("F28 bit list x sharded bit map, collide_with", (m["A", "bitlist"], s["B", "bit"]),
+             (m["A", "bitlist"], m["B", "bit"]), "collide_with", {}),
+            ("F28 bit list x sharded bit map, collide_with_resolution level 3", (m["A", "bitlist"], s["B", "bit"]),
+             (m["A", "bitlist"], m["B", "bit"]), "collide_with_resolution", {"resolution_level": 3}),
+            ("F29 paged x sharded prob map, collide_with", (m["A", "paged"], s["B", "prob"]),
+             (m["A", "paged"], m["B", "prob"]), "collide_with", {})):
+        rows.append((f"(u) {MATRIX_DIMS[0]}^3 {label}", time_ms(lambda: getattr(x, call)(y, **kw), 5),
+                     time_ms(lambda: getattr(sx, call)(sy, **kw), 5)))
+    with host_reads():
+        for k in ("prob", "bit"):
+            rows.append((f"(u) F30 extract_cubes of the {MATRIX_DIMS[0]}^3 {k} map (host reads)",
+                         time_ms(lambda: vis_extract.extract_cubes(s["A", k]), 3, warmup=1),
+                         time_ms(lambda: vis_extract.extract_cubes(m["A", k]), 3, warmup=1)))
+    return rows
+
+
 def multidevice_timings(dev: torch.device, smi: str, md: dict, out: dict, robot: dict, dist: dict, oc: dict) -> None:
     """Phase 4's times of path 9 (printed, never asserted): each sharded call
     beside its single-device call on the same card (CUDA events; the host
@@ -3256,6 +3460,7 @@ def multidevice_timings(dev: torch.device, smi: str, md: dict, out: dict, robot:
     rows.append((label + " (host clock)", w_ms, s_ms))
     rows += dense_form_timings(dev, mesh, md, out, robot)
     rows += pyramid_form_timings(dev, mesh, md, out, oc)
+    rows += operand_timings(md)
     for label, sharded_ms, single_ms in rows:
         log(f"  path 9 {label}: sharded {sharded_ms:.4f} ms, single-device {single_ms:.4f} ms  [{smi}]")
 

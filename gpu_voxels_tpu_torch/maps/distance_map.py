@@ -21,7 +21,7 @@ from ..ops import edt, edt_envelope
 from ..ops import insert as insert_ops
 from ..utils import resolve_device, to_device
 from ..utils.logging import log_stream
-from .voxelmap import ProbVoxelMap, _DenseMap, _n
+from .voxelmap import ProbVoxelMap, _DenseMap, _n, takes_sharded_operand
 
 _log = log_stream("voxelmap")
 
@@ -74,6 +74,7 @@ class DistanceVoxelMap(_DenseMap):
         mask = insert_ops.occupancy_mask(idx, self.voxelmap_size).bool()
         return self._with_obstacles(mask)
 
+    @takes_sharded_operand
     def merge_occupied(self, prob_map: ProbVoxelMap, occupancy_threshold: float = 0.5) -> "DistanceVoxelMap":
         """mergeOccupied (DistanceVoxelMap.h:86-122): the prob map's occupied
         voxels become obstacles."""
@@ -167,6 +168,7 @@ class DistanceVoxelMap(_DenseMap):
     def obstacle_mask(self) -> torch.Tensor:
         return self.squared_distances().reshape(-1) == 0
 
+    @takes_sharded_operand
     def differences(self, other: "DistanceVoxelMap") -> torch.Tensor:
         """differences3D cross-check (testing_distance.cu:79-119), a 0-d
         int64 count."""

@@ -162,33 +162,45 @@ def descend(pyramid, levels: int, stop: int, x: torch.Tensor, y: torch.Tensor, z
     return status
 
 
-def full_grid_coords(dims: Dims, device) -> torch.Tensor:
-    """int32[N, 3] (x, y, z) of every voxel of a dense map, in linear order."""
+def full_grid_coords(dims: Dims, device, z_offset: int = 0) -> torch.Tensor:
+    """int32[N, 3] (x, y, z) of every voxel of a dense map, in linear order;
+    with `z_offset` z0 the map is the z-slab [z0, z0 + dims[2]) of a larger
+    one, its z shifted as an integer."""
     dx, dy, _ = dims
     lin = torch.arange(dims[0] * dims[1] * dims[2], dtype=torch.int64, device=device)
     zz = lin // (dx * dy)
     rem = lin - zz * (dx * dy)
-    return torch.stack([rem % dx, rem // dx, zz], dim=-1).to(torch.int32)
+    return torch.stack([rem % dx, rem // dx, zz + z_offset], dim=-1).to(torch.int32)
 
 
-def query_coords_of(other):
-    """(coords, valid and occupied mask) of the map an octree is probed
-    against: the intersect_sparse input enumeration. A voxel list yields its
-    entries (its padding is invalid); a dense map yields its whole index
-    space, masked by the octree probe's occupancy rule (prob occ >= 50,
-    hard-coded in kernel_common.h:172-183; a bit voxel !isZero)."""
+def probe_occupied(m, idx=None) -> torch.Tensor:
+    """The octree probe's occupancy rule on a dense map's voxels (every
+    voxel, or those at flat indices `idx`): prob occ >= 50, hard-coded in
+    kernel_common.h:172-183; a bit voxel !isZero, not noneButEmpty."""
+    from .voxelmap import BitVectorVoxelMap, ProbVoxelMap
+
+    if isinstance(m, ProbVoxelMap):
+        return (m.data if idx is None else m.data[idx]).to(torch.int32) >= 50
+    if isinstance(m, BitVectorVoxelMap):
+        return ~bitops.is_zero(m.data if idx is None else m.data[:, idx])
+    raise TypeError(type(m))
+
+
+def query_parts_of(other) -> list:
+    """(coords, valid and occupied mask) per part of the map an octree is
+    probed against: the intersect_sparse input enumeration. A voxel list
+    yields its entries (its padding is invalid); a dense map its whole index
+    space masked by `probe_occupied`, a sharded one slab by slab in global
+    coordinates (parallel/shard_value.operand_slabs), never gathered."""
+    from ..parallel.shard_value import operand_class, operand_slabs
     from .voxellist import VoxelList
     from .voxelmap import BitVectorVoxelMap, ProbVoxelMap
 
     if isinstance(other, VoxelList):
-        return other.entry_coords(), (other.keys != other.empty) & other._entry_occupied()
-    if isinstance(other, ProbVoxelMap):
-        mask = other.data.to(torch.int32) >= 50
-    elif isinstance(other, BitVectorVoxelMap):
-        mask = ~bitops.is_zero(other.data)  # !isZero, not noneButEmpty
-    else:
-        raise TypeError(type(other))
-    return full_grid_coords(other.dims, other.device), mask
+        return [(other.entry_coords(), (other.keys != other.empty) & other._entry_occupied())]
+    if not issubclass(operand_class(other), (ProbVoxelMap, BitVectorVoxelMap)):
+        raise TypeError(operand_class(other))
+    return [(full_grid_coords(slab.dims, dev, z0), probe_occupied(slab)) for slab, z0, dev in operand_slabs(other)]
 
 
 def meta_first_meaning(meanings):
@@ -289,6 +301,15 @@ def count_probe_hits(probe, coords: torch.Tensor, valid: torch.Tensor, dims: Dim
     return (occ & live).sum(dtype=torch.int64), (unk & live).sum(dtype=torch.int64)
 
 
+def count_part_hits(probe, parts: list, device, dims: Dims, min_level: int, offset):
+    """count_probe_hits over `query_parts_of` parts, each part's coords
+    moved to the probed map's `device`, the counts summed there."""
+    hits = [count_probe_hits(probe, c.to(device), v.to(device), dims, min_level, offset) for c, v in parts]
+    if len(hits) == 1:
+        return hits[0]
+    return tuple(torch.stack([h[i] for h in hits]).sum() for i in (0, 1))
+
+
 class _PyramidQueries(DiskIO):
     """Probe and collide machinery of the dense hierarchical tiers, on
     self.pyramid / self.levels / self.dims only."""
@@ -325,8 +346,8 @@ class _PyramidQueries(DiskIO):
     def _collide_probe(self, other, min_level: int = 0, offset=(0, 0, 0)):
         """Probe self at other's voxel coords + offset: (occupied hits,
         unknown hits)."""
-        coords, valid = query_coords_of(other)
-        return count_probe_hits(self.probe_clamped, coords, valid, self.dims, int(min_level), offset)
+        return count_part_hits(self.probe_clamped, query_parts_of(other), self.device, self.dims, int(min_level),
+                               offset)
 
     def collide_with(self, other, min_level: int = 0, offset=(0, 0, 0)) -> torch.Tensor:
         """collideWith dispatch (GvlNTree.hpp:150-330): octree x list or

@@ -48,7 +48,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .. import bitops
 from ..constants import (MAX_PROBABILITY, MIN_PROBABILITY, SENSOR_MODEL_FREE, SENSOR_MODEL_OCCUPIED,
                          UNKNOWN_PROBABILITY, BitVoxelMeaning, MapType, meaning_to_probability)
 from ..geometry import transforms
@@ -60,7 +59,8 @@ from ..utils.logging import log_stream
 from .hierarchical import (NS_DYNAMIC_MAP, NS_FREE, NS_OCCUPIED, NS_STATIC_MAP, NS_UNKNOWN,
                            STATUS_OCCUPANCY_MASK, U8, _build_pyramid, _is_sharded_pyramid, _is_uniform, _num_levels,
                            _pad_dims, _PyramidQueries, _reject_octree_offset, _status_from_occupancy,
-                           count_probe_hits, decode_status_flags, descend, meta_first_meaning, query_coords_of)
+                           count_part_hits, count_probe_hits, decode_status_flags, descend, meta_first_meaning,
+                           probe_occupied, query_parts_of)
 
 _log = log_stream("octree")
 
@@ -386,8 +386,7 @@ def _count_probe_hits(snap: PagedSnapshot, coords, valid, min_level: int, offset
 
 
 def _paged_collide_list(snap: PagedSnapshot, lst, min_level: int, offset):
-    coords, valid = query_coords_of(lst)
-    return _count_probe_hits(snap, coords, valid, min_level, offset)
+    return count_part_hits(snap.probe_clamped, query_parts_of(lst), snap.device, snap.dims, min_level, offset)
 
 
 def _paged_collide_coords(snap: PagedSnapshot, coords, min_level: int, offset):
@@ -417,26 +416,22 @@ def _paged_collide_hier(snap: PagedSnapshot, hier, min_level: int, offset) -> to
 
 def _paged_collide_dense_probed(snap: PagedSnapshot, other, min_level: int, offset):
     """Paged octree x dense map at any level: self probed at every map voxel
-    + offset (the literal intersect_sparse direction)."""
-    coords, valid = query_coords_of(other)
-    return _count_probe_hits(snap, coords, valid, min_level, offset)
+    + offset (the literal intersect_sparse direction), a sharded map slab by
+    slab."""
+    return count_part_hits(snap.probe_clamped, query_parts_of(other), snap.device, snap.dims, min_level, offset)
 
 
 def _paged_collide_dense(snap: PagedSnapshot, other, offset) -> torch.Tensor:
     """Paged octree x dense voxel map at level 0 (intersect_load_balance
-    (ProbVoxelMap&), NTree.hpp:1006): self's occupied set gathers the map.
-    Map occupancy is the octree probe's rule: prob occ >= 50
-    (kernel_common.h:172-183), a bit voxel !isZero."""
-    from .voxelmap import ProbVoxelMap
+    (ProbVoxelMap&), NTree.hpp:1006): self's occupied set gathers the map,
+    a sharded map each cell from the slab that owns it. Map occupancy is the
+    octree probe's rule (`probe_occupied`)."""
+    from ..parallel.shard_value import take_from_slabs
 
     coords, valid = snap.occupied_cells()
     c = shifted(coords, offset, -1)
     lin = linear_index(clamp_coords(c, other.dims), other.dims)
-    if isinstance(other, ProbVoxelMap):
-        occ_map = other.data[lin].to(torch.int32) >= 50
-    else:
-        occ_map = ~bitops.is_zero(other.data[:, lin])
-    return (occ_map & valid & in_map(c, other.dims)).sum(dtype=torch.int64)
+    return (take_from_slabs(other, lin, probe_occupied) & valid & in_map(c, other.dims)).sum(dtype=torch.int64)
 
 
 class PagedHierarchicalMap(DiskIO):
@@ -750,6 +745,7 @@ class PagedHierarchicalMap(DiskIO):
         NTree.hpp:1006), at coarser levels probed voxel by voxel; an octree
         (paged or dense, a sharded pyramid too) is intersected without an
         offset."""
+        from ..parallel.shard_value import operand_class
         from .voxellist import VoxelList
         from .voxelmap import BitVectorVoxelMap, ProbVoxelMap
 
@@ -762,7 +758,7 @@ class PagedHierarchicalMap(DiskIO):
         if isinstance(other, _PyramidQueries) or _is_sharded_pyramid(other):
             _reject_octree_offset(off)
             return _paged_collide_hier(self.snapshot(), other, min_level, (0, 0, 0))
-        if isinstance(other, (ProbVoxelMap, BitVectorVoxelMap)):
+        if issubclass(operand_class(other), (ProbVoxelMap, BitVectorVoxelMap)):
             if min_level == 0:
                 return _paged_collide_dense(self.snapshot(), other, off)
             return _paged_collide_dense_probed(self.snapshot(), other, min_level, off)[0]

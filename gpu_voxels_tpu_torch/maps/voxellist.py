@@ -444,13 +444,14 @@ class VoxelList(DiskIO):
         (CollidableWithBitVectorOctree, CollisionInterfaces.h:231-243: the
         reference implements it only inside GvlNTree; a sharded pyramid is
         an octree too)."""
+        from ..parallel.shard_value import operand_class
         from .hierarchical import _is_sharded_pyramid, _PyramidQueries
         from .paged import PagedHierarchicalMap
         from .voxelmap import BitVectorVoxelMap, ProbVoxelMap
 
         if isinstance(other, (_PyramidQueries, PagedHierarchicalMap)) or _is_sharded_pyramid(other):
             return other.collide_with(self, offset=offset)
-        if isinstance(other, (BitVectorVoxelMap, ProbVoxelMap)):
+        if issubclass(operand_class(other), (BitVectorVoxelMap, ProbVoxelMap)):
             return self.collide_with_dense(other, offset=offset)
         if isinstance(other, VoxelList):
             if other.id_mode != self.id_mode:
@@ -487,6 +488,7 @@ class VoxelList(DiskIO):
         ones = torch.ones((1,), dtype=torch.bool, device=self.device)
         first = torch.cat([ones, keys_a[1:] != keys_a[:-1]]) & (keys_a != _COARSE_EMPTY)
 
+        from ..parallel.shard_value import operand_class, operand_slabs
         from .voxelmap import BitVectorVoxelMap, ProbVoxelMap
 
         if isinstance(other, VoxelList):
@@ -496,19 +498,32 @@ class VoxelList(DiskIO):
             keys_b, _ = torch.sort(other._coarse_keys(other.entry_coords(), lvl, valid_b))
             pos = torch.searchsorted(keys_b, keys_a).clamp_(0, other.capacity - 1)
             return (first & (keys_b[pos] == keys_a)).sum(dtype=torch.int64)
-        if isinstance(other, ProbVoxelMap):
-            mask = collide_ops.prob_occupied(other.data, float_to_probability(coll_threshold))
-        elif isinstance(other, BitVectorVoxelMap):
-            mask = other.occupied_mask()
-        else:
-            raise TypeError(f"cannot collide VoxelList with {type(other)}")
+        cls = operand_class(other)
+        if not issubclass(cls, (ProbVoxelMap, BitVectorVoxelMap)):
+            raise TypeError(f"cannot collide VoxelList with {cls}")
+        sc = 1 << lvl
         dx, dy, dz = other.dims
-        pooled = collide_ops.or_pool(mask.reshape(dz, dy, dx), lvl)
-        pz, py, px = pooled.shape
+        pz, py, px = -(-dz // sc), -(-dy // sc), -(-dx // sc)
         c = (coords_a >> lvl).to(torch.int64)
         in_map = valid_a & torch.all(c >= 0, dim=-1) & (c[:, 0] < px) & (c[:, 1] < py) & (c[:, 2] < pz)
-        flat = (c[:, 2] * (py * px) + c[:, 1] * px + c[:, 0]).clamp(0, pz * py * px - 1)
-        hit = pooled.reshape(-1)[flat] & in_map
+        hit = torch.zeros_like(in_map)
+        # the map OR-pooled slab by slab (one slab for a plain map): a slab's
+        # first cube padded below it with the rows of the slabs before, so a
+        # cube a slab boundary cuts is the OR of the slabs' partial cubes
+        for slab, z0, dev in operand_slabs(other):
+            if cls is ProbVoxelMap:
+                mask = collide_ops.prob_occupied(slab.data, float_to_probability(coll_threshold))
+            else:
+                mask = slab.occupied_mask()
+            m3 = mask.reshape(slab.dims[2], dy, dx)
+            if z0 % sc:
+                m3 = torch.cat([torch.zeros((z0 % sc, dy, dx), dtype=torch.bool, device=dev), m3])
+            pooled = collide_ops.or_pool(m3, lvl)
+            r0, nr = z0 // sc, pooled.shape[0]
+            own = in_map & (c[:, 2] >= r0) & (c[:, 2] < r0 + nr)
+            flat = (((c[:, 2] - r0).clamp(0, nr - 1) * py + c[:, 1].clamp(0, py - 1)) * px
+                    + c[:, 0].clamp(0, px - 1))
+            hit |= own & pooled.reshape(-1)[flat.to(dev)].to(hit.device)
         # distinct coarse cells: the dedup mask of the sorted keys
         return (first & hit[order]).sum(dtype=torch.int64)
 
@@ -590,17 +605,25 @@ class VoxelList(DiskIO):
         return valid, torch.where(valid, lin, 0)
 
     def _dense_occupied(self, dense_map, idx: torch.Tensor, coll_threshold: float) -> torch.Tensor:
+        """The dense map's occupancy at flat indices `idx`, a sharded map's
+        each on the slab that owns it (shard_value.take_from_slabs)."""
+        from ..parallel.shard_value import operand_class, take_from_slabs
         from .voxelmap import BitVectorVoxelMap, ProbVoxelMap
 
-        if isinstance(dense_map, ProbVoxelMap):
-            return dense_map.data[idx].to(torch.int32) >= float_to_probability(coll_threshold)
-        if isinstance(dense_map, BitVectorVoxelMap):
+        cls = operand_class(dense_map)
+        if not issubclass(cls, (ProbVoxelMap, BitVectorVoxelMap)):
+            raise TypeError(cls)
+
+        def occupied(m, i):
+            if isinstance(m, ProbVoxelMap):
+                return m.data[i].to(torch.int32) >= float_to_probability(coll_threshold)
             # the maintained summary (1 byte an entry) where the map keeps
             # one, the plane fold otherwise (F10)
-            if dense_map.occ is not None:
-                return dense_map.occ[idx] != 0
-            return bitops.occupied(dense_map.data[:, idx])
-        raise TypeError(type(dense_map))
+            if m.occ is not None:
+                return m.occ[i] != 0
+            return bitops.occupied(m.data[:, i])
+
+        return take_from_slabs(dense_map, idx, occupied)
 
     def collide_with_dense(self, dense_map, coll_threshold: float = 1.0, offset=(0, 0, 0)) -> torch.Tensor:
         """List x dense map lookup collide (kernelCollideWithVoxelMap,

@@ -29,6 +29,7 @@ its bit x bit count runs CUDA kernel K7. The rest of the swept-volume domain
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from dataclasses import replace as _dc_replace
 from typing import Optional, Tuple
@@ -65,6 +66,31 @@ def replace(obj, **changes):
 
 def _n(dims: Dims) -> int:
     return dims[0] * dims[1] * dims[2]
+
+
+def takes_sharded_operand(method):
+    """A dense map's method `(self, other, ...)` that also takes `other` as a
+    slab-sharded dense value (parallel/shard_value.ShardedDenseMap), as the
+    reference's methods take the same map sharded: self is split as other
+    is and the slab form answers, in self's layout
+    (shard_value.split_like_operand)."""
+    @functools.wraps(method)
+    def wrapper(self, other, *args, **kwargs):
+        from ..parallel.shard_value import ShardedDenseMap, split_like_operand
+
+        if isinstance(other, ShardedDenseMap):
+            return split_like_operand(self, method.__name__, other, *args, **kwargs)
+        return method(self, other, *args, **kwargs)
+
+    return wrapper
+
+
+def cannot_collide(cls_name: str, other) -> TypeError:
+    """The refusal of an operand pair, naming the operand's map class (a
+    sharded value's base class), so a plain and a sharded operand read alike."""
+    from ..parallel.shard_value import operand_class
+
+    return TypeError(f"cannot collide {cls_name} with {operand_class(other)}")
 
 
 @dataclass(frozen=True, eq=False)
@@ -275,6 +301,7 @@ class ProbVoxelMap(_DenseMap):
         return replace(self, data=new)
 
     # -- collision ----------------------------------------------------------
+    @takes_sharded_operand
     def collide_with(self, other, coll_threshold: float = 1.0, offset=(0, 0, 0)) -> torch.Tensor:
         """collideWith returning the collision count (ProbVoxelMap.hpp:144-155);
         prob x prob runs kernel K1 on CUDA maps."""
@@ -286,8 +313,9 @@ class ProbVoxelMap(_DenseMap):
             if other.occ is not None:
                 return collide_ops.count_prob_occ(self.data, t, other.occ, self.dims, off)
             return collide_ops.count_prob_bit(self.data, t, other.data, self.dims, off)
-        raise TypeError(f"cannot collide ProbVoxelMap with {type(other)}")
+        raise cannot_collide("ProbVoxelMap", other)
 
+    @takes_sharded_operand
     def collide_with_resolution(
         self, other, coll_threshold: float = 1.0, resolution_level: int = 0, offset=(0, 0, 0)
     ) -> torch.Tensor:
@@ -300,13 +328,14 @@ class ProbVoxelMap(_DenseMap):
         elif isinstance(other, BitVectorVoxelMap):
             theirs = other.occupied_mask()
         else:
-            raise TypeError(f"cannot collide ProbVoxelMap with {type(other)}")
+            raise cannot_collide("ProbVoxelMap", other)
         return collide_ops.count_with_resolution(mine, theirs, resolution_level, self.dims, self._offset(offset))
 
     def collides_with(self, other, coll_threshold: float = 1.0, offset=(0, 0, 0)) -> torch.Tensor:
         """Boolean collisionCheck (TemplateVoxelMap.hpp:329-414), a device bool."""
         return collide_ops.any_collision(self.collide_with(other, coll_threshold, offset))
 
+    @takes_sharded_operand
     def collide_with_marking(self, other, coll_threshold: float = 1.0, offset=(0, 0, 0)):
         """kernelCollideVoxelMapsDebug semantics: returns (count, map with
         eBVM_COLLISION inserted into colliding voxels); kernel K2 on CUDA."""
@@ -316,7 +345,7 @@ class ProbVoxelMap(_DenseMap):
                 self.data, other.data, t, t, self.dims, self._offset(offset)
             )
             return cnt, replace(self, data=new)
-        raise TypeError(f"cannot collide ProbVoxelMap with {type(other)}")
+        raise cannot_collide("ProbVoxelMap", other)
 
     # -- queries ------------------------------------------------------------
     def occupancy(self) -> torch.Tensor:
@@ -325,6 +354,7 @@ class ProbVoxelMap(_DenseMap):
     def occupied_mask(self, threshold: float = 0.5) -> torch.Tensor:
         return collide_ops.prob_occupied(self.data, float_to_probability(threshold))
 
+    @takes_sharded_operand
     def merge(self, other: "ProbVoxelMap") -> "ProbVoxelMap":
         """Voxel::reduce = saturating occupancy add (ProbabilisticVoxel.hpp:94-101).
         UNKNOWN voxels in `other` contribute nothing."""
@@ -422,6 +452,7 @@ class BitVectorVoxelMap(_DenseMap):
         return self._with_planes(bitops.perform_left_shift(self.data, shift_size))
 
     # -- collision ----------------------------------------------------------
+    @takes_sharded_operand
     def collide_with(self, other, coll_threshold: float = 1.0, offset=(0, 0, 0)) -> torch.Tensor:
         """collideWith count. Bit x bit reads the occupancy summaries when
         both maps keep one and folds the planes otherwise (kernel K7 on CUDA
@@ -438,8 +469,9 @@ class BitVectorVoxelMap(_DenseMap):
             if self.occ is not None:
                 return collide_ops.count_prob_occ(other.data, t, self.occ, self.dims, roff)
             return collide_ops.count_prob_bit(other.data, t, self.data, self.dims, roff)
-        raise TypeError(f"cannot collide BitVectorVoxelMap with {type(other)}")
+        raise cannot_collide("BitVectorVoxelMap", other)
 
+    @takes_sharded_operand
     def collide_with_resolution(
         self, other, coll_threshold: float = 1.0, resolution_level: int = 0, offset=(0, 0, 0)
     ) -> torch.Tensor:
@@ -451,13 +483,14 @@ class BitVectorVoxelMap(_DenseMap):
         elif isinstance(other, ProbVoxelMap):
             theirs = collide_ops.prob_occupied(other.data, float_to_probability(coll_threshold))
         else:
-            raise TypeError(f"cannot collide BitVectorVoxelMap with {type(other)}")
+            raise cannot_collide("BitVectorVoxelMap", other)
         return collide_ops.count_with_resolution(mine, theirs, resolution_level, self.dims, self._offset(offset))
 
     def collides_with(self, other, coll_threshold: float = 1.0, offset=(0, 0, 0)) -> torch.Tensor:
         """Boolean collisionCheck (TemplateVoxelMap.hpp:329-414), a device bool."""
         return collide_ops.any_collision(self.collide_with(other, coll_threshold, offset))
 
+    @takes_sharded_operand
     def collide_with_types(self, other, coll_threshold: float = 1.0, sv_window: int = 0, sv_offset: int = 0):
         """collideWithTypes (BitVoxelMap.hpp:195-210): SVCollider collision
         collecting the colliding meanings. Returns (count, meanings int32[8],
@@ -477,7 +510,7 @@ class BitVectorVoxelMap(_DenseMap):
             t = float_to_probability(coll_threshold)
             cnt, meanings, new = collide_ops.collide_with_types_bit_prob(self.data, other.data, t)
         else:
-            raise TypeError(f"cannot collide BitVectorVoxelMap with {type(other)}")
+            raise cannot_collide("BitVectorVoxelMap", other)
         return cnt, meanings, replace(self, data=new, occ=self._occ_marked(new))
 
     def _occ_marked(self, new_data) -> Optional[torch.Tensor]:
@@ -487,6 +520,7 @@ class BitVectorVoxelMap(_DenseMap):
             return None
         return self.occ | ((new_data[0] >> 2) & 1).to(torch.uint8)
 
+    @takes_sharded_operand
     def collide_with_bitcheck(self, other: "BitVectorVoxelMap", margin: int = 0, sv_offset: int = 0) -> torch.Tensor:
         """Same-bit collision with a +-margin window, count only: K4 without
         marking at sv_offset 0 and margins up to 24 (gated by the summaries
@@ -511,6 +545,7 @@ class BitVectorVoxelMap(_DenseMap):
     def get_bit_mask(self, meaning) -> torch.Tensor:
         return bitops.get_bit(self.data, int(meaning))
 
+    @takes_sharded_operand
     def merge(self, other: "BitVectorVoxelMap", new_meaning=None) -> "BitVectorVoxelMap":
         """Voxel::reduce = bitwise OR; optionally re-mean the merged voxels."""
         if new_meaning is None:

@@ -44,6 +44,7 @@ from ..maps.paged import (B, PAGE_EDGE, PagedHierarchicalMap, _count_probe_hits,
                           meta_first_meaning, robot_self_collision_clash)
 from ..ops.insert import shifted
 from ..utils import to_device
+from .shard_value import _ShardedValue, operand_class
 from .sharded import as_device, psum, replicate, visible_devices
 
 Dims = Tuple[int, int, int]
@@ -221,7 +222,11 @@ class ShardedPagedWorld:
         """One copy of `other` per slab device, cached by object identity
         (map values are immutable, so identity pins content; a weakref guard
         rejects a stale id reused after collection). Without the cache every
-        collide in a sense loop would copy the whole map to every device."""
+        collide in a sense loop would copy the whole map to every device. A
+        sharded dense map is never copied: each slab's collide reads it slab
+        by slab (shard_value.operand_slabs)."""
+        if isinstance(other, _ShardedValue):
+            return [other] * len(self.devices)
         key = id(other)
         hit = self._replica_cache.get(key)
         if hit is not None and hit[0]() is other:
@@ -246,13 +251,14 @@ class ShardedPagedWorld:
 
     def collide_with(self, other, min_level: int = 0, offset=(0, 0, 0)) -> torch.Tensor:
         """collideWith dispatch (GvlNTree.hpp:150-330) over the slabs: lists,
-        dense maps, paged maps and sharded worlds. Each direction is the
-        single-device call with the slab-translated offset; counts sum."""
+        dense maps (plain or sharded), paged maps and sharded worlds. Each
+        direction is the single-device call with the slab-translated offset;
+        counts sum."""
         from ..maps.voxellist import VoxelList
         from ..maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
 
         self._check_min_level(min_level)
-        if isinstance(other, (VoxelList, ProbVoxelMap, BitVectorVoxelMap)):
+        if issubclass(operand_class(other), (VoxelList, ProbVoxelMap, BitVectorVoxelMap)):
             reps = self._replicas(other)
             return self._sum([m.collide_with(reps[k], min_level, self._shard_offset(offset, k))
                               for k, m in enumerate(self.shards)])

@@ -71,6 +71,14 @@ pyramid's raises, as the reference's device_put of its occupancy does.
 
 A plain map given as the other operand is split the same way.
 
+As an operand of another tier a sharded value answers as the single map:
+pyramids, voxel lists, the paged tiers and vis/extract read a sharded dense
+map slab by slab (`operand_slabs`, `take_from_slabs`), never gathered whole;
+a plain dense map against a sharded one is split as it is
+(`split_like_operand`, maps/voxelmap.takes_sharded_operand) and keeps its
+plain layout; `operand_class` names a sharded value's map class for dispatch
+and TypeError messages.
+
 Layout: dense grids are flat z-major (index = z*dimx*dimy + y*dimx + x,
 TemplateVoxelMap.h:258), so z-slabs are contiguous pieces of the flat axis
 (dimz must divide over the mesh). Bit maps split their [8, N] planes along
@@ -93,8 +101,8 @@ from ..maps.distance_map import DistanceVoxelMap
 from ..maps.hierarchical import (NS_DYNAMIC_MAP, NS_FREE, NS_OCCUPIED, NS_STATIC_MAP, NS_UNKNOWN,
                                  STATUS_OCCUPANCY_MASK, U8, HierarchicalBitMap, HierarchicalProbMap, _axis_index,
                                  _build_pyramid, _is_uniform, _PyramidQueries, _sensor_scalars, _status_from_occupancy,
-                                 bbox_mask, count_probe_hits, decode_status_flags, depth_world_points, hard_status,
-                                 occupied_coords_of, query_coords_of, sensor_status, store_meaning, voxel_hits)
+                                 bbox_mask, decode_status_flags, depth_world_points, hard_status,
+                                 occupied_coords_of, sensor_status, store_meaning, voxel_hits)
 from ..maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap, _DenseMap, print_voxel_dump
 from ..maps.voxelmap import replace as map_replace
 from ..ops import collide as collide_ops
@@ -233,16 +241,7 @@ class ShardedDenseMap(_ShardedValue):
     def gather(self, device=None):
         """A single-device copy of the whole map on `device` (default: the
         mesh's first device): the slabs joined along the voxel axis."""
-        device = self.device if device is None else device
-        first = self.slabs[0]
-        changes = {}
-        for f in fields(first):
-            if isinstance(getattr(first, f.name), torch.Tensor):
-                changes[f.name] = torch.cat([getattr(s, f.name).to(device) for s in self.slabs], dim=-1)
-        out = map_replace(first, dims=self.dims, **changes)
-        if self._sensor is not None:
-            object.__setattr__(out, "_sensor", self._sensor)
-        return out
+        return _joined(self, self.device if device is None else device)
 
     def _other_slabs(self, other) -> list:
         """The other operand's slabs on this value's devices."""
@@ -255,7 +254,7 @@ class ShardedDenseMap(_ShardedValue):
             if tuple(other.dims) != self.dims:
                 raise ValueError(f"maps must share dims: {other.dims} vs {self.dims}")
             return _split_map(other, self.devices, self.dims)
-        raise TypeError(f"cannot pair a sharded {self._base_cls.__name__} with {type(other).__name__}")
+        raise TypeError(f"cannot collide {self._base_cls.__name__} with {operand_class(other)}")
 
     # -- insertion ----------------------------------------------------------
     def insert_point_cloud(self, points, meaning=BitVoxelMeaning.eBVM_OCCUPIED) -> "ShardedDenseMap":
@@ -440,7 +439,7 @@ class ShardedDenseMap(_ShardedValue):
                                           lambda x, y: collide_ops.count_prob_occ(x, t, y))
             return self._offset_count(a, [s.data for s in mine], rlin,
                                       lambda x, y: collide_ops.count_prob_bit(x, t, y))
-        raise TypeError(f"cannot collide a sharded {self._base_cls.__name__} with {type(other).__name__}")
+        raise TypeError(f"cannot collide {self._base_cls.__name__} with {operand_class(other)}")
 
     def collides_with(self, other, coll_threshold: float = 1.0, offset=(0, 0, 0)) -> torch.Tensor:
         """Boolean collisionCheck, a device bool."""
@@ -456,7 +455,7 @@ class ShardedDenseMap(_ShardedValue):
         self._require("collide_with_marking")
         o = self._other_slabs(other)
         if not isinstance(o[0], ProbVoxelMap):
-            raise TypeError(f"cannot collide ProbVoxelMap with {type(other)}")
+            raise TypeError(f"cannot collide ProbVoxelMap with {operand_class(other)}")
         t = float_to_probability(coll_threshold)
         lin = insert_ops.linear_offset(tuple(int(v) for v in offset), self.dims)
         marked = [s.data for s in self.slabs]
@@ -487,7 +486,7 @@ class ShardedDenseMap(_ShardedValue):
         elif isinstance(o[0], BitVectorVoxelMap):
             theirs = [s.occupied_mask() for s in o]
         else:
-            raise TypeError(f"cannot collide {self._base_cls.__name__} with {type(other)}")
+            raise TypeError(f"cannot collide {self._base_cls.__name__} with {operand_class(other)}")
         dx, dy, dz = self.dims
         zl, sc = self.slab_dz, 1 << int(resolution_level)
         ox, oy, oz = (int(v) for v in offset)
@@ -1017,12 +1016,7 @@ class ShardedPyramid(_ShardedValue):
     def probe_clamped(self, coords: torch.Tensor, min_level: int = 0):
         return decode_status_flags(self._descend(int(min_level), coords, in_range=True))
 
-    def _collide_probe(self, other, min_level: int = 0, offset=(0, 0, 0)):
-        """Probe self at other's voxel list entries or dense voxels + offset."""
-        coords, valid = query_coords_of(other)
-        return count_probe_hits(self.probe_clamped, coords.to(self.device), valid.to(self.device), self.dims,
-                                int(min_level), offset)
-
+    _collide_probe = _PyramidQueries._collide_probe
     collide_with = _PyramidQueries.collide_with
     collide_with_resolution = _PyramidQueries.collide_with_resolution
     collide_with_counting_unknown = _PyramidQueries.collide_with_counting_unknown
@@ -1077,6 +1071,76 @@ class ShardedPyramid(_ShardedValue):
         if map_io.is_paged_octree(path):
             return map_io.read_hierarchical_map(path, device=self.device)
         return read_sharded_map(path, self.mesh, self.axis)
+
+
+# -- sharded values as operands of every tier -----------------------------------------
+def _joined(m: ShardedDenseMap, device):
+    """The slabs of `m` joined along the voxel axis into one map of its class
+    on `device`, the stored sensor carried."""
+    first = m.slabs[0]
+    changes = {}
+    for f in fields(first):
+        if isinstance(getattr(first, f.name), torch.Tensor):
+            changes[f.name] = torch.cat([getattr(s, f.name).to(device) for s in m.slabs], dim=-1)
+    out = map_replace(first, dims=m.dims, **changes)
+    if m._sensor is not None:
+        object.__setattr__(out, "_sensor", m._sensor)
+    return out
+
+
+def operand_class(other) -> type:
+    """The map class an operand stands for: a sharded value's base class, a
+    plain value's own. Dispatch and error messages read it, so a sharded
+    operand is taken, or refused with the same message, as the single map."""
+    return other._base_cls if isinstance(other, _ShardedValue) else type(other)
+
+
+def operand_slabs(other) -> list:
+    """(slab map, its first global row z0, its device) per z-slab of a sharded
+    dense map, the one (map, 0, its device) of a plain one: how every tier
+    reads a dense operand, slab by slab, never gathered whole."""
+    if isinstance(other, ShardedDenseMap):
+        return list(zip(other.slabs, other.z0s, other.devices))
+    return [(other, 0, other.device)]
+
+
+def take_from_slabs(other, idx: torch.Tensor, fn) -> torch.Tensor:
+    """fn(map, flat indices) at int64 global flat indices `idx` inside a
+    (plain or sharded) dense map, each index answered by the slab that owns
+    it, on idx's device: O(len(idx)) moved per slab."""
+    if not isinstance(other, ShardedDenseMap):
+        return fn(other, idx)
+    n = other.slabs[0].voxelmap_size
+    out = None
+    for k, (slab, dev) in enumerate(zip(other.slabs, other.devices)):
+        local = idx - k * n
+        got = fn(slab, local.clamp(0, n - 1).to(dev)).to(idx.device)
+        out = got if out is None else torch.where((local >= 0) & (local < n), got, out)
+    return out
+
+
+def _as_layout_of(value, plain):
+    """A slab form's result as the single-device call on `plain` gives it:
+    counts and tensors on plain's device, a sharded map joined into a plain
+    one there, tuples item by item."""
+    if isinstance(value, tuple):
+        return tuple(_as_layout_of(v, plain) for v in value)
+    if isinstance(value, ShardedDenseMap):
+        return _joined(value, plain.device)
+    if isinstance(value, torch.Tensor):
+        return value.to(plain.device)
+    return value
+
+
+def split_like_operand(m, name: str, other: ShardedDenseMap, *args, **kwargs):
+    """`m.<name>(other, ...)` for a plain dense `m` and a sharded dense
+    `other`: m split as other is (`_split_map`), the slab form run (K1, K2,
+    K4, K7 once per run of slabs, as for two sharded maps), the result given
+    in m's layout: counts on m's device, a marked or merged map plain."""
+    if tuple(m.dims) != other.dims:
+        raise ValueError(f"maps must share dims: {m.dims} vs {other.dims}")
+    mine = ShardedDenseMap(_split_map(m, other.devices, other.dims), other.mesh, other.axis, other.dims)
+    return _as_layout_of(getattr(mine, name)(other, *args, **kwargs), m)
 
 
 # -- the public functions ------------------------------------------------------------

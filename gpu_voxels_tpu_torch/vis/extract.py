@@ -28,29 +28,66 @@ def _host_index(a: np.ndarray, device) -> torch.Tensor:
     return to_device(np.ascontiguousarray(a), torch.int64, device)
 
 
+def _dense_mask(m, threshold: float, z0: int = 0) -> torch.Tensor:
+    """bool[N] occupied voxels of a plain dense map, or of a slab whose first
+    global row is z0 (a distance slab's obstacles store global coordinates)."""
+    from ..maps.distance_map import DistanceVoxelMap
+    from ..maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
+    from ..ops import edt
+
+    if isinstance(m, ProbVoxelMap):
+        return m.occupied_mask(threshold)
+    if isinstance(m, BitVectorVoxelMap):
+        return m.occupied_mask()
+    if isinstance(m, CountingVoxelMap):
+        return m.occupied_mask(1)
+    if isinstance(m, DistanceVoxelMap):
+        return edt.squared_distance_grid(m.data, m.dims, z0).reshape(-1) == 0
+    raise TypeError(type(m))
+
+
+def _compacted_slabs(parts, plane: int, max_cubes: Optional[int]) -> np.ndarray:
+    """Ascending global flat indices of the set cells of (mask, first row)
+    z-slabs in z order: each slab compacted on its device (two host reads a
+    slab, O(K) bytes), its indices moved by its first row; at most
+    max_cubes, the first ones, as one compaction of the joined mask gives."""
+    out, left = [], max_cubes
+    for mask, z0 in parts:
+        if left is not None and left <= 0:
+            break
+        idx = compacted_nonzero(mask, capacity=left) + z0 * plane
+        out.append(idx)
+        left = None if left is None else left - len(idx)
+    return np.concatenate(out) if out else np.zeros((0,), np.int64)
+
+
 def occupied_coords(m, threshold: float = 0.5, max_cubes: Optional[int] = None) -> np.ndarray:
     """int32[K, 3] coordinates of occupied voxels (host readback).
 
     Works for ProbVoxelMap (occupancy >= threshold), BitVectorVoxelMap
     (!noneButEmpty), CountingVoxelMap (count >= 1), DistanceVoxelMap
-    (distance == 0), voxel lists and every octree tier.
+    (distance == 0), voxel lists and every octree tier, plain or sharded: a
+    sharded map is compacted slab by slab, never gathered.
     """
-    from ..maps.distance_map import DistanceVoxelMap
     from ..maps.hierarchical import HierarchicalProbMap
     from ..maps.voxellist import VoxelList
-    from ..maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
+    from ..maps.voxelmap import _DenseMap
+    from ..parallel.shard_value import operand_class, operand_slabs
 
     if isinstance(m, VoxelList):
         n = int(m.count)
         return m.coords_from_ids(m.keys[:n]).cpu().numpy()
-    if isinstance(m, HierarchicalProbMap):
+    if operand_class(m) is HierarchicalProbMap:
         # the caller's threshold against the occupancy grid (the status
         # pyramid bakes the octree's fixed THRESHOLD_OCCUPANCY, the probe
-        # contract, not the visualization contract)
-        occ = m.occupancy
-        mask = (occ.to(torch.int32) >= float_to_probability(threshold)) & (occ != UNKNOWN_PROBABILITY)
-        idx = compacted_nonzero(mask)
+        # contract, not the visualization contract); a sharded pyramid's
+        # occupancy slab by slab
+        slabs = m.occupancy if isinstance(m.occupancy, list) else [m.occupancy]
+        t = float_to_probability(threshold)
         pdx, pdy, _ = m.padded_dims
+        zl = slabs[0].shape[0]
+        idx = _compacted_slabs([((o.to(torch.int32) >= t) & (o != UNKNOWN_PROBABILITY), k * zl)
+                                for k, o in enumerate(slabs)], pdx * pdy, None)
         z, rem = np.divmod(idx, pdx * pdy)
         y, x = np.divmod(rem, pdx)
         keep = (x < m.dims[0]) & (y < m.dims[1]) & (z < m.dims[2])
@@ -59,18 +96,11 @@ def occupied_coords(m, threshold: float = 0.5, max_cubes: Optional[int] = None) 
     if hasattr(m, "extract_occupied_coords"):  # HierarchicalBitMap and the paged tier
         coords = np.asarray(m.extract_occupied_coords())
         return coords[:max_cubes] if max_cubes is not None else coords
-    if isinstance(m, ProbVoxelMap):
-        mask = m.occupied_mask(threshold)
-    elif isinstance(m, BitVectorVoxelMap):
-        mask = m.occupied_mask()
-    elif isinstance(m, CountingVoxelMap):
-        mask = m.occupied_mask(1)
-    elif isinstance(m, DistanceVoxelMap):
-        mask = m.obstacle_mask()
-    else:
+    if not issubclass(operand_class(m), _DenseMap):
         raise TypeError(type(m))
     dx, dy, _ = m.dims
-    idx = compacted_nonzero(mask, capacity=max_cubes)
+    idx = _compacted_slabs([(_dense_mask(slab, threshold, z0), z0) for slab, z0, _ in operand_slabs(m)], dx * dy,
+                           max_cubes)
     z, rem = np.divmod(idx, dx * dy)
     y, x = np.divmod(rem, dx)
     return np.stack([x, y, z], axis=1).astype(np.int32)
@@ -95,11 +125,20 @@ def _is_uniform_np(status: np.ndarray) -> np.ndarray:
     return (s & (s - 1)) == 0
 
 
-def _gather_level(level: torch.Tensor, coords: np.ndarray) -> np.ndarray:
+def _gather_level(level, coords: np.ndarray) -> np.ndarray:
     """level[z, y, x] at host coords: one gather on the level's device and a
-    K-byte readback, never the whole level."""
+    K-byte readback, never the whole level. A level held as z-slabs (a
+    sharded pyramid's) is read slab by slab, each coordinate from its slab."""
     if coords.shape[0] == 0:
         return np.zeros((0,), np.uint8)
+    if isinstance(level, list):
+        zl = level[0].shape[0]
+        out = np.zeros((coords.shape[0],), np.uint8)
+        for k, part in enumerate(level):
+            own = coords[:, 2] // zl == k
+            if own.any():
+                out[own] = _gather_level(part, coords[own] - np.array([0, 0, k * zl]))
+        return out
     c = _host_index(coords, level.device)
     return level[c[:, 2], c[:, 1], c[:, 0]].cpu().numpy()
 
@@ -202,8 +241,8 @@ def extract_multilevel_cubes(
     non-PART node at its own level; min_level stops the descent early,
     emitting (possibly mixed) nodes at that level (Extract.cuh:163-178).
 
-    Works on HierarchicalProbMap / HierarchicalBitMap (dense status pyramid),
-    PagedHierarchicalMap (coarse page pyramid -> block summaries -> tile
+    Works on HierarchicalProbMap / HierarchicalBitMap (dense status pyramid,
+    plain or sharded: a split level read slab by slab), PagedHierarchicalMap (coarse page pyramid -> block summaries -> tile
     pool) and ShardedPagedWorld (per slab, corners moved into the global
     frame): a paged world extracts in O(allocated surface) cubes, not
     O(volume).
@@ -214,7 +253,7 @@ def extract_multilevel_cubes(
     occupied/free/unknown toggle the status selection (default: everything,
     like the reference's default extract selection, NTree.hpp:361-363).
     """
-    from ..maps.hierarchical import _PyramidQueries
+    from ..maps.hierarchical import _is_sharded_pyramid, _PyramidQueries
     from ..maps.paged import PagedHierarchicalMap
     from ..parallel.paged_world import ShardedPagedWorld
 
@@ -222,7 +261,7 @@ def extract_multilevel_cubes(
         return _world_multilevel(m, min_level, occupied, free, unknown, max_cubes)
     if isinstance(m, PagedHierarchicalMap):
         return _paged_multilevel(m, min_level, occupied, free, unknown, max_cubes)
-    if isinstance(m, _PyramidQueries):
+    if isinstance(m, _PyramidQueries) or _is_sharded_pyramid(m):
         return _dense_multilevel(m, min_level, occupied, free, unknown, max_cubes)
     raise TypeError(f"multi-level extraction needs a hierarchical map, got {type(m)}")
 
@@ -245,8 +284,11 @@ def _world_multilevel(m, min_level, occupied, free, unknown, max_cubes):
     return corners, sizes, types
 
 
-def _top_coords(level: torch.Tensor) -> np.ndarray:
-    zt, yt, xt = level.shape
+def _top_coords(level) -> np.ndarray:
+    """(x, y, z) of every cell of a level (a tensor, or its z-slabs)."""
+    parts = level if isinstance(level, list) else [level]
+    _, yt, xt = parts[0].shape
+    zt = sum(p.shape[0] for p in parts)
     gz, gy, gx = np.meshgrid(np.arange(zt), np.arange(yt), np.arange(xt), indexing="ij")
     return np.stack([gx.ravel(), gy.ravel(), gz.ravel()], axis=1).astype(np.int64)
 
@@ -320,16 +362,26 @@ def extract_distance_slice(m, axis: str = "z", index: Optional[int] = None):
     reference viewer colors DistanceVoxel maps by distance,
     gpu_visualization/Visualizer.cu / XMLInterpreter distance configs).
     Distances are metric (voxel units x side_length). The plane is cut on
-    the map's device: one plane is read, not the grid."""
+    the map's device: one plane is read, not the grid; a sharded map's from
+    the slabs it crosses, each slab's obstacles at their global rows."""
+    from ..ops import edt
+    from ..parallel.shard_value import operand_slabs
+
     ax = {"x": 0, "y": 1, "z": 2}[axis]
     n_ax = m.dims[ax]
     if index is None:
         index = n_ax // 2
     if not (0 <= index < n_ax):
         raise ValueError(f"slice index {index} outside axis {axis} of {n_ax}")
-    sl = [slice(None)] * 3
-    sl[2 - ax] = index
-    plane = m.squared_distances()[tuple(sl)].cpu().numpy()  # [z, y, x] minus the axis
+    parts = []  # [z, y, x] minus the axis, slab by slab in z order
+    for slab, z0, _ in operand_slabs(m):
+        zl = slab.dims[2]
+        if ax == 2 and not z0 <= index < z0 + zl:
+            continue
+        sl = [slice(None)] * 3
+        sl[2 - ax] = index - z0 if ax == 2 else index
+        parts.append(edt.squared_distance_grid(slab.data, slab.dims, z0)[tuple(sl)].cpu())
+    plane = torch.cat(parts).numpy() if ax != 2 else parts[0].numpy()
     uu, vv = np.meshgrid(*[np.arange(s) for s in plane.shape], indexing="ij")
     rem = [d for d in (0, 1, 2) if d != 2 - ax]  # remaining z-major dims
     coords = np.zeros((plane.size, 3), np.int32)
@@ -362,16 +414,21 @@ def extract_cubes(m, threshold: float = 0.5, max_cubes: Optional[int] = None) ->
     live-viewer budget knob.
     """
     from ..maps.voxelmap import BitVectorVoxelMap
+    from ..parallel.shard_value import operand_class, operand_slabs
 
     coords = occupied_coords(m, threshold, max_cubes=max_cubes)
     centers = (coords.astype(np.float32) + 0.5) * m.side_length
-    if isinstance(m, BitVectorVoxelMap):
+    if operand_class(m) is BitVectorVoxelMap:
         dx, dy, _ = m.dims
         lin = coords[:, 2].astype(np.int64) * dx * dy + coords[:, 1] * dx + coords[:, 0]
-        # gather the K occupied columns on the device: the readback is [8, K]
-        # words, never the whole plane set; the int32 planes are read as the
-        # uint32 words they hold (H1: a shift of a negative int32 would
-        # sign-extend bit 31)
-        planes = m.data[:, _host_index(lin, m.device)].cpu().numpy().view(np.uint32)
+        # gather the K occupied columns on the device, each from the slab that
+        # holds it: the readback is [8, K] words, never the whole plane set;
+        # the int32 planes are read as the uint32 words they hold (H1: a
+        # shift of a negative int32 would sign-extend bit 31)
+        planes = np.zeros((8, len(lin)), np.uint32)
+        for slab, z0, dev in operand_slabs(m):
+            start = z0 * dx * dy
+            own = (lin >= start) & (lin < start + slab.voxelmap_size)
+            planes[:, own] = slab.data[:, _host_index(lin[own] - start, dev)].cpu().numpy().view(np.uint32)
         return centers, _lowest_meanings(planes)
     return centers, np.full(len(centers), 1, np.uint8)  # eBVM_OCCUPIED

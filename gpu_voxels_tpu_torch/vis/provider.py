@@ -69,15 +69,13 @@ class VisProvider:
         extracted arrays, and no path ever fetches a full map buffer. The
         snapshot holds host arrays and scalars only (`write_snapshot`)."""
         from ..maps.distance_map import DistanceVoxelMap
-        from ..maps.hierarchical import _PyramidQueries
+        from ..maps.hierarchical import _is_sharded_pyramid, _PyramidQueries
         from ..maps.paged import PagedHierarchicalMap
         from ..parallel.paged_world import ShardedPagedWorld
-        from ..parallel.shard_value import _ShardedValue
+        from ..parallel.shard_value import operand_class
 
-        if isinstance(m, _ShardedValue):
-            m = m.gather()  # a slab-sharded value is drawn from its one-device copy
-        # extract once, feed all three writers
-        if isinstance(m, (PagedHierarchicalMap, _PyramidQueries, ShardedPagedWorld)):
+        # extract once, feed all three writers (a slab-sharded value slab by slab)
+        if isinstance(m, (PagedHierarchicalMap, _PyramidQueries, ShardedPagedWorld)) or _is_sharded_pyramid(m):
             corners, sizes, types = extract_multilevel_cubes(
                 m, max_cubes=self.MAX_CUBES
             )
@@ -94,7 +92,7 @@ class VisProvider:
             return None
         self._last_fingerprint = fp
         distance = None
-        if isinstance(m, DistanceVoxelMap):
+        if issubclass(operand_class(m), DistanceVoxelMap):
             distance = extract_distance_slice(m, axis="z")
         return {"out_dir": str(self.out_dir), "name": self.name, "side": float(m.side_length),
                 "cubes": cubes, "distance": distance, "ts": time.strftime("%H:%M:%S")}
