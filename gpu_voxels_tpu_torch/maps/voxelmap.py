@@ -44,7 +44,7 @@ from ..ops import collide as collide_ops
 from ..ops import collide_cuda
 from ..ops import insert as insert_ops
 from ..ops import raycast
-from ..utils import resolve_device, to_device
+from ..utils import perfmon, resolve_device, to_device
 from ..utils.io import DiskIO
 from ..utils.logging import log_stream
 
@@ -196,8 +196,9 @@ class ProbVoxelMap(_DenseMap):
 
     @staticmethod
     def create(dims: Dims, side_length: float = 1.0, device=None) -> "ProbVoxelMap":
-        data = torch.full((_n(dims),), UNKNOWN_PROBABILITY, dtype=torch.int8, device=resolve_device(device))
-        return ProbVoxelMap(data, tuple(int(d) for d in dims), float(side_length))
+        with perfmon.span("maps.create"):
+            data = torch.full((_n(dims),), UNKNOWN_PROBABILITY, dtype=torch.int8, device=resolve_device(device))
+            return ProbVoxelMap(data, tuple(int(d) for d in dims), float(side_length))
 
     def clear_map(self) -> "ProbVoxelMap":
         """kernelClearVoxelMap: reset to UNKNOWN (TemplateVoxelMap.hpp:205)."""
@@ -205,8 +206,9 @@ class ProbVoxelMap(_DenseMap):
 
     # -- insertion ----------------------------------------------------------
     def insert_point_cloud(self, points, meaning=BitVoxelMeaning.eBVM_OCCUPIED) -> "ProbVoxelMap":
-        new, _ = insert_ops.insert_prob(self.data, self._points(points), self.side_length, self.dims, meaning)
-        return replace(self, data=new)
+        with perfmon.span("maps.insert"):
+            new, _ = insert_ops.insert_prob(self.data, self._points(points), self.side_length, self.dims, meaning)
+            return replace(self, data=new)
 
     def update_occupancy(self, points, delta) -> "ProbVoxelMap":
         """Log-odds additive update for every hit voxel (sensor path)."""
@@ -216,13 +218,14 @@ class ProbVoxelMap(_DenseMap):
         """Projective sensor update from a depth image and a Sensor: hits plus
         the exact visibility carve (ops/raycast.insert_depth_image; kernel K3
         on CUDA), or with carve_pool > 1 the pooled conservative carve (K6)."""
-        new = raycast.insert_depth_image(
-            self.data, depth, sensor.pose(),
-            float(sensor.fx), float(sensor.fy), float(sensor.cx), float(sensor.cy),
-            self.side_length, self.dims,
-            invalid_value=float(sensor.invalid_value), carve_pool=int(carve_pool),
-        )
-        return replace(self, data=new)
+        with perfmon.span("sense"):
+            new = raycast.insert_depth_image(
+                self.data, depth, sensor.pose(),
+                float(sensor.fx), float(sensor.fy), float(sensor.cx), float(sensor.cy),
+                self.side_length, self.dims,
+                invalid_value=float(sensor.invalid_value), carve_pool=int(carve_pool),
+            )
+            return replace(self, data=new)
 
     def insert_meta_point_cloud(self, meta, meanings=None) -> "ProbVoxelMap":
         """Uniform or per-subcloud meanings (TemplateVoxelMap.hpp:609-663).
@@ -305,15 +308,16 @@ class ProbVoxelMap(_DenseMap):
     def collide_with(self, other, coll_threshold: float = 1.0, offset=(0, 0, 0)) -> torch.Tensor:
         """collideWith returning the collision count (ProbVoxelMap.hpp:144-155);
         prob x prob runs kernel K1 on CUDA maps."""
-        t = float_to_probability(coll_threshold)
-        off = self._offset(offset)
-        if isinstance(other, ProbVoxelMap):
-            return collide_cuda.count_prob_prob(self.data, other.data, t, t, self.dims, off)
-        if isinstance(other, BitVectorVoxelMap):
-            if other.occ is not None:
-                return collide_ops.count_prob_occ(self.data, t, other.occ, self.dims, off)
-            return collide_ops.count_prob_bit(self.data, t, other.data, self.dims, off)
-        raise cannot_collide("ProbVoxelMap", other)
+        with perfmon.span("maps.collide"):
+            t = float_to_probability(coll_threshold)
+            off = self._offset(offset)
+            if isinstance(other, ProbVoxelMap):
+                return collide_cuda.count_prob_prob(self.data, other.data, t, t, self.dims, off)
+            if isinstance(other, BitVectorVoxelMap):
+                if other.occ is not None:
+                    return collide_ops.count_prob_occ(self.data, t, other.occ, self.dims, off)
+                return collide_ops.count_prob_bit(self.data, t, other.data, self.dims, off)
+            raise cannot_collide("ProbVoxelMap", other)
 
     @takes_sharded_operand
     def collide_with_resolution(
@@ -379,10 +383,11 @@ class BitVectorVoxelMap(_DenseMap):
 
     @staticmethod
     def create(dims: Dims, side_length: float = 1.0, device=None) -> "BitVectorVoxelMap":
-        n = _n(dims)
-        data = bitops.zeros((n,), device=device)
-        occ = torch.zeros((n,), dtype=torch.uint8, device=data.device)
-        return BitVectorVoxelMap(data, tuple(int(d) for d in dims), float(side_length), occ=occ)
+        with perfmon.span("maps.create"):
+            n = _n(dims)
+            data = bitops.zeros((n,), device=device)
+            occ = torch.zeros((n,), dtype=torch.uint8, device=data.device)
+            return BitVectorVoxelMap(data, tuple(int(d) for d in dims), float(side_length), occ=occ)
 
     @staticmethod
     def from_planes(planes: torch.Tensor, dims: Dims, side_length: float = 1.0) -> "BitVectorVoxelMap":
@@ -398,10 +403,11 @@ class BitVectorVoxelMap(_DenseMap):
 
     # -- insertion ----------------------------------------------------------
     def insert_point_cloud(self, points, meaning=BitVoxelMeaning.eBVM_OCCUPIED) -> "BitVectorVoxelMap":
-        new, _, occ_d = insert_ops.insert_bit(
-            self.data, self._points(points), self.side_length, self.dims, int(meaning)
-        )
-        return replace(self, data=new, occ=None if self.occ is None else self.occ | occ_d)
+        with perfmon.span("maps.insert"):
+            new, _, occ_d = insert_ops.insert_bit(
+                self.data, self._points(points), self.side_length, self.dims, int(meaning)
+            )
+            return replace(self, data=new, occ=None if self.occ is None else self.occ | occ_d)
 
     def insert_meta_point_cloud(self, meta, meanings=None) -> "BitVectorVoxelMap":
         """Meta insert, uniform or per-subcloud meanings; the per-subcloud
@@ -457,19 +463,20 @@ class BitVectorVoxelMap(_DenseMap):
         """collideWith count. Bit x bit reads the occupancy summaries when
         both maps keep one and folds the planes otherwise (kernel K7 on CUDA
         maps); bit x prob likewise reads the summary or folds."""
-        t = float_to_probability(coll_threshold)
-        off = self._offset(offset)
-        if isinstance(other, BitVectorVoxelMap):
-            if self.occ is not None and other.occ is not None:
-                return collide_ops.count_occ_occ(self.occ, other.occ, self.dims, off)
-            return collide_cuda.count_bit_bit(self.data, other.data, self.dims, off)
-        if isinstance(other, ProbVoxelMap):
-            # DefaultCollider bit x prob: the threshold applies to the prob side
-            roff = tuple(-v for v in off)
-            if self.occ is not None:
-                return collide_ops.count_prob_occ(other.data, t, self.occ, self.dims, roff)
-            return collide_ops.count_prob_bit(other.data, t, self.data, self.dims, roff)
-        raise cannot_collide("BitVectorVoxelMap", other)
+        with perfmon.span("maps.collide"):
+            t = float_to_probability(coll_threshold)
+            off = self._offset(offset)
+            if isinstance(other, BitVectorVoxelMap):
+                if self.occ is not None and other.occ is not None:
+                    return collide_ops.count_occ_occ(self.occ, other.occ, self.dims, off)
+                return collide_cuda.count_bit_bit(self.data, other.data, self.dims, off)
+            if isinstance(other, ProbVoxelMap):
+                # DefaultCollider bit x prob: the threshold applies to the prob side
+                roff = tuple(-v for v in off)
+                if self.occ is not None:
+                    return collide_ops.count_prob_occ(other.data, t, self.occ, self.dims, roff)
+                return collide_ops.count_prob_bit(other.data, t, self.data, self.dims, roff)
+            raise cannot_collide("BitVectorVoxelMap", other)
 
     @takes_sharded_operand
     def collide_with_resolution(

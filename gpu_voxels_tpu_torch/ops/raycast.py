@@ -26,7 +26,7 @@ import torch
 from .. import probability
 from ..constants import SENSOR_MODEL_FREE, SENSOR_MODEL_OCCUPIED
 from ..geometry import transforms
-from ..utils import to_device
+from ..utils import perfmon, to_device
 from .insert import floor_to_int32, in_map, linear_index, map_to_voxels, shifted
 
 Dims = Tuple[int, int, int]
@@ -236,26 +236,30 @@ def insert_depth_image(
     the frame's min_pool_depth table at `carve_pool` built once for every
     slab of a frame, spares the pool.
     """
-    depth = to_device(depth, F32, data.device)
-    pose = to_device(pose, F32, data.device)
-    pts = depth_image_to_point_cloud(depth, fx, fy, cx, cy, invalid_value)
-    world = transforms.transform_points(pose, pts)
-    n = dims[0] * dims[1] * dims[2]
-    finite = torch.all(torch.isfinite(world), dim=-1)
-    coords = map_to_voxels(torch.where(finite[:, None], world, -1.0), side_length)
-    if z_index_offset:
-        coords = shifted(coords, (0, 0, z_index_offset), -1)
-    inside = finite & in_map(coords, dims)
-    idx = torch.where(inside, linear_index(coords, dims), n)
-    hit_counts = torch.zeros(n + 1, dtype=torch.int32, device=data.device)
-    hit_counts = hit_counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))[:n]
-    if cut_real_robot and robot_occupied_mask is not None:
-        hit_counts = torch.where(robot_occupied_mask, 0, hit_counts)
-    free = carve(depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, carve_pool, z_index_offset,
-                 pooled_depth)
-    carved = (free & (hit_counts == 0)).to(torch.int32)
-    delta = hit_counts * SENSOR_MODEL_OCCUPIED + carved * SENSOR_MODEL_FREE
-    return torch.where(delta != 0, probability.update_occupancy(data, delta), data)
+    with perfmon.span("sense.upload"):
+        depth = to_device(depth, F32, data.device)
+        pose = to_device(pose, F32, data.device)
+    with perfmon.span("sense.hits"):
+        pts = depth_image_to_point_cloud(depth, fx, fy, cx, cy, invalid_value)
+        world = transforms.transform_points(pose, pts)
+        n = dims[0] * dims[1] * dims[2]
+        finite = torch.all(torch.isfinite(world), dim=-1)
+        coords = map_to_voxels(torch.where(finite[:, None], world, -1.0), side_length)
+        if z_index_offset:
+            coords = shifted(coords, (0, 0, z_index_offset), -1)
+        inside = finite & in_map(coords, dims)
+        idx = torch.where(inside, linear_index(coords, dims), n)
+        hit_counts = torch.zeros(n + 1, dtype=torch.int32, device=data.device)
+        hit_counts = hit_counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))[:n]
+        if cut_real_robot and robot_occupied_mask is not None:
+            hit_counts = torch.where(robot_occupied_mask, 0, hit_counts)
+    with perfmon.span("sense.carve"):
+        free = carve(depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, carve_pool, z_index_offset,
+                     pooled_depth)
+    with perfmon.span("sense.update"):
+        carved = (free & (hit_counts == 0)).to(torch.int32)
+        delta = hit_counts * SENSOR_MODEL_OCCUPIED + carved * SENSOR_MODEL_FREE
+        return torch.where(delta != 0, probability.update_occupancy(data, delta), data)
 
 
 def ray_crossing_counts(origin, points: torch.Tensor, side_length: float, dims: Dims,

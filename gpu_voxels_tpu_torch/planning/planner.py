@@ -30,6 +30,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import perfmon
 from .validity import MotionValidator
 
 
@@ -242,48 +243,49 @@ class RRTConnect:
         gvl_ompl_planner.cpp:122; here iteration-bounded by default with an
         optional wall budget). Start/goal are validated first — an invalid
         endpoint fails immediately like OMPL's precondition check."""
-        t0 = time.monotonic()
-        self.motion_checks = 0
-        self.states_checked = 0
-        checker = self.validator.checker
-        reads0 = getattr(checker, "host_reads", 0)
-        start = np.asarray(start, np.float32)
-        goal = np.asarray(goal, np.float32)
-        if not (self.space.contains(start) and self.space.contains(goal)):
-            raise ValueError("start/goal outside the joint space bounds")
+        with perfmon.span("plan.solve"):
+            t0 = time.monotonic()
+            self.motion_checks = 0
+            self.states_checked = 0
+            checker = self.validator.checker
+            reads0 = getattr(checker, "host_reads", 0)
+            start = np.asarray(start, np.float32)
+            goal = np.asarray(goal, np.float32)
+            if not (self.space.contains(start) and self.space.contains(goal)):
+                raise ValueError("start/goal outside the joint space bounds")
 
-        def _done(path: Optional[Path], iters: int) -> PlannerResult:
-            return PlannerResult(
-                path, iters, self.motion_checks, self.states_checked,
-                time.monotonic() - t0, getattr(checker, "host_reads", 0) - reads0,
-            )
+            def _done(path: Optional[Path], iters: int) -> PlannerResult:
+                return PlannerResult(
+                    path, iters, self.motion_checks, self.states_checked,
+                    time.monotonic() - t0, getattr(checker, "host_reads", 0) - reads0,
+                )
 
-        if not (checker.is_valid(start) and checker.is_valid(goal)):
-            return _done(None, 0)
-        if self._check(start, goal):  # trivial: straight segment is free
-            return _done(Path(np.stack([start, goal])), 0)
+            if not (checker.is_valid(start) and checker.is_valid(goal)):
+                return _done(None, 0)
+            if self._check(start, goal):  # trivial: straight segment is free
+                return _done(Path(np.stack([start, goal])), 0)
 
-        ta, tb = _Tree(start), _Tree(goal)
-        a_is_start = True
-        for it in range(1, max_iters + 1):
-            if time_budget is not None and time.monotonic() - t0 > time_budget:
-                break
-            q = self.space.sample(self.rng)
-            ia, _ = self._extend(ta, q)
-            if ia >= 0:
-                ib = self._connect(tb, ta.state(ia))
-                if ib >= 0:  # trees met at ta.state(ia)
-                    seg_a = ta.trace(ia)
-                    seg_b = tb.trace(ib)
-                    if not a_is_start:
-                        seg_a, seg_b = seg_b, seg_a
-                    # seg_a runs start->meet, seg_b goal->meet: reverse b,
-                    # drop its duplicated meeting state
-                    states = np.stack(seg_a + seg_b[::-1][1:])
-                    return _done(Path(states), it)
-            ta, tb = tb, ta
-            a_is_start = not a_is_start
-        return _done(None, max_iters)
+            ta, tb = _Tree(start), _Tree(goal)
+            a_is_start = True
+            for it in range(1, max_iters + 1):
+                if time_budget is not None and time.monotonic() - t0 > time_budget:
+                    break
+                q = self.space.sample(self.rng)
+                ia, _ = self._extend(ta, q)
+                if ia >= 0:
+                    ib = self._connect(tb, ta.state(ia))
+                    if ib >= 0:  # trees met at ta.state(ia)
+                        seg_a = ta.trace(ia)
+                        seg_b = tb.trace(ib)
+                        if not a_is_start:
+                            seg_a, seg_b = seg_b, seg_a
+                        # seg_a runs start->meet, seg_b goal->meet: reverse b,
+                        # drop its duplicated meeting state
+                        states = np.stack(seg_a + seg_b[::-1][1:])
+                        return _done(Path(states), it)
+                ta, tb = tb, ta
+                a_is_start = not a_is_start
+            return _done(None, max_iters)
 
 
 class PathSimplifier:

@@ -23,7 +23,7 @@ import torch
 
 from ..constants import float_to_probability
 from ..ops.insert import clamp_coords, in_map, linear_index, map_to_voxels
-from ..utils import to_device
+from ..utils import perfmon, to_device
 
 def _count_distinct_hits(lin: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
     """Distinct colliding voxels along the last axis (duplicates collapse,
@@ -58,17 +58,23 @@ class GvlValidityChecker:
     def colliding_voxels_device(self, cfgs) -> torch.Tensor:
         """Colliding voxels of one configuration ([n_joints] -> 0-d) or of a
         batch ([T, n_joints] -> [T]), as int64 on the environment's device."""
-        env = self.env
-        cfg = to_device(cfgs, torch.float32, env.data.device)
-        coords = map_to_voxels(self.robot.transformed_clouds_for(cfg).points, env.side_length)
-        inside = in_map(coords, env.dims)
-        idx = torch.where(inside, linear_index(coords, env.dims), 0)
-        occ = (env.data[idx].to(torch.int32) >= self.t) & inside
-        return _count_distinct_hits(idx, occ)
+        with perfmon.span("validity.count"):
+            env = self.env
+            cfg = to_device(cfgs, torch.float32, env.data.device)
+            points = self.robot.transformed_clouds_for(cfg).points
+            with perfmon.span("validity.gather"):
+                coords = map_to_voxels(points, env.side_length)
+                inside = in_map(coords, env.dims)
+                idx = torch.where(inside, linear_index(coords, env.dims), 0)
+                occ = (env.data[idx].to(torch.int32) >= self.t) & inside
+            with perfmon.span("validity.distinct"):
+                return _count_distinct_hits(idx, occ)
 
     def colliding_voxels(self, cfg) -> int:
         self.host_reads += 1
-        return int(self.colliding_voxels_device(cfg))
+        count = self.colliding_voxels_device(cfg)
+        with perfmon.span("validity.read"):
+            return int(count)
 
     def is_valid(self, cfg) -> bool:
         """isValid (gvl_ompl_planner_helper.cpp pose_check)."""
@@ -76,7 +82,9 @@ class GvlValidityChecker:
 
     def batch_colliding_voxels(self, cfgs) -> np.ndarray:
         self.host_reads += 1
-        return self.colliding_voxels_device(cfgs).cpu().numpy()
+        counts = self.colliding_voxels_device(cfgs)
+        with perfmon.span("validity.read"):
+            return counts.cpu().numpy()
 
 
 class HierarchicalValidityChecker(GvlValidityChecker):
@@ -104,13 +112,17 @@ class HierarchicalValidityChecker(GvlValidityChecker):
         return self.env.device
 
     def colliding_voxels_device(self, cfgs) -> torch.Tensor:
-        env = self.env
-        cfg = to_device(cfgs, torch.float32, env.device)
-        coords = map_to_voxels(self.robot.transformed_clouds_for(cfg).points, env.side_length)
-        inside = in_map(coords, env.dims)
-        coords = clamp_coords(coords, env.dims)
-        occ, _, _ = env.probe_clamped(coords, self.min_level)
-        return _count_distinct_hits(linear_index(coords, env.dims), occ & inside)
+        with perfmon.span("validity.count"):
+            env = self.env
+            cfg = to_device(cfgs, torch.float32, env.device)
+            points = self.robot.transformed_clouds_for(cfg).points
+            with perfmon.span("validity.gather"):
+                coords = map_to_voxels(points, env.side_length)
+                inside = in_map(coords, env.dims)
+                coords = clamp_coords(coords, env.dims)
+                occ, _, _ = env.probe_clamped(coords, self.min_level)
+            with perfmon.span("validity.distinct"):
+                return _count_distinct_hits(linear_index(coords, env.dims), occ & inside)
 
     def refresh(self) -> None:
         """Take a new snapshot of a paged environment after it changed; a
@@ -139,6 +151,8 @@ class MotionValidator:
         """Returns (valid, number of checked states): one batch, one host
         read. (The reference pads the batch to a power of two to reuse
         compiled programs; nothing here compiles per length.)"""
-        states = self.segment_states(s1, s2)
-        counts = self.checker.batch_colliding_voxels(states)
-        return bool((counts <= self.checker.max_colliding).all()), len(states)
+        with perfmon.span("validity.check_motion"):
+            with perfmon.span("validity.states"):
+                states = self.segment_states(s1, s2)
+            counts = self.checker.batch_colliding_voxels(states)
+            return bool((counts <= self.checker.max_colliding).all()), len(states)

@@ -22,7 +22,7 @@ import torch
 
 from ..geometry import transforms
 from ..geometry.pointcloud import MetaPointCloud
-from ..utils import to_device
+from ..utils import perfmon, to_device
 from .robot import JointValueMap, RobotInterface
 
 
@@ -110,7 +110,11 @@ class KinematicChain(RobotInterface):
     def transformed_clouds_for(self, values) -> MetaPointCloud:
         """Pure FK: joint values ([n_links] or [T, n_links]) -> transformed
         clouds ([total, 3] or [T, total, 3] points)."""
-        return self.clouds.transformed_per_cloud(self.link_matrices(values))
+        with perfmon.span("robot.fk"):
+            with perfmon.span("robot.chain"):
+                matrices = self.link_matrices(values)
+            with perfmon.span("robot.transform"):
+                return self.clouds.transformed_per_cloud(matrices)
 
     def get_lower_joint_limits(self) -> JointValueMap:
         return dict(self._lower)

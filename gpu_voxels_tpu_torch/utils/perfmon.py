@@ -17,13 +17,31 @@ completed device work only if the caller synchronizes: pass a tensor, or a
 sequence of tensors, as `block_on` and the host waits for the device of
 every CUDA tensor among them before reading the clock (CPU tensors need no
 wait).
+
+Beside the monitor, the program's spans: `span(name)` marks a step of the
+port where the work happens (the sites are listed in README.md). They are
+off by default, and each site then costs one shared no-op. Switched on by
+`enable_spans(record, annotate)`:
+
+  record    each span appends (name, t0_ns, t1_ns, parent, request) to an
+            in-memory buffer, times from time.perf_counter_ns, `parent` the
+            buffer index of the enclosing span (-1 for none), `request` the
+            id that the innermost `request(rid)` context set (None outside);
+            `drain_spans()` returns the buffer and empties it
+  annotate  each span also opens torch.profiler.record_function("gv." +
+            name), so that inside a profiler window the program's steps lie
+            on the profiler's clock beside the device's operations
+
+Spans nest by the order in which they open and close: record from one
+thread at a time. A span closes on an exception too. A span still open at
+`drain_spans()` is not recorded.
 """
 from __future__ import annotations
 
 import statistics
 import time
 from collections import defaultdict
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -116,4 +134,135 @@ class PerformanceMonitor:
         return "\n".join(lines)
 
     def series(self, description: str, prefix: str = "") -> List[float]:
-        return list(self.data[f"{prefix}::{description}"])
+        """The values under prefix::description; none where nothing was
+        recorded (reading inserts no empty series, which `summary` could
+        not average)."""
+        return list(self.data.get(f"{prefix}::{description}", ()))
+
+
+# -- program spans -------------------------------------------------------------
+SpanRecord = Tuple[str, int, int, int, Optional[object]]  # name, t0_ns, t1_ns, parent, request
+
+
+class _Noop:
+    """The context every span and request is while spans are off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NOOP = _Noop()
+
+
+class _Spans:
+    """The process's span state: the switches, the buffer, the open spans."""
+
+    def __init__(self):
+        self.record = False
+        self.annotate = False
+        self.buffer: list = []  # SpanRecord, or None while the span is open
+        self.open: List[int] = []  # buffer indices of the open spans, innermost last
+        self.request = None
+        self.generation = 0  # bumped by each drain
+
+
+_spans = _Spans()
+
+
+class _Span:
+    __slots__ = ("name", "index", "generation", "range", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.index = -1
+        self.range = None
+
+    def __enter__(self):
+        if _spans.annotate:
+            self.range = torch.profiler.record_function("gv." + self.name)
+            self.range.__enter__()
+        if _spans.record:
+            self.generation = _spans.generation
+            self.index = len(_spans.buffer)
+            _spans.buffer.append(None)
+            _spans.open.append(self.index)
+            self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self.index >= 0:
+            t1 = time.perf_counter_ns()
+            if self.generation == _spans.generation:
+                _spans.open.pop()
+                parent = _spans.open[-1] if _spans.open else -1
+                _spans.buffer[self.index] = (self.name, self.t0, t1, parent, _spans.request)
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+class _Request:
+    __slots__ = ("rid", "outer")
+
+    def __init__(self, rid):
+        self.rid = rid
+
+    def __enter__(self):
+        self.outer, _spans.request = _spans.request, self.rid
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _spans.request = self.outer
+        return False
+
+
+def enable_spans(record: bool, annotate: bool) -> None:
+    """Switch span recording and profiler annotation on or off."""
+    _spans.record, _spans.annotate = bool(record), bool(annotate)
+
+
+def span(name: str):
+    """A context timing one step of the program; the shared no-op while
+    spans are off."""
+    if not (_spans.record or _spans.annotate):
+        return _NOOP
+    return _Span(name)
+
+
+def request(rid):
+    """A context whose recorded spans share the request id `rid`; the
+    shared no-op while recording is off."""
+    if not _spans.record:
+        return _NOOP
+    return _Request(rid)
+
+
+def drain_spans() -> List[SpanRecord]:
+    """The closed spans' records in the order they opened, and an empty
+    buffer. Parent indices point into the returned list (-1 where the
+    parent was still open)."""
+    out = _spans.buffer
+    _spans.buffer, _spans.open = [], []
+    _spans.generation += 1
+    if None not in out:
+        return out
+    index = {}
+    for i, r in enumerate(out):
+        if r is not None:
+            index[i] = len(index)
+    return [r[:3] + (index.get(r[3], -1), r[4]) for r in out if r is not None]
+
+
+def self_ms(records: List[SpanRecord]) -> List[float]:
+    """Each record's duration less what its child spans cover, in ms (the
+    children of one span run one after another)."""
+    own = [r[2] - r[1] for r in records]
+    for r in records:
+        if r[3] >= 0:
+            own[r[3]] -= r[2] - r[1]
+    return [v / 1e6 for v in own]
