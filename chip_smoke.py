@@ -40,7 +40,12 @@ non-zero and prints no result. Phases, each an assert or an exception:
    set bit is eBVM_FREE on either side, which must not count, and voxels
    set only in plane 7's bit 31, which must) over the offsets, a length
    that is not a multiple of 4, the all-zero map, and one pair at 512^3
-   (8.6 GB of planes);
+   (8.6 GB of planes); the DH chain's FK kernels (dh_fk_points, dh_chain:
+   one launch a call) on the UR10 at 0.02 m spacing for 1, 34 and 256
+   states, within 2e-6 m of their plain versions (cuBLAS orders the plain
+   version's sums otherwise: not bit for bit) and within 5e-5 voxel of
+   float64, one state passed on the host equal to the same state on the
+   card;
 3. ten paths through the public entry points, on the card, with torch's
    sync debug mode set to raise (the paths never wait for the device; path
    10's programs read it on purpose), each driven with every launch count
@@ -56,7 +61,7 @@ non-zero and prints no result. Phases, each an assert or an exception:
      307,200 rays into 256^3 and a CountingVoxelMap of its endpoints (the
      DDA and the counting map also equal to the same calls on CPU copies
      of the same points, at the full point count);
-   - the robot -> swept volume -> types-collide path (K4): a UR10 through
+   - the robot -> swept volume -> types-collide path (K4, FK): a UR10 through
      the facade, the BASELINE #3 64-step UR10 swept volume into a 256^3
      bit map, and its types collides and bit checks against an environment
      whose obstacles carry the SV bits of a few steps;
@@ -92,7 +97,7 @@ non-zero and prints no result. Phases, each an assert or an exception:
      coordinate 1,024, collided across id modes, and a disk round trip of
      every list kind and each dense map kind. Every answer and file must
      equal the same calls on CPU copies at the full point count;
-   - the planning path (no kernel): examples/ompl_planner_app.py's scene
+   - the planning path (FK): examples/ompl_planner_app.py's scene
      through the facade at the reference planner's size (150 x 150 x 100 at
      0.02 m), a UR10 among two pillars, a table and the floor, three rounds
      of RRTConnect (max 3,000 iterations) and the path simplifier, each
@@ -206,7 +211,8 @@ non-zero and prints no result. Phases, each an assert or an exception:
      planner is clear of a numpy set oracle of the scene's boxes, and its
      solution list holds the oracle's count of distinct voxels;
    every count, meanings vector, map, distance and payload grid must equal
-   the same scene run through the plain route, and the 512^3 EDT must equal
+   the same scene run through the plain route (FK's kernels run in both
+   routes), and the 512^3 EDT must equal
    a brute-force minimum over the obstacles at 4,096 sampled voxels;
 4. times with CUDA events (printed, never asserted): each kernel beside its
    plain version (K4 at the main path's data, the UR10 sweep against its
@@ -240,7 +246,9 @@ non-zero and prints no result. Phases, each an assert or an exception:
    time (host clock) and host waits, the live loop's processed frames and
    sustained rate at its defaults and under the accelerator contract of
    tests_tpu/test_examples_tpu.py:38-56 (90 frames, the async publish:
-   asserted, >= 80 frames at >= 30 Hz with both providers painting).
+   asserted, >= 80 frames at >= 30 Hz with both providers painting); and
+   both FK kernels beside their plain versions at 1 and 34 UR10 states,
+   with their device time and device operations a call.
 
 Output: progress lines, the card's `name, power.limit` line, one JSON line
 {"kernels": [...]} (each kernel with its launches on the paths, its largest
@@ -295,6 +303,7 @@ from gpu_voxels_tpu_torch.parallel.sharded_edt_exact import build_sharded_parall
 from gpu_voxels_tpu_torch.planning import (GvlValidityChecker, HierarchicalValidityChecker, JointSpace, MotionValidator,
                                            PathSimplifier, RRTConnect)
 from gpu_voxels_tpu_torch.providers import Provider
+from gpu_voxels_tpu_torch.robot import dh_cuda
 from gpu_voxels_tpu_torch.robot.dh import DHParameters
 from gpu_voxels_tpu_torch.robot.fitter import deconflict_slot, fit_orderings, fit_schedule
 from gpu_voxels_tpu_torch.robot.presets import ur_robot
@@ -441,7 +450,19 @@ KERNELS = [
      "gpu_voxels_tpu/ops/raycast_pallas.py:79"),
     ("count_bit_bit", collide_cuda, "gpu_voxels_tpu_torch/csrc/collide_bits.cu",
      "gpu_voxels_tpu/ops/collide_pallas.py:92"),
+    # a DH chain's FK in one launch: no TPU kernel, the reference's FK is jnp
+    # that XLA fuses (gpu_voxels_tpu/robot/dh.py)
+    ("dh_fk_points", dh_cuda, "gpu_voxels_tpu_torch/csrc/dh_fk.cu", None),
+    ("dh_chain", dh_cuda, "gpu_voxels_tpu_torch/csrc/dh_fk.cu", None),
 ]
+# FK: the UR10 at the planner workcell's 0.02 m (~3,800 points); states of a
+# monitor update, the largest motion check and a batch
+FK_SPACING = 0.02
+FK_STATES = (1, 34, 256)
+FK_ERR_VOX = 5e-5  # float32 against float64, in voxels of FK_SPACING
+# kernel against plain on the card, in metres: each lies within 1e-6 m of
+# float64; cuBLAS, under the plain version's products, sums in another order
+FK_PLAIN_ATOL = 2e-6
 
 
 def log(msg: str) -> None:
@@ -547,8 +568,60 @@ def check_kernels(dev: torch.device) -> dict:
     check_k5(dev, g, err)
     check_k6(dev, err)
     check_k7(dev, g, err)
+    check_dh_fk(dev, err)
     torch.cuda.synchronize()
     return err
+
+
+def fk_arm(dev: torch.device):
+    """The UR10 at FK_SPACING, and its table as both kernels take it."""
+    arm = ur_robot("ur10", FK_SPACING, device=dev)
+    return arm, (*arm._table, arm._point_cloud, arm.clouds.points)
+
+
+def host_table(table: tuple) -> tuple:
+    """The table with params, joint types and cloud links on the host: the
+    plain versions read them there, so on the card they make no host wait."""
+    return (*(t.cpu() for t in table[:3]), *table[3:])
+
+
+def fk64(arm, values: torch.Tensor) -> torch.Tensor:
+    """float64 [T, P, 3] of the chain's revolute joints for values [T, L]."""
+    v = values.double()
+    acc, before = torch.eye(4, dtype=torch.float64, device=v.device).expand(len(v), 4, 4), []
+    for i, p in enumerate(arm.dh[n] for n in arm.link_names):
+        before.append(acc)
+        ct, st, ca, sa = torch.cos(p.theta + v[:, i]), torch.sin(p.theta + v[:, i]), np.cos(p.alpha), np.sin(p.alpha)
+        z, o = torch.zeros_like(ct), torch.ones_like(ct)
+        rows = [[ct, -st * ca, st * sa, p.a * ct], [st, ct * ca, -ct * sa, p.a * st], [z, z + sa, z + ca, z + p.d],
+                [z, z, z, o]]
+        acc = acc @ torch.stack([torch.stack(r, -1) for r in rows], -2)
+    m = torch.stack([before[arm.link_names.index(n)] for n in arm.clouds.names], 1)[:, arm.clouds.cloud_ids]
+    return (m[..., :3, :3] @ arm.clouds.points.double()[:, :, None])[..., 0] + m[..., :3, 3]
+
+
+def check_dh_fk(dev: torch.device, err: dict) -> None:
+    """The FK kernels at FK_STATES UR10 states against their plain versions
+    (to FK_PLAIN_ATOL, in metres) and the points against float64 (to
+    FK_ERR_VOX); one launch each a call; a host state's points equal to the
+    same state's on the card."""
+    arm, table = fk_arm(dev)
+    rng = np.random.default_rng(19)
+    for states in FK_STATES:
+        vals = torch.from_numpy(rng.uniform(-np.pi, np.pi, (states, 7)).astype(np.float32)).to(dev)
+        before = dict(dh_cuda.launches)
+        pts, mats = dh_cuda.dh_fk_points(vals, *table), dh_cuda.dh_chain(vals, *table[:3])
+        assert dh_cuda.launches == {name: n + 1 for name, n in before.items()}
+        d_pts = float((pts - dh_cuda.dh_fk_points_plain(vals, *host_table(table))).abs().max())
+        d_mats = float((mats - dh_cuda.dh_chain_plain(vals, *host_table(table[:3]))).abs().max())
+        vox = float((pts.double() - fk64(arm, vals)).abs().max()) / FK_SPACING
+        # one state on the host travels in the launch's arguments: the same points
+        assert torch.equal(dh_cuda.dh_fk_points(vals[-1].cpu().numpy(), *table)[0], pts[-1])
+        err["dh_fk_points"] = max(err["dh_fk_points"], d_pts)
+        err["dh_chain"] = max(err["dh_chain"], d_mats)
+        assert d_pts <= FK_PLAIN_ATOL and d_mats <= FK_PLAIN_ATOL and vox <= FK_ERR_VOX, (states, d_pts, d_mats, vox)
+        log(f"  FK T={states} P={pts.shape[1]}: points {d_pts:.3g} m and matrices {d_mats:.3g} from plain (<= "
+            f"{FK_PLAIN_ATOL:g}), {vox:.3g} voxel from float64 (<= {FK_ERR_VOX:g})")
 
 
 def check_k3_offsets(dev: torch.device, depth: torch.Tensor, poses: dict, err: dict) -> None:
@@ -923,7 +996,10 @@ def plain_route():
         (raycast_cuda, "min_pool_depth"): raycast_cuda.min_pool_depth_plain,
         (collide_cuda, "count_bit_bit"): collide_cuda.count_bit_bit_plain,
     }
-    assert {(m, n) for n, m, *_ in KERNELS} == set(plain)
+    # FK's kernels run in both routes, so both take the same points: FK's
+    # plain version agrees with them to FK_PLAIN_ATOL, not bit for bit, and
+    # the maps of the two routes are compared bit for bit
+    assert {(m, n) for n, m, *_ in KERNELS if m is not dh_cuda} == set(plain)
     saved = {key: getattr(*key) for key in plain}
     for (module, name), fn in plain.items():
         setattr(module, name, fn)
@@ -1322,7 +1398,7 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, di
     check_live_sensing(out, dev)
 
     log("  robot -> swept volume -> types collide (K4)")
-    robot, robot_launches = drive(robot_path, {"collide_types_bit_bit"}, dev, out["env"])
+    robot, robot_launches = drive(robot_path, {"collide_types_bit_bit", "dh_fk_points"}, dev, out["env"])
     add_launches(launches, robot_launches)
     check_robot_path(robot)
 
@@ -1378,8 +1454,8 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, di
     check_list_path(lp, out["env"])
     check_list_path_on_cpu(lp)
 
-    log("  planning on dense maps (no kernel)")
-    plan, plan_launches = drive(planning_path, set(), dev)
+    log("  planning on dense maps (FK)")
+    plan, plan_launches = drive(planning_path, {"dh_fk_points"}, dev)
     add_launches(launches, plan_launches)
     check_planning_path(plan, dev)
 
@@ -4192,7 +4268,51 @@ def timings(dev: torch.device, smi: str, out: dict, robot: dict, dist: dict, fit
     dda_ms = time_ms(lambda: fresh.insert_sensor_data(rays, sensor_origin=sensor.position), 5, warmup=1)
     log(f"  256^3 DDA insert_sensor_data of one frame ({rays.shape[0]} rays, 256 steps): {dda_ms:.4f} ms = "
         f"{1000.0 / dda_ms:.2f} Hz  [{smi}]")
+    fk_timings(dev, smi, t, bounds)
     return t, bounds
+
+
+def launches_per_call(fn, iters: int) -> float:
+    """Device operations (kernels, memsets, copies) per call of fn."""
+    return sum(e.count for e in device_rows(fn, iters)) / iters
+
+
+def fk_timings(dev: torch.device, smi: str, t: dict, bounds: dict) -> None:
+    """Both FK kernels beside their plain versions (the table on the host, as
+    a chain's plain route reads it) at a monitor update's 1 state (given on
+    the host) and a motion check's 34 (on the card), in turns; the kernels' device time (the profiler) and
+    the device operations a call. The JSON line keeps the 34-state rows.
+    Bytes: the points written (12 B a point and state) or the matrices (64
+    B a cloud and state), the points and their cloud ids read once (16 B a
+    point), the values and the table; operations: ~96 a link and state (the
+    product's 84, the DH entries, 4 sines and cosines) and 18 a point and
+    state."""
+    arm, table = fk_arm(dev)
+    n_links, n_clouds, n_points = table[0].shape[0], table[2].shape[0], table[3].shape[0]
+    rng = np.random.default_rng(23)
+    for states in (1, 34):
+        vals = torch.from_numpy(rng.uniform(-np.pi, np.pi, (states, 7)).astype(np.float32)).to(dev)
+        # a monitor's one state comes from the host, a motion check's from the card
+        given = vals[0].cpu().numpy() if states == 1 else vals
+        inputs = 4 * states * n_links + 20 * n_links + 4 * n_clouds
+        chain_ops = 96 * states * n_links
+        rows = {
+            "dh_fk_points": ((lambda: dh_cuda.dh_fk_points(given, *table)),
+                             (lambda: dh_cuda.dh_fk_points_plain(vals, *host_table(table))),
+                             bound(12 * states * n_points + 16 * n_points + inputs, chain_ops + 18 * states * n_points)),
+            "dh_chain": ((lambda: dh_cuda.dh_chain(given, *table[:3])),
+                         (lambda: dh_cuda.dh_chain_plain(vals, *host_table(table[:3]))),
+                         bound(64 * states * n_clouds + inputs, chain_ops)),
+        }
+        for name, (kernel, plain, bnd) in rows.items():
+            k, p = in_turns(kernel, plain, 50)
+            k_dev, p_dev = device_ms(kernel, 50), device_ms(plain, 50)
+            ops = launches_per_call(kernel, 10), launches_per_call(plain, 10)
+            log(f"  {name} T={states} P={n_points}: kernel {k:.4f} ms (device {k_dev:.4f}), plain torch {p:.4f} ms "
+                f"(device {p_dev:.4f}), bound {bnd[0]:.6f} ms ({bnd[1]}); device operations a call: kernel "
+                f"{ops[0]:g}, plain {ops[1]:g}  [{smi}]")
+            if states == 34:
+                t[name], bounds[name] = (k, p), bnd
 
 
 def main() -> int:
@@ -4220,7 +4340,8 @@ def main() -> int:
          # no single PyTorch call computes any of these functions: K1/K2 are
          # a compare-and-count, K3 and K6 projective carves, K4 a windowed bit
          # collide, K5 a min-plus envelope, K7 a fold-and-count (>= 10 calls),
-         # K6's pool a select then a min over a padded frame
+         # K6's pool a select then a min over a padded frame, FK a chain of
+         # DH products
          "library_ms": None}
         for name, _module, source, replaces in KERNELS
     ]}

@@ -3,26 +3,35 @@
 Counterpart of gpu_voxels_tpu/robot/dh.py. KinematicChain::setConfiguration
 (KinematicChain.cu:93-126) transforms link i's cloud by the product
 DH_0 * ... * DH_{i-1} (identity for the first link: the cloud transform
-happens BEFORE the link's own matrix is multiplied in). The per-link
-matrices are built on the clouds' device and all link clouds move in ONE
-batched transform (MetaPointCloud.transformed_per_cloud).
+happens BEFORE the link's own matrix is multiplied in).
 
 `link_matrices` also takes a [T, n_links] tensor of joint values and returns
 [T, num_clouds, 4, 4]: the batch dimension written out that the reference
-gets from `jax.vmap` (swept_volume.py:75), so a whole trajectory's FK is a
-handful of batched products on the card, not T Python iterations.
+gets from `jax.vmap` (swept_volume.py:75).
+
+The route follows the device of the clouds, where the joint values go (one
+state given on the host travels in the launch's arguments instead). On
+the card every FK is one launch of csrc/dh_fk.cu (robot/dh_cuda.py): the
+points through `dh_fk_points` (transformed_clouds_for, set_configuration,
+update_point_cloud), the matrices through `dh_chain` (link_matrices); an
+input the kernels do not take raises. On the CPU the plain versions run,
+`dh_chain_plain` and `MetaPointCloud.transformed_per_cloud`: the spec the
+tests hold against the reference. The chain packs its DH table once, on the
+clouds' device, as the kernels take it.
 """
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..geometry import transforms
 from ..geometry.pointcloud import MetaPointCloud
 from ..utils import perfmon, to_device
+from . import dh_cuda
 from .robot import JointValueMap, RobotInterface
 
 
@@ -67,15 +76,37 @@ class KinematicChain(RobotInterface):
         self._lower = lower_limits or {}
         self._upper = upper_limits or {}
         self._transformed = link_clouds
+        dev = link_clouds.device
+        params = [[p.d, p.theta, p.a, p.alpha] for p in dh_params]
+        # (params, joint_types, cloud_link) of robot/dh_cuda.py; a cloud's link
+        # by name, so its cloud takes the product before that link's matrix
+        self._table = (
+            to_device(np.asarray(params, np.float32).reshape(-1, 4), torch.float32, dev),
+            to_device([int(p.joint_type) for p in dh_params], torch.int32, dev),
+            to_device([self.link_names.index(n) for n in link_clouds.names], torch.int32, dev),
+        )
+        self._point_cloud = link_clouds.cloud_ids.to(torch.int32)
 
     # -- FK -------------------------------------------------------------------
-    def _values(self, values) -> torch.Tensor:
+    def _values(self, values):
         """Joint values ordered by link_names as a [..., n_links] f32 tensor
-        on the clouds' device."""
+        on the clouds' device; on the card one state given on the host (a
+        dict, None, a sequence or an array of n_links) stays there as f32
+        numpy [n_links], which the kernels take in their launch's arguments."""
         if values is None or isinstance(values, dict):
             given = values or {}
             values = [float(given.get(n, self.joint_values[n])) for n in self.link_names]
+        if self.clouds.device.type == "cuda" and not isinstance(values, torch.Tensor):
+            host = np.ascontiguousarray(values, np.float32)
+            if host.ndim == 1:
+                return host
         return to_device(values, torch.float32, self.clouds.device)
+
+    @staticmethod
+    def _flat(vals):
+        """Values as the kernels take them: [T, n_links] on the card, or one
+        host state."""
+        return vals if isinstance(vals, np.ndarray) else vals.reshape(-1, vals.shape[-1]).contiguous()
 
     def link_matrices(self, values=None) -> torch.Tensor:
         """[..., num_clouds, 4, 4]: the accumulated DH product per link cloud.
@@ -85,18 +116,16 @@ class KinematicChain(RobotInterface):
         configuration.
         """
         vals = self._values(values)
-        acc = transforms.identity(vals.device).expand(vals.shape[:-1] + (4, 4))
-        by_name = {}
-        for i, name in enumerate(self.link_names):
-            by_name[name] = acc  # the transform BEFORE this link's own DH matrix
-            acc = transforms.matmul(acc, self.dh[name].matrix(vals[..., i]))
-        return torch.stack([by_name[n] for n in self.clouds.names], dim=-3)
+        if self.clouds.device.type != "cuda":
+            return dh_cuda.dh_chain_plain(vals, *self._table)
+        mats = dh_cuda.dh_chain(self._flat(vals), *self._table)
+        return mats.reshape(vals.shape[:-1] + (self.clouds.num_clouds, 4, 4))
 
     def set_configuration(self, joint_values: JointValueMap) -> None:
         for k, v in joint_values.items():
             if k in self.joint_values:
                 self.joint_values[k] = v
-        self._transformed = self.clouds.transformed_per_cloud(self.link_matrices())
+        self._transformed = self.transformed_clouds_for(None)
 
     def get_configuration(self) -> JointValueMap:
         return dict(self.joint_values)
@@ -108,11 +137,17 @@ class KinematicChain(RobotInterface):
         return self._transformed
 
     def transformed_clouds_for(self, values) -> MetaPointCloud:
-        """Pure FK: joint values ([n_links] or [T, n_links]) -> transformed
-        clouds ([total, 3] or [T, total, 3] points)."""
+        """Pure FK: joint values ([n_links] or [T, n_links], a dict by name,
+        or None for the stored configuration) -> transformed clouds ([total,
+        3] or [T, total, 3] points). On the card `robot.chain` holds the one
+        launch, the chain and the transform together."""
         with perfmon.span("robot.fk"):
             with perfmon.span("robot.chain"):
-                matrices = self.link_matrices(values)
+                vals = self._values(values)
+                if self.clouds.device.type == "cuda":
+                    pts = dh_cuda.dh_fk_points(self._flat(vals), *self._table, self._point_cloud, self.clouds.points)
+                    return replace(self.clouds, points=pts.reshape(vals.shape[:-1] + pts.shape[1:]))
+                matrices = self.link_matrices(vals)
             with perfmon.span("robot.transform"):
                 return self.clouds.transformed_per_cloud(matrices)
 
@@ -125,4 +160,5 @@ class KinematicChain(RobotInterface):
     def update_point_cloud(self, link_name: str, cloud) -> None:
         idx = self.clouds.cloud_index(link_name)
         self.clouds = self.clouds.updated_cloud(idx, cloud)
-        self._transformed = self.clouds.transformed_per_cloud(self.link_matrices())
+        self._point_cloud = self.clouds.cloud_ids.to(torch.int32)  # a resized cloud moves the ids
+        self._transformed = self.transformed_clouds_for(None)

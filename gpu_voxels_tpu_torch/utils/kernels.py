@@ -71,6 +71,11 @@ SIGNATURES = {
     "gv_envelope_pass": (_P, _P, _P, _P, _I64, _I32, _I64, _P),
     # (n, C, out: int[5] on the host)
     "gv_envelope_occupancy": (_I32, _I64, _P),
+    # (values or NULL, host values (T = 1, on the host) or NULL, params, joint_types,
+    #  cloud_link, point_cloud, points, out, T, L, C, P, stream)
+    "gv_dh_fk_points": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _P),
+    # (values or NULL, host values or NULL, params, joint_types, cloud_link, out, T, L, C, stream)
+    "gv_dh_chain": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P),
 }
 
 _lib: ctypes.CDLL | None = None

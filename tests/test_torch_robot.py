@@ -352,3 +352,114 @@ def test_bit_maintenance_matches_reference():
         same(tm.shift_left_swept_volume_ids(k), jm.shift_left_swept_volume_ids(k))
     for meaning in (0, 2, SV_START + 30, 200):
         np.testing.assert_array_equal(tm.get_bit_mask(meaning).numpy(), np.asarray(jm.get_bit_mask(meaning)))
+
+
+def _fk64(params, types, cloud_link, point_cloud, points, values):
+    """float64 [T, P, 3] oracle of the chain: DH_0 ... DH_{i-1} moves link
+    i's cloud (numpy, independent of both packages)."""
+    values = np.atleast_2d(np.asarray(values, np.float64))
+    out = np.empty((len(values), len(points), 3))
+    for t, v in enumerate(values):
+        acc, before = np.eye(4), []
+        for (d, theta, a, alpha), jt, q in zip(params, types, v):
+            before.append(acc)
+            d, theta = (d + q, theta) if jt == int(DHJointType.PRISMATIC) else (d, theta + q)
+            ct, st, ca, sa = np.cos(theta), np.sin(theta), np.cos(alpha), np.sin(alpha)
+            acc = acc @ np.array([[ct, -st * ca, st * sa, a * ct], [st, ct * ca, -ct * sa, a * st],
+                                  [0, sa, ca, d], [0, 0, 0, 1]])
+        m = np.stack([before[i] for i in cloud_link])[point_cloud]
+        out[t] = np.einsum("pij,pj->pi", m[:, :3, :3], points) + m[:, :3, 3]
+    return out
+
+
+def _fk_arm(case):
+    """A UR10 at 0.05 m spacing; `prismatic` makes the elbow a sliding
+    joint, `subset` keeps clouds on three of the seven links only."""
+    arm = tpresets.ur_robot("ur10", 0.05, device="cpu")
+    if case in ("prismatic", "subset"):
+        params = [arm.dh[n] for n in arm.link_names]
+        if case == "prismatic":
+            params[2] = DHParameters(0.1, 0.2, -0.5723, 0.3, joint_type=DHJointType.PRISMATIC)
+        keep = [1, 3, 6] if case == "subset" else range(7)
+        clouds = TMeta.from_clouds([arm.clouds.get_cloud(i).numpy() for i in keep],
+                                   [arm.clouds.names[i] for i in keep], device="cpu")
+        arm = type(arm)(arm.link_names, params, clouds)
+    return arm
+
+
+@pytest.mark.parametrize("case", ["unbatched", "T1", "T34", "prismatic", "subset", "set_configuration", "checks"])
+def test_chain_fk_on_the_cpu_takes_the_plain_path(case, monkeypatch):
+    """A CPU chain runs the plain versions of robot/dh_cuda.py and never its
+    kernels (their launch counts stay 0, the library is never loaded): FK
+    of [L] and [T, L] joint values, a prismatic joint and clouds on a strict
+    subset of the links against a float64 oracle (and, unbatched, the
+    reference), link_matrices equal to dh_chain_plain, set_configuration
+    equal to transformed_clouds_for; and the wrappers' argument checks raise
+    without a card."""
+    from gpu_voxels_tpu_torch.robot import dh_cuda
+    from gpu_voxels_tpu_torch.utils import kernels
+
+    def no_library():
+        raise AssertionError("a CPU chain must not load the kernel library")
+
+    monkeypatch.setattr(kernels, "library", no_library)
+    before = dict(dh_cuda.launches)
+    arm = _fk_arm(case)
+    params, types, cloud_link = arm._table
+    assert params.dtype == torch.float32 and types.dtype == torch.int32 and cloud_link.dtype == torch.int32
+    table = (params.tolist(), types.tolist(), cloud_link.tolist(), arm._point_cloud.numpy(), arm.clouds.points.numpy())
+    rng = np.random.default_rng(20)
+    if case == "checks":
+        pc, pts = arm._point_cloud, arm.clouds.points
+        vals = torch.zeros((2, 7))
+        bad = [
+            ((vals.double(), params, types, cloud_link), "float32"),
+            ((vals[0], params, types, cloud_link), r"\[T, L\]"),
+            ((vals[:, :3].contiguous(), params, types, cloud_link), "params .* \\[3, 4\\]"),
+            ((vals.T.contiguous().T, params, types, cloud_link), "values"),
+            ((vals, params[:, :3].contiguous(), types, cloud_link), "params"),
+            ((vals, params, types.long(), cloud_link), "joint_types"),
+            ((vals, params, types, cloud_link.long()), "cloud_link"),
+            ((vals, params, types, cloud_link[:0]), "C >= 1"),
+            ((torch.zeros((2, 65)), torch.zeros((65, 4)), torch.zeros(65, dtype=torch.int32), cloud_link), "1 to 64"),
+            ((vals.numpy()[0].astype(np.float64), params, types, cloud_link), "host values"),
+            ((vals.numpy(), params, types, cloud_link), "host values"),
+            ((vals.numpy()[0], params, types, cloud_link), "on a CUDA device"),
+            ((vals, params, types, cloud_link), "on a CUDA device"),
+        ]
+        for args, msg in bad:
+            with pytest.raises(ValueError, match=msg):
+                dh_cuda.dh_chain(*args)
+            with pytest.raises(ValueError, match=msg):
+                dh_cuda.dh_fk_points(*args, pc, pts)
+        for more, msg in [((pc.long(), pts), "point_cloud"), ((pc[None], pts), r"\[P\]"),
+                          ((pc, pts.T.contiguous().T), "points"), ((pc, pts[:-1]), "points")]:
+            with pytest.raises(ValueError, match=msg):
+                dh_cuda.dh_fk_points(vals, params, types, cloud_link, *more)
+    elif case == "set_configuration":
+        cfg = {n: float(v) for n, v in zip(arm.link_names, rng.uniform(-2, 2, 7))}
+        arm.set_configuration(cfg)
+        pts = arm.get_transformed_clouds().points
+        assert torch.equal(pts, arm.transformed_clouds_for(cfg).points)
+        assert torch.equal(pts, arm.transformed_clouds_for(None).points)
+        np.testing.assert_allclose(pts.numpy(), _fk64(*table, [cfg[n] for n in arm.link_names])[0], atol=2e-6)
+        seg = arm.clouds.get_cloud(2).numpy()[:10] * 0.5  # resized: the point ids are packed anew
+        arm.update_point_cloud("elbow_joint", seg)
+        assert torch.equal(arm._point_cloud, arm.clouds.cloud_ids.to(torch.int32))
+        assert torch.equal(arm.get_transformed_clouds().points, arm.transformed_clouds_for(cfg).points)
+    else:
+        shape = {"unbatched": (7,), "T1": (1, 7), "T34": (34, 7)}.get(case, (5, 7))
+        vals = torch.from_numpy(rng.uniform(-np.pi, np.pi, shape).astype(np.float32))
+        got = arm.transformed_clouds_for(vals).points
+        mats = arm.link_matrices(vals)
+        assert got.shape == shape[:-1] + (arm.clouds.accumulated_size, 3)
+        assert mats.shape == shape[:-1] + (arm.clouds.num_clouds, 4, 4)
+        assert torch.equal(mats, dh_cuda.dh_chain_plain(vals, params, types, cloud_link))
+        assert torch.equal(got, dh_cuda.dh_fk_points_plain(vals, params, types, cloud_link, arm._point_cloud,
+                                                           arm.clouds.points))
+        np.testing.assert_allclose(got.numpy().reshape(-1, 3), _fk64(*table, vals.numpy()).reshape(-1, 3), atol=2e-6)
+        if case == "unbatched":
+            jarm = jpresets.ur_robot("ur10", 0.05)
+            np.testing.assert_allclose(got.numpy(), np.asarray(jarm.transformed_clouds_for(jnp.asarray(vals)).points),
+                                       **FK_TOL)
+    assert dh_cuda.launches == before

@@ -7,10 +7,14 @@ held against its plain torch version on the same inputs, on the card. The
 oracles are the reference's own: the linkage count 8000
 (example_how_to_link/gvl_linkage_test_lib.cpp:20-38), differences3D == 0
 (test/testing_distance.cu:79-119), bitMarginCollisionCheck's byte oracle
-(helpers/BitVector.h:415-471), host brute force and set arithmetic. One
-contract is this port's own: every map tier taking a slab-sharded operand
-(parallel/shard_value) at 64^3 on the card.
+(helpers/BitVector.h:415-471), host brute force and set arithmetic. Two
+contracts are this port's own: every map tier taking a slab-sharded operand
+(parallel/shard_value) at 64^3 on the card, and a DH chain's FK as one
+launch (csrc/dh_fk.cu) against float64 on the planner workcell's UR10.
 """
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -641,3 +645,149 @@ def test_sharded_operand_matrix_on_cuda(card):
     for k in dense:
         for got, want in zip(extract.extract_cubes(sa[k], max_cubes=1000), extract.extract_cubes(a[k], max_cubes=1000)):
             assert np.array_equal(got, want), k
+
+
+# -- this port's own contract: a DH chain's FK as one launch -------------------------------
+WORKCELL = Path(__file__).resolve().parent.parent / "portbench" / "configs" / "ur10_ompl_workcell_150.json"
+FK_ERR_VOX = 5e-5  # float32 against float64, in voxels of the workcell's 0.02 m
+# kernel against the plain torch version on the card, in metres: each lies
+# within 1e-6 m (FK_ERR_VOX) of float64, so within 2e-6 m of the other; they
+# differ at all because cuBLAS, which the plain version's 4x4 and 3x3
+# products call, may fuse and order the sums otherwise than the kernel's
+# separately rounded, in-order sums
+FK_PLAIN_ATOL = 2e-6
+
+
+def _workcell_ur10(card):
+    """The UR10 of the planner's workcell at its cloud spacing (the port's
+    preset, whose DH table is the configuration's), and the configuration."""
+    from gpu_voxels_tpu_torch.robot.presets import ur_robot
+
+    cfg = json.loads(WORKCELL.read_text())
+    robot = cfg["robot"]
+    arm = ur_robot(robot["model"], robot["cloud_spacing_m"], device=card)
+    table = [(p.d, p.a, p.alpha) for p in arm.dh.values()][:6]
+    assert table == list(zip(robot["dh_d_m"], robot["dh_a_m"], robot["dh_alpha_rad"]))
+    return arm, cfg
+
+
+def _fk64(arm, values: torch.Tensor) -> torch.Tensor:
+    """float64 [T, P, 3] of the chain for float32 values [T, L] on the card:
+    the DH table's own (double) numbers, the products taken before each
+    link's matrix."""
+    v = values.double()
+    acc, before = torch.eye(4, dtype=torch.float64, device=v.device).expand(len(v), 4, 4), []
+    for i, p in enumerate(arm.dh[n] for n in arm.link_names):
+        before.append(acc)
+        q = v[:, i]
+        d, theta = (p.d + q, p.theta + 0 * q) if p.joint_type == 1 else (p.d + 0 * q, p.theta + q)
+        ct, st, ca, sa = torch.cos(theta), torch.sin(theta), np.cos(p.alpha), np.sin(p.alpha)
+        z, o = torch.zeros_like(ct), torch.ones_like(ct)
+        rows = [[ct, -st * ca, st * sa, p.a * ct], [st, ct * ca, -ct * sa, p.a * st],
+                [z, z + sa, z + ca, d], [z, z, z, o]]
+        acc = acc @ torch.stack([torch.stack(r, -1) for r in rows], -2)
+    links = [arm.link_names.index(n) for n in arm.clouds.names]
+    m = torch.stack([before[i] for i in links], 1)[:, arm.clouds.cloud_ids]
+    return (m[..., :3, :3] @ arm.clouds.points.double()[:, :, None])[..., 0] + m[..., :3, 3]
+
+
+@pytest.mark.parametrize("states", [1, 14, 34, 256, 70_000])
+def test_dh_fk_one_launch_against_float64_on_cuda(card, states):
+    """The workcell's UR10 at 1, 14, 34 (a motion check's batches), 256 and
+    70,000 states (past 65,535): transformed_clouds_for and link_matrices are
+    one launch each, with no host read; every point lies within 5e-5 voxel
+    of float64 and, where the states fit the plain version, within
+    FK_PLAIN_ATOL of it; and each point's voxel is float64's wherever
+    float64 keeps 1e-3 voxel from a cell boundary (H4), which most points
+    do."""
+    from gpu_voxels_tpu_torch.robot import dh_cuda
+
+    arm, cfg = _workcell_ur10(card)
+    side = cfg["map"]["side_m"]
+    rng = np.random.default_rng(states)
+    lo, hi = np.asarray(cfg["joint_lower_rad"]), np.asarray(cfg["joint_upper_rad"])
+    vals = np.zeros((states, 7), np.float32)
+    vals[:, :6] = rng.uniform(lo, hi, (states, 6))
+    vals = torch.from_numpy(vals).to(card)
+    torch.cuda.synchronize()
+    before = dict(dh_cuda.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pts = arm.transformed_clouds_for(vals).points
+        mats = arm.link_matrices(vals)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert dh_cuda.launches == {"dh_fk_points": before["dh_fk_points"] + 1, "dh_chain": before["dh_chain"] + 1}
+    assert pts.shape == (states, arm.clouds.accumulated_size, 3) and mats.shape == (states, 7, 4, 4)
+    worst, kept, same, total = 0.0, 0, 0, 0
+    for i in range(0, states, 2048):
+        ref = _fk64(arm, vals[i:i + 2048])
+        got = pts[i:i + 2048].double()
+        worst = max(worst, float((got - ref).abs().max()) / side)
+        f = ref / side
+        safe = ((f - torch.round(f)).abs() >= 1e-3).all(-1)
+        kept += int(safe.sum())
+        same += int((torch.floor(got / side) == torch.floor(f)).all(-1)[safe].sum())
+        total += safe.numel()
+    assert worst <= FK_ERR_VOX, worst
+    assert same == kept and kept >= 0.9 * total, (same, kept, total)
+    if states <= 256:
+        table = (*arm._table, arm._point_cloud, arm.clouds.points)
+        torch.testing.assert_close(pts, dh_cuda.dh_fk_points_plain(vals, *table), rtol=0, atol=FK_PLAIN_ATOL)
+        torch.testing.assert_close(mats, dh_cuda.dh_chain_plain(vals, *arm._table), rtol=0, atol=FK_PLAIN_ATOL)
+
+
+def test_dh_fk_chain_forms_on_cuda(card):
+    """Every entry point of a CUDA chain takes the kernels: [L] values give
+    [P, 3] points and [C, 4, 4] matrices; one state on the host (numpy, a
+    dict by name, the stored configuration), which travels in the launch's
+    arguments, gives the same points and matrices as on the card;
+    set_configuration and update_point_cloud give transformed_clouds_for's
+    points; a prismatic
+    joint and clouds on a strict subset of the links agree with float64 and
+    the plain version; an empty batch launches nothing; a CPU tensor is
+    refused."""
+    from gpu_voxels_tpu_torch.geometry.pointcloud import MetaPointCloud
+    from gpu_voxels_tpu_torch.robot import dh_cuda
+    from gpu_voxels_tpu_torch.robot.dh import DHJointType, DHParameters, KinematicChain
+
+    arm, cfg = _workcell_ur10(card)
+    side = cfg["map"]["side_m"]
+    params = [arm.dh[n] for n in arm.link_names]
+    params[2] = DHParameters(0.1, 0.2, -0.5723, 0.3, joint_type=DHJointType.PRISMATIC)
+    keep = [1, 3, 6]
+    clouds = MetaPointCloud.from_clouds([arm.clouds.get_cloud(i).cpu().numpy() for i in keep],
+                                        [arm.clouds.names[i] for i in keep], device=card)
+    rng = np.random.default_rng(8)
+    for chain in (arm, KinematicChain(arm.link_names, params, clouds)):
+        vals = torch.from_numpy(rng.uniform(-np.pi, np.pi, (5, 7)).astype(np.float32)).to(card)
+        cfg_ = {n: float(v) for n, v in zip(chain.link_names, vals[0].tolist())}
+        host = vals[0].cpu().numpy()
+        torch.cuda.synchronize()
+        before = dict(dh_cuda.launches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            one = chain.transformed_clouds_for(vals[0]).points
+            one_m = chain.link_matrices(vals[0])
+            from_host, host_m = chain.transformed_clouds_for(host).points, chain.link_matrices(host)
+            by_name = chain.transformed_clouds_for(cfg_).points
+            chain.set_configuration(cfg_)
+            stored = chain.get_transformed_clouds().points
+            batch = chain.transformed_clouds_for(vals).points
+            empty = chain.transformed_clouds_for(vals[:0]).points
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert dh_cuda.launches == {"dh_fk_points": before["dh_fk_points"] + 5, "dh_chain": before["dh_chain"] + 2}
+        assert one.shape == (chain.clouds.accumulated_size, 3) and one_m.shape == (chain.clouds.num_clouds, 4, 4)
+        assert empty.shape == (0, chain.clouds.accumulated_size, 3)
+        assert torch.equal(one, batch[0]) and torch.equal(by_name, one) and torch.equal(stored, one)
+        assert torch.equal(from_host, one) and torch.equal(host_m, one_m)
+        assert float((batch.double() - _fk64(chain, vals)).abs().max()) / side <= FK_ERR_VOX
+        table = (*chain._table, chain._point_cloud, chain.clouds.points)
+        torch.testing.assert_close(batch, dh_cuda.dh_fk_points_plain(vals, *table), rtol=0, atol=FK_PLAIN_ATOL)
+        torch.testing.assert_close(one_m, dh_cuda.dh_chain_plain(vals[0], *chain._table), rtol=0,
+                                   atol=FK_PLAIN_ATOL)
+    arm.update_point_cloud("elbow_joint", arm.clouds.get_cloud(2)[:10].cpu().numpy())  # resized
+    assert torch.equal(arm.get_transformed_clouds().points, arm.transformed_clouds_for(None).points)
+    with pytest.raises(ValueError, match="on a CUDA device"):
+        dh_cuda.dh_chain(vals.cpu(), *(t.cpu() for t in arm._table))
