@@ -19,7 +19,7 @@ import torch
 from ..constants import PBA_UNINITIALISED_PACKED, BitVoxelMeaning, MapType, float_to_probability
 from ..ops import edt, edt_envelope
 from ..ops import insert as insert_ops
-from ..utils import resolve_device, to_device
+from ..utils import perfmon, resolve_device, to_device
 from ..utils.logging import log_stream
 from .voxelmap import ProbVoxelMap, _DenseMap, _n, takes_sharded_operand
 
@@ -78,7 +78,8 @@ class DistanceVoxelMap(_DenseMap):
     def merge_occupied(self, prob_map: ProbVoxelMap, occupancy_threshold: float = 0.5) -> "DistanceVoxelMap":
         """mergeOccupied (DistanceVoxelMap.h:86-122): the prob map's occupied
         voxels become obstacles."""
-        return self._with_obstacles(prob_map.data.to(torch.int32) >= float_to_probability(occupancy_threshold))
+        with perfmon.span("distance.merge"):
+            return self._with_obstacles(prob_map.data.to(torch.int32) >= float_to_probability(occupancy_threshold))
 
     def _with_obstacles(self, mask: torch.Tensor) -> "DistanceVoxelMap":
         return replace(self, data=edt.with_obstacles(self.data, mask, self.dims))
@@ -119,7 +120,8 @@ class DistanceVoxelMap(_DenseMap):
         banded phases as min-plus envelope passes (K5 on CUDA). The band
         counts m1/m2/m3 are accepted for API parity only."""
         del m1, m2, m3
-        return replace(self, data=edt_envelope.parallel_banding(self.data, self.dims))
+        with perfmon.span("distance.edt"):
+            return replace(self, data=edt_envelope.parallel_banding(self.data, self.dims))
 
     def exact_separable(self) -> "DistanceVoxelMap":
         """The exact EDT as two Z scans plus batched Meijster envelopes
@@ -153,9 +155,10 @@ class DistanceVoxelMap(_DenseMap):
         nearest obstacle (a proximity query batch), a 0-d float32 tensor;
         points outside the map count as MAX_OBSTACLE_DISTANCE. Reads the
         EDT at the query voxels only."""
-        idx, _ = insert_ops.voxelize(to_device(points, torch.float32, self.device), self.side_length, self.dims)
-        d2 = edt.min_squared_distance_at(self.data, idx, self.dims)
-        return torch.sqrt(d2.to(torch.float32)) * self.side_length
+        with perfmon.span("distance.query"):
+            idx, _ = insert_ops.voxelize(to_device(points, torch.float32, self.device), self.side_length, self.dims)
+            d2 = edt.min_squared_distance_at(self.data, idx, self.dims)
+            return torch.sqrt(d2.to(torch.float32)) * self.side_length
 
     def extract_distances(self, robot_radius: int = 0) -> torch.Tensor:
         """int8 free-space bytes (extract_byte_distance functor)."""

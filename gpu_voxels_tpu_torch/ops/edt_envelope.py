@@ -31,6 +31,7 @@ from typing import Tuple
 import torch
 
 from ..constants import PBA_UNINITIALISED_COORD, PBA_UNINITIALISED_PACKED
+from ..utils import perfmon
 
 Dims = Tuple[int, int, int]
 I32 = torch.int32
@@ -117,7 +118,10 @@ def parallel_banding(packed_flat: torch.Tensor, dims: Dims) -> torch.Tensor:
     passes along Y and then X (replaces parallelBanding3D,
     DistanceVoxelMap.hpp:279). Returns packed int32[N]; voxels with no site
     anywhere stay uninitialised."""
-    g1, pay1 = flood_z(packed_flat, dims)
-    d2, pay2 = envelope_pass(g1, pay1, 1)
-    d3, pay3 = envelope_pass(d2, pay2, 2)
+    with perfmon.span("distance.flood_z"):
+        g1, pay1 = flood_z(packed_flat, dims)
+    with perfmon.span("distance.envelope"):
+        d2, pay2 = envelope_pass(g1, pay1, 1)
+    with perfmon.span("distance.envelope"):
+        d3, pay3 = envelope_pass(d2, pay2, 2)
     return torch.where(d3 >= MISS, PBA_UNINITIALISED_PACKED, pay3).reshape(-1)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from gpu_voxels_tpu_torch.maps.distance_map import DistanceVoxelMap
 from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
 from gpu_voxels_tpu_torch.planning import GvlValidityChecker, JointSpace, MotionValidator, RRTConnect
 from gpu_voxels_tpu_torch.robot import presets
@@ -66,6 +67,7 @@ def _exercise():
     robot = BitVectorVoxelMap.create(DIMS, SIDE, device="cpu").insert_point_cloud(pts)
     robot.collide_with(env, 0.7)
     env.collide_with(robot, 0.7)
+    _distance(env, pts)
     checker = GvlValidityChecker(env, placed, 0.7, 0)
     validator = MotionValidator(checker, resolution=0.2)
     validator.check_motion(np.zeros(6, np.float32), np.full(6, 0.5, np.float32))
@@ -73,6 +75,13 @@ def _exercise():
     space = JointSpace(np.full(6, -0.5, np.float32), np.full(6, 0.5, np.float32))
     RRTConnect(space, validator, step=0.5, seed=1).solve(np.zeros(6, np.float32), np.full(6, 0.3, np.float32),
                                                         max_iters=5)
+
+
+def _distance(env, points):
+    """The distance path: the map's occupied voxels as obstacles, the exact
+    EDT, a clearance query."""
+    dm = DistanceVoxelMap.create(DIMS, SIDE, device="cpu").merge_occupied(env, 0.7).parallel_banding()
+    return dm.min_distance_to(points)
 
 
 def test_off_is_one_shared_noop_that_reads_no_clock(monkeypatch):
@@ -151,6 +160,8 @@ def test_annotated_spans_lie_in_the_profiler_trace_in_order(tmp_path):
     ("maps", ["maps.create", "maps.insert", "maps.collide", "maps.create", "maps.insert", "maps.collide"]),
     ("check_motion", ["validity.check_motion", "validity.states", "validity.count", "robot.fk", "robot.chain",
                       "robot.transform", "validity.gather", "validity.distinct", "validity.read"]),
+    ("distance", ["distance.merge", "distance.edt", "distance.flood_z", "distance.envelope", "distance.envelope",
+                  "distance.query"]),
     ("solve", ["plan.solve", "validity.count", "validity.read", "validity.count", "validity.read",
                "validity.check_motion"]),
 ])
@@ -167,6 +178,8 @@ def test_each_layer_emits_its_spans(site, want):
         pts = torch.tensor([[1.1, 1.1, 1.1], [2.1, 1.1, 0.6]])
         ProbVoxelMap.create(DIMS, SIDE, device="cpu").insert_point_cloud(pts).collide_with(env, 0.7)
         BitVectorVoxelMap.create(DIMS, SIDE, device="cpu").insert_point_cloud(pts).collide_with(env, 0.7)
+    elif site == "distance":
+        _distance(env, torch.tensor([[1.1, 1.1, 1.1], [2.1, 1.1, 0.6]]))
     elif site == "check_motion":
         validator.check_motion(np.zeros(6, np.float32), np.full(6, 0.5, np.float32))
     else:
@@ -180,6 +193,22 @@ def test_each_layer_emits_its_spans(site, want):
                                                    "validity.distinct"))][: len(want)]
         assert all(r[3] >= 0 for r in recs[1:]) and recs[0][3] == -1
     assert got == want
+
+
+def test_the_distance_spans_nest_as_named():
+    """flood_z and both envelope passes inside distance.edt; merge and the
+    query beside it; the query's answer is the untraced one."""
+    env = _scene()[0]
+    pts = torch.tensor([[1.1, 1.1, 1.1], [2.1, 1.1, 0.6]])
+    want = _distance(env, pts)
+    perfmon.enable_spans(True, False)
+    got = _distance(env, pts)
+    recs = perfmon.drain_spans()
+    assert float(got) == float(want) > 0
+    edt = names(recs).index("distance.edt")
+    assert [(r[0], r[3]) for r in recs] == [
+        ("distance.merge", -1), ("distance.edt", -1), ("distance.flood_z", edt), ("distance.envelope", edt),
+        ("distance.envelope", edt), ("distance.query", -1)]
 
 
 def test_series_of_a_missing_key_inserts_nothing():
