@@ -45,7 +45,17 @@ non-zero and prints no result. Phases, each an assert or an exception:
    states, within 2e-6 m of their plain versions (cuBLAS orders the plain
    version's sums otherwise: not bit for bit) and within 5e-5 voxel of
    float64, one state passed on the host equal to the same state on the
-   card;
+   card; the depth insert's two kernels (csrc/depth_insert.cu, one launch
+   a call each): the frame's hit counts (depth_hits) under the workcell
+   Kinect's pose at the two update cells' grids (150 x 150 x 100 at 0.02 m,
+   256^3 at 0.01 m) and on 32-deep slabs of the latter (z_index_offset 0,
+   32, 224), under the 3 poses at K3's 256^3 grid, a host pose equal to the
+   same pose on the card, against the plain version
+   and float64 (equal at every voxel whose points keep HITS_BAND voxel from
+   every cell boundary in float64, inside the band elsewhere), and the
+   log-odds update (log_odds_update) byte for byte against its plain
+   version on random maps with -128, +-127 and saturating counts, with and
+   without a robot mask, at a ragged length and on a misaligned view;
 3. ten paths through the public entry points, on the card, with torch's
    sync debug mode set to raise (the paths never wait for the device; path
    10's programs read it on purpose), each driven with every launch count
@@ -248,7 +258,10 @@ non-zero and prints no result. Phases, each an assert or an exception:
    tests_tpu/test_examples_tpu.py:38-56 (90 frames, the async publish:
    asserted, >= 80 frames at >= 30 Hz with both providers painting); and
    both FK kernels beside their plain versions at 1 and 34 UR10 states,
-   with their device time and device operations a call.
+   with their device time and device operations a call; and the depth
+   insert's two kernels beside their plain versions at the two update
+   cells' grids, and insert_depth_image with them and with the plain hits
+   and update.
 
 Output: progress lines, the card's `name, power.limit` line, one JSON line
 {"kernels": [...]} (each kernel with its launches on the paths, its largest
@@ -454,7 +467,24 @@ KERNELS = [
     # that XLA fuses (gpu_voxels_tpu/robot/dh.py)
     ("dh_fk_points", dh_cuda, "gpu_voxels_tpu_torch/csrc/dh_fk.cu", None),
     ("dh_chain", dh_cuda, "gpu_voxels_tpu_torch/csrc/dh_fk.cu", None),
+    # a depth frame's hits and log-odds update, a launch each around the
+    # carve: no TPU kernel, the reference's frame update is jnp that XLA
+    # fuses (gpu_voxels_tpu/ops/raycast.py insert_depth_image)
+    ("depth_hits", raycast_cuda, "gpu_voxels_tpu_torch/csrc/depth_insert.cu", None),
+    ("log_odds_update", raycast_cuda, "gpu_voxels_tpu_torch/csrc/depth_insert.cu", None),
 ]
+# the depth insert at the two update cells' grids: the workcell monitor's
+# and the distance cell's (portbench/configs), each with the workcell's
+# Kinect on its corner mount, moved by the distance cell's world offset there
+SENSE_SHAPES = {"monitor": ((150, 150, 100), 0.02, (0.0, 0.0, 0.0)),
+                "distance": ((256, 256, 256), 0.01, (-0.22, -0.22, 0.0))}
+SENSE_INTR = (525.0, 525.0, 319.5, 239.5)
+SENSE_MOUNT = ((0.1, 2.9, 1.9), (-2.15, 0.05, -2.36))  # position (m), rpy
+# S1 against the plain version: equal wherever float64 keeps this far, in
+# voxels, from every cell boundary; each lies within ~1e-4 voxel of float64
+# (IEEE division and ordered sums in the kernel; the reciprocal and cuBLAS's
+# order in the plain version on the card)
+HITS_BAND = 1e-3
 # FK: the UR10 at the planner workcell's 0.02 m (~3,800 points); states of a
 # monitor update, the largest motion check and a batch
 FK_SPACING = 0.02
@@ -569,8 +599,107 @@ def check_kernels(dev: torch.device) -> dict:
     check_k6(dev, err)
     check_k7(dev, g, err)
     check_dh_fk(dev, err)
+    check_depth_insert(dev, err)
     torch.cuda.synchronize()
     return err
+
+
+def hits_band64(depth: torch.Tensor, pose, intr, side: float, dims, z0: int = 0) -> tuple:
+    """(lo, hi) int64[N]: the fewest and the most of the frame's points each
+    voxel can count, from the points in float64 (the f32 inputs and pose,
+    the f32 reciprocal of the side): a point at least HITS_BAND voxel from
+    every boundary counts in its voxel, one nearer in any of the voxels
+    within HITS_BAND of it."""
+    fx, fy, cx, cy = (float(np.float32(v)) for v in intr)
+    h, w = depth.shape
+    d = depth.double()
+    u = torch.arange(w, dtype=torch.float64, device=depth.device)[None, :]
+    v = torch.arange(h, dtype=torch.float64, device=depth.device)[:, None]
+    pts = torch.stack([(u - cx) * d / fx, (v - cy) * d / fy, d], -1).reshape(-1, 3)
+    valid = (depth != 0.0).reshape(-1) & torch.isfinite(pts).all(-1)
+    m = torch.as_tensor(np.asarray(pose, np.float32), dtype=torch.float64, device=depth.device)
+    f = (pts[valid] @ m[:3, :3].T + m[:3, 3]) * float(np.float32(1.0 / side))
+    f[:, 2] -= z0
+    sure = ((f - torch.round(f)).abs() >= HITS_BAND).all(-1)
+    dx, dy, dz = dims
+    n = dx * dy * dz
+
+    def keys(c):
+        c = c.to(torch.int64)
+        inside = (c >= 0).all(-1) & (c[:, 0] < dx) & (c[:, 1] < dy) & (c[:, 2] < dz)
+        return torch.where(inside, (c[:, 2] * dy + c[:, 1]) * dx + c[:, 0], -1)
+
+    k = keys(torch.floor(f[sure]))
+    lo = torch.bincount(k[k >= 0], minlength=n)
+    near = f[~sure]
+    signs = torch.tensor([[a, b, c] for a in (-1, 1) for b in (-1, 1) for c in (-1, 1)], dtype=torch.float64,
+                         device=depth.device)
+    cand, _ = torch.sort(torch.stack([keys(torch.floor(near + HITS_BAND * s)) for s in signs], -1), -1)
+    first = torch.ones_like(cand, dtype=torch.bool)
+    first[:, 1:] = cand[:, 1:] != cand[:, :-1]
+    cand = cand[first & (cand >= 0)]
+    return lo, lo + torch.bincount(cand, minlength=n)
+
+
+def sense_pose(cell: str) -> np.ndarray:
+    """The workcell Kinect's pose in one update cell's grid."""
+    position, rpy = SENSE_MOUNT
+    return transforms.from_rpy_np(rpy, np.add(position, SENSE_SHAPES[cell][2]).astype(np.float32))
+
+
+def check_depth_insert(dev: torch.device, err: dict) -> None:
+    """S1 (depth_hits) at the update cells' grids under the workcell Kinect's
+    pose, at the main path's 256^3 grid under the three carve poses and on
+    32-deep slabs of the distance cell's grid, against the plain version and
+    float64 (hits_band64); S2 (log_odds_update) byte for byte against
+    its plain version. One launch a call each; a pose given on the host
+    equal to the same pose on the card."""
+    depth = torch.as_tensor(bench_frame(), device=dev)
+    cases = [(label, sense_pose(label), dims, side, 0) for label, (dims, side, _) in SENSE_SHAPES.items()]
+    cases += [("fusion", name, FUSION_DIMS, FUSION_SIDE, 0) for name in carve_poses()]
+    dims, side, _ = SENSE_SHAPES["distance"]
+    cases += [("slab", sense_pose("distance"), (*dims[:2], K3_SLAB), side, z0) for z0 in K3_OFFSETS]
+    for label, pose, dims, side, z0 in cases:
+        name = pose if isinstance(pose, str) else "workcell"
+        pose = carve_poses()[pose] if isinstance(pose, str) else pose
+        on_card = torch.as_tensor(pose, device=dev)
+        before = raycast_cuda.launches["depth_hits"]
+        got = raycast_cuda.depth_hits(depth, pose, *SENSE_INTR, side, dims, z_index_offset=z0)
+        assert raycast_cuda.launches["depth_hits"] == before + 1
+        assert torch.equal(raycast_cuda.depth_hits(depth, on_card, *SENSE_INTR, side, dims, z_index_offset=z0), got)
+        plain = raycast_cuda.depth_hits_plain(depth, on_card, *SENSE_INTR, side, dims, z_index_offset=z0)
+        lo, hi = hits_band64(depth, pose, SENSE_INTR, side, dims, z0)
+        sure = lo == hi
+        outside = int(((got < lo) | (got > hi)).sum()) + int(((plain < lo) | (plain > hi)).sum())
+        d_sure = int((got - plain)[sure].abs().max())
+        err["depth_hits"] = max(err["depth_hits"], d_sure, outside)
+        # the top slab lies above the workcell camera's view
+        assert d_sure == 0 and outside == 0 and (int(got.sum()) > 0 or z0 > 32), (label, name, z0, d_sure, outside)
+        log(f"  S1 {label} {name} dims={dims} side={side} z0={z0}: {int(got.sum())} hits in {int((got > 0).sum())} "
+            f"voxels == plain and float64 at the {int(sure.sum())} sure voxels; {int((got != plain).sum())} voxels "
+            f"differ from plain inside the band ({int((~sure).sum())} voxels hold a point within {HITS_BAND:g} voxel "
+            f"of a boundary)")
+    g = torch.Generator(device=dev).manual_seed(2121)
+    n_monitor = math.prod(SENSE_SHAPES["monitor"][0])
+    for n, offset in ((n_monitor, 0), (math.prod(SENSE_SHAPES["distance"][0]), 0), (n_monitor - 37, 0),
+                      (n_monitor, 3)):
+        data = torch.randint(-128, 128, (n + offset,), dtype=torch.int8, device=dev, generator=g)[offset:]
+        data[:6] = torch.tensor([-128, -127, 127, 126, -126, 120], dtype=torch.int8, device=dev)
+        counts = torch.randint(0, 6, (n,), dtype=torch.int32, device=dev, generator=g)
+        counts[::97] = 0
+        counts[5::1009] = 300_000
+        free = torch.rand(n, device=dev, generator=g) < 0.5
+        robot = torch.rand(n, device=dev, generator=g) < 0.1
+        for mask in (None, robot):
+            before = raycast_cuda.launches["log_odds_update"]
+            got = raycast_cuda.log_odds_update(data, counts, free, mask)
+            assert raycast_cuda.launches["log_odds_update"] == before + 1
+            want = raycast_cuda.log_odds_update_plain(data, counts, free, mask)
+            diff = int((got != want).sum())
+            err["log_odds_update"] = max(err["log_odds_update"], diff)
+            assert diff == 0, (n, offset, mask is None, diff)
+        log(f"  S2 N={n} view offset={offset}: the updated map == plain byte for byte, with and without a robot "
+            f"mask ({int((got == 127).sum())} voxels at 127, {int((got == -127).sum())} at -127)")
 
 
 def fk_arm(dev: torch.device):
@@ -995,11 +1124,13 @@ def plain_route():
         (raycast_cuda, "projective_free_space_pooled"): raycast_cuda.projective_free_space_pooled_plain,
         (raycast_cuda, "min_pool_depth"): raycast_cuda.min_pool_depth_plain,
         (collide_cuda, "count_bit_bit"): collide_cuda.count_bit_bit_plain,
+        (raycast_cuda, "log_odds_update"): raycast_cuda.log_odds_update_plain,
     }
-    # FK's kernels run in both routes, so both take the same points: FK's
-    # plain version agrees with them to FK_PLAIN_ATOL, not bit for bit, and
-    # the maps of the two routes are compared bit for bit
-    assert {(m, n) for n, m, *_ in KERNELS if m is not dh_cuda} == set(plain)
+    # FK's kernels and the depth insert's hits run in both routes, so both
+    # take the same points: their plain versions agree with them to
+    # FK_PLAIN_ATOL and HITS_BAND, not bit for bit, and the maps of the two
+    # routes are compared bit for bit
+    assert {(m, n) for n, m, *_ in KERNELS if m is not dh_cuda and n != "depth_hits"} == set(plain)
     saved = {key: getattr(*key) for key in plain}
     for (module, name), fn in plain.items():
         setattr(module, name, fn)
@@ -1381,7 +1512,8 @@ def same_types(x, y) -> bool:
 def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, dict, dict, dict]:
     log("  sense -> insert -> collide (K1, K2, K3, K6 through the pooled Provider)")
     out, launches = drive(main_path, {"count_prob_prob", "count_and_mark_prob", "projective_free_space_exact",
-                                      "projective_free_space_pooled", "min_pool_depth"}, dev)
+                                      "projective_free_space_pooled", "min_pool_depth", "depth_hits",
+                                      "log_odds_update"}, dev)
 
     assert int(out["linkage"]) == 8000, int(out["linkage"])
     log(f"  (a) facade linkage scene: count {int(out['linkage'])} == 8000")
@@ -1404,8 +1536,8 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, di
 
     log("  camera -> distance field (K5, K6)")
     dist_args = (dev, out["frames"], robot["placed"], robot["cfgs"])
-    dist, dist_launches = drive(distance_path, {"envelope_pass", "projective_free_space_pooled", "min_pool_depth"},
-                                *dist_args)
+    dist, dist_launches = drive(distance_path, {"envelope_pass", "projective_free_space_pooled", "min_pool_depth",
+                                                "depth_hits", "log_odds_update"}, *dist_args)
     add_launches(launches, dist_launches)
     with plain_route():
         plain_dist = distance_path(*dist_args)
@@ -1448,7 +1580,8 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, di
     log("  (e-g) every robot-path map, count, meanings vector and marked map == plain route")
 
     log("  voxel lists (K3, K4)")
-    lp, list_launches = drive(list_path, {"projective_free_space_exact", "collide_types_bit_bit"}, dev,
+    lp, list_launches = drive(list_path, {"projective_free_space_exact", "collide_types_bit_bit", "depth_hits",
+                                          "log_odds_update"}, dev,
                               out["frames"], robot, out["counting"], dist["field"])
     add_launches(launches, list_launches)
     check_list_path(lp, out["env"])
@@ -1461,13 +1594,14 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, di
 
     log("  octrees: BASELINE #5, the paged tiers, dense-tier fusion (K3, K6)")
     oc, oc_launches = drive(octree_path, {"projective_free_space_exact", "projective_free_space_pooled",
-                                          "min_pool_depth"}, dev)
+                                          "min_pool_depth", "depth_hits", "log_odds_update"}, dev)
     add_launches(launches, oc_launches)
     check_octree_path(oc, dev)
 
     log("  the facade: the 8x8 collision matrix, files, URDF, visualization (K1, K3, K6, K7)")
     fp, fp_launches = drive(facade_path, {"count_prob_prob", "projective_free_space_exact",
-                                          "projective_free_space_pooled", "min_pool_depth", "count_bit_bit"},
+                                          "projective_free_space_pooled", "min_pool_depth", "count_bit_bit",
+                                          "depth_hits", "log_odds_update"},
                             dev, out["frames"])
     add_launches(launches, fp_launches)
     fp["frames"] = out["frames"]
@@ -1479,7 +1613,7 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, di
     md, md_launches = drive(multidevice_path, {"count_prob_prob", "count_and_mark_prob",
                                                "projective_free_space_exact", "projective_free_space_pooled",
                                                "min_pool_depth", "collide_types_bit_bit", "envelope_pass",
-                                               "count_bit_bit"},
+                                               "count_bit_bit", "depth_hits", "log_odds_update"},
                             dev, out, robot, dist, oc)
     add_launches(launches, md_launches)
     check_multidevice_path(md, dev, out, robot, dist, oc)
@@ -2699,16 +2833,17 @@ EX_KERNELS = {
     "batch_worlds_demo": set(),
     "collisions": {"count_prob_prob", "collide_types_bit_bit"},
     "counting_voxel_list": set(),
-    "distance_kinect_demo": {"projective_free_space_exact", "envelope_pass"},
+    "distance_kinect_demo": {"projective_free_space_exact", "envelope_pass", "depth_hits", "log_odds_update"},
     "distance_voxel_test": {"envelope_pass"},
-    "full_pipeline_demo": {"projective_free_space_pooled", "min_pool_depth", "envelope_pass", "collide_types_bit_bit"},
+    "full_pipeline_demo": {"projective_free_space_pooled", "min_pool_depth", "envelope_pass", "collide_types_bit_bit",
+                           "depth_hits", "log_odds_update"},
     "heightmap_demo": set(),
     "maps_demo": set(),
     "octree_bench": set(),
     "ompl_planner_app": set(),
     "ompl_planning_demo": set(),
     "primitive_array_test": set(),
-    "robot_vs_environment": {"projective_free_space_exact"},
+    "robot_vs_environment": {"projective_free_space_exact", "depth_hits", "log_odds_update"},
     "sharded_world_demo": set(),
     "shift_vs_transform": {"count_prob_prob"},
     "swept_fitter": {"collide_types_bit_bit"},
@@ -2726,7 +2861,7 @@ EX_SIZED_BY_DEVICE = ("ompl_planner_app", "robot_vs_environment", "swept_fitter"
 EX_FK = ("swept_volume_vs_environment", "tf_interface_demo", "urdf_loader")
 EX_HELD_PLAIN = ("distance_kinect_demo", "full_pipeline_demo") + EX_FK
 EX_REPLAY_BASES = ((2.56, 2.56, 2.56), (1.7, 2.3, 2.605))  # the loop's base; in the box face (z 2.6 m)
-EX_KERNELS_REPLAY = {"projective_free_space_exact"}
+EX_KERNELS_REPLAY = {"projective_free_space_exact", "depth_hits", "log_odds_update"}
 
 def md_meshes(dev: torch.device) -> tuple:
     """Path 9's meshes: z 8, and world 2 x z 4 for the cycle. On the card the
@@ -3195,8 +3330,10 @@ def same_pyramid(got, want, mesh) -> bool:
     return ok and (not isinstance(want, HierarchicalProbMap) or torch.equal(g.occupancy, want.occupancy))
 
 
-# (p)'s launches: 3 poses x 2 tiers at each carve_pool, 8 slabs a fusion
-PYRAMID_FUSION_LAUNCHES = {"projective_free_space_exact": 48, "projective_free_space_pooled": 48, "min_pool_depth": 6}
+# (p)'s launches: 3 poses x 2 tiers at each carve_pool, 8 slabs a fusion; the
+# prob tier's hits and update once a slab at each carve_pool
+PYRAMID_FUSION_LAUNCHES = {"projective_free_space_exact": 48, "projective_free_space_pooled": 48, "min_pool_depth": 6,
+                           "depth_hits": 48, "log_odds_update": 48}
 
 
 def check_pyramid_slab_forms(md: dict, dev: torch.device, out: dict, oc: dict) -> None:
@@ -4269,6 +4406,7 @@ def timings(dev: torch.device, smi: str, out: dict, robot: dict, dist: dict, fit
     log(f"  256^3 DDA insert_sensor_data of one frame ({rays.shape[0]} rays, 256 steps): {dda_ms:.4f} ms = "
         f"{1000.0 / dda_ms:.2f} Hz  [{smi}]")
     fk_timings(dev, smi, t, bounds)
+    depth_insert_timings(dev, smi, t, bounds)
     return t, bounds
 
 
@@ -4315,6 +4453,58 @@ def fk_timings(dev: torch.device, smi: str, t: dict, bounds: dict) -> None:
                 t[name], bounds[name] = (k, p), bnd
 
 
+def depth_insert_timings(dev: torch.device, smi: str, t: dict, bounds: dict) -> None:
+    """The depth insert's two kernels beside their plain versions at the two
+    update cells' grids (the 640x480 frame under the workcell Kinect's pose,
+    given on the host as a sensor's pose is), in turns; their device time and device
+    operations a call; and the whole insert_depth_image with the kernels
+    against the plain route. The JSON line keeps the monitor's rows. Bytes:
+    S1 reads the frame (4 B a pixel) and writes the counts (4 B a voxel, the
+    memset); S2 reads data, free and counts (6 B a voxel) and writes 1.
+    Operations: S1 27 f32 a pixel (the back-projection's 6, the pose's 18,
+    the reciprocal's 3), S2 ~8 integer a voxel."""
+    depth = torch.as_tensor(bench_frame(), device=dev)
+    pixels = depth.numel()
+    for label, (dims, side, _) in SENSE_SHAPES.items():
+        pose = sense_pose(label)
+        on_card = torch.as_tensor(pose, device=dev)
+        n = math.prod(dims)
+        hits = raycast_cuda.depth_hits(depth, pose, *SENSE_INTR, side, dims)
+        free = raycast_cuda.projective_free_space_exact(depth, on_card, *SENSE_INTR, side, dims)
+        data = ProbVoxelMap.create(dims, side, device=dev).data
+        rows = {
+            "depth_hits": ((lambda: raycast_cuda.depth_hits(depth, pose, *SENSE_INTR, side, dims)),
+                           (lambda: raycast_cuda.depth_hits_plain(depth, on_card, *SENSE_INTR, side, dims)),
+                           bound(4 * pixels + 4 * n, 27 * pixels)),
+            "log_odds_update": ((lambda: raycast_cuda.log_odds_update(data, hits, free)),
+                                (lambda: raycast_cuda.log_odds_update_plain(data, hits, free)),
+                                bound(7 * n, 8 * n)),
+        }
+        for name, (kernel, plain, bnd) in rows.items():
+            k, pl = in_turns(kernel, plain, 50)
+            k_dev, p_dev = device_ms(kernel, 50), device_ms(plain, 50)
+            ops = launches_per_call(kernel, 10), launches_per_call(plain, 10)
+            log(f"  {name} {label} dims={dims}: kernel {k:.4f} ms (device {k_dev:.4f}), plain torch {pl:.4f} ms "
+                f"(device {p_dev:.4f}), bound {bnd[0]:.6f} ms ({bnd[1]}); device operations a call: kernel "
+                f"{ops[0]:g}, plain {ops[1]:g}  [{smi}]")
+            if label == "monitor":
+                t[name], bounds[name] = (k, pl), bnd
+
+        def insert():
+            return raycast.insert_depth_image(data, depth, pose, *SENSE_INTR, side, dims)
+
+        kernels_ms, ops = time_ms(insert, 50), launches_per_call(insert, 10)
+        saved = raycast_cuda.depth_hits, raycast_cuda.log_odds_update
+        raycast_cuda.depth_hits, raycast_cuda.log_odds_update = (raycast_cuda.depth_hits_plain,
+                                                                 raycast_cuda.log_odds_update_plain)
+        try:
+            plain_ms, plain_ops = time_ms(insert, 50), launches_per_call(insert, 10)
+        finally:
+            raycast_cuda.depth_hits, raycast_cuda.log_odds_update = saved
+        log(f"  insert_depth_image {label} dims={dims}: {kernels_ms:.4f} ms, {ops:g} device operations a call; "
+            f"with the plain hits and update (K3 kept) {plain_ms:.4f} ms, {plain_ops:g}  [{smi}]")
+
+
 def main() -> int:
     dev, smi = card()
     log("phase 1: build")
@@ -4341,7 +4531,8 @@ def main() -> int:
          # a compare-and-count, K3 and K6 projective carves, K4 a windowed bit
          # collide, K5 a min-plus envelope, K7 a fold-and-count (>= 10 calls),
          # K6's pool a select then a min over a padded frame, FK a chain of
-         # DH products
+         # DH products, S1 a back-projection and a scatter-add, S2 a masked
+         # saturating update
          "library_ms": None}
         for name, _module, source, replaces in KERNELS
     ]}

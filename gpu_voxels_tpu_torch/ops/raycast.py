@@ -7,7 +7,9 @@ K3 in ops/raycast_cuda.py), `projective_free_space_pooled` with
 keeps both in gpu_voxels_tpu/ops/raycast_pallas.py:79-137),
 `depth_image_to_point_cloud` the pinhole back-projection and
 `insert_depth_image` the full frame update (ProbVoxelMap::insertSensorData
-semantics with visibility carving).
+semantics with visibility carving), whose hits (`depth_hits`) and log-odds
+update (`log_odds_update`) are the specs of kernels S1 and S2 in
+ops/raycast_cuda.py.
 
 `insert_sensor_data` is ProbVoxelMap::insertSensorData (ProbVoxelMap.hpp:52-102)
 for sparse or arbitrary point sets, with the Bresenham RayCaster
@@ -227,8 +229,9 @@ def insert_depth_image(
     carve_pool = 1 carves exactly per pixel (`raycast_cuda.projective_free_space_exact`,
     kernel K3); carve_pool = P > 1 carves against the PxP min-pooled image
     (`raycast_cuda.projective_free_space_pooled`, kernel K6): conservative,
-    it never frees a voxel the exact carve keeps. Each takes its plain spec
-    on CPU tensors.
+    it never frees a voxel the exact carve keeps. The hits and the update
+    are one launch each (`raycast_cuda.depth_hits`, `raycast_cuda.log_odds_update`).
+    Each takes its plain spec on CPU tensors.
 
     With `z_index_offset` z0, `data` is the z-slab [z0, z0 + dims[2]) of a
     larger grid: hits are voxelized in the global frame and shifted by z0
@@ -236,30 +239,54 @@ def insert_depth_image(
     the frame's min_pool_depth table at `carve_pool` built once for every
     slab of a frame, spares the pool.
     """
+    from . import raycast_cuda
+
     with perfmon.span("sense.upload"):
         depth = to_device(depth, F32, data.device)
-        pose = to_device(pose, F32, data.device)
+        pose_on_device = to_device(pose, F32, data.device)
     with perfmon.span("sense.hits"):
-        pts = depth_image_to_point_cloud(depth, fx, fy, cx, cy, invalid_value)
-        world = transforms.transform_points(pose, pts)
-        n = dims[0] * dims[1] * dims[2]
-        finite = torch.all(torch.isfinite(world), dim=-1)
-        coords = map_to_voxels(torch.where(finite[:, None], world, -1.0), side_length)
-        if z_index_offset:
-            coords = shifted(coords, (0, 0, z_index_offset), -1)
-        inside = finite & in_map(coords, dims)
-        idx = torch.where(inside, linear_index(coords, dims), n)
-        hit_counts = torch.zeros(n + 1, dtype=torch.int32, device=data.device)
-        hit_counts = hit_counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))[:n]
-        if cut_real_robot and robot_occupied_mask is not None:
-            hit_counts = torch.where(robot_occupied_mask, 0, hit_counts)
+        # a host pose travels in the hits kernel's arguments; the carve reads the device copy
+        hit_counts = raycast_cuda.depth_hits(depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value,
+                                             z_index_offset)
     with perfmon.span("sense.carve"):
-        free = carve(depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, carve_pool, z_index_offset,
-                     pooled_depth)
+        free = carve(depth, pose_on_device, fx, fy, cx, cy, side_length, dims, invalid_value, carve_pool,
+                     z_index_offset, pooled_depth)
     with perfmon.span("sense.update"):
-        carved = (free & (hit_counts == 0)).to(torch.int32)
-        delta = hit_counts * SENSOR_MODEL_OCCUPIED + carved * SENSOR_MODEL_FREE
-        return torch.where(delta != 0, probability.update_occupancy(data, delta), data)
+        robot = robot_occupied_mask if cut_real_robot else None
+        return raycast_cuda.log_odds_update(data, hit_counts, free, robot)
+
+
+def depth_hits(depth: torch.Tensor, pose, fx: float, fy: float, cx: float, cy: float, side_length: float,
+               dims: Dims, invalid_value: float = 0.0, z_index_offset: int = 0) -> torch.Tensor:
+    """int32[N]: the number of a depth frame's measurements in each voxel
+    (the hits of `insert_depth_image`; the spec of
+    `raycast_cuda.depth_hits`). With `z_index_offset` z0 the grid is the
+    z-slab [z0, z0 + dims[2]) of a larger one: hits are voxelized in the
+    global frame and shifted by z0 as integers."""
+    pts = depth_image_to_point_cloud(depth, fx, fy, cx, cy, invalid_value)
+    world = transforms.transform_points(pose, pts)
+    n = dims[0] * dims[1] * dims[2]
+    finite = torch.all(torch.isfinite(world), dim=-1)
+    coords = map_to_voxels(torch.where(finite[:, None], world, -1.0), side_length)
+    if z_index_offset:
+        coords = shifted(coords, (0, 0, z_index_offset), -1)
+    inside = finite & in_map(coords, dims)
+    idx = torch.where(inside, linear_index(coords, dims), n)
+    hit_counts = torch.zeros(n + 1, dtype=torch.int32, device=depth.device)
+    return hit_counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))[:n]
+
+
+def log_odds_update(data: torch.Tensor, hit_counts: torch.Tensor, free: torch.Tensor,
+                    robot_occupied_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int8[N]: `insert_depth_image`'s update of a log-odds map by a frame's
+    hit counts and carve mask (the spec of `raycast_cuda.log_odds_update`):
+    +72 a hit and -10 where carved free and not hit, clamped; voxels of the
+    robot mask (cut_real_robot) take no hits."""
+    if robot_occupied_mask is not None:
+        hit_counts = torch.where(robot_occupied_mask, 0, hit_counts)
+    carved = (free & (hit_counts == 0)).to(torch.int32)
+    delta = hit_counts * SENSOR_MODEL_OCCUPIED + carved * SENSOR_MODEL_FREE
+    return torch.where(delta != 0, probability.update_occupancy(data, delta), data)
 
 
 def ray_crossing_counts(origin, points: torch.Tensor, side_length: float, dims: Dims,

@@ -19,6 +19,16 @@ the reference builds its table outside its kernel too) and the carve against
 that table (`carve_against_pooled`, spec `raycast.carve_against_pooled`).
 Each counts its own launches; the carve's count is kept under its wrapper's
 name, `projective_free_space_pooled`, one per call of the wrapper.
+
+Around the carve, a depth frame's update of a log-odds map is two launches
+of csrc/depth_insert.cu, which replace no TPU kernel (the reference's frame
+update is jnp that XLA fuses): the frame's hit counts (`depth_hits`, S1,
+spec `raycast.depth_hits`; the memset that zeroes them is in the same call)
+and the log-odds update (`log_odds_update`, S2, spec
+`raycast.log_odds_update`). S2 equals its spec byte for byte; S1's counts
+agree with the plain version's wherever no measurement lies within a few
+float32 ulps of a cell boundary (csrc/depth_insert.cu, Rounding). A pose on
+the host travels in S1's launch arguments; a pose on the card is read there.
 """
 from __future__ import annotations
 
@@ -32,9 +42,12 @@ projective_free_space_plain = raycast.projective_free_space
 projective_free_space_pooled_plain = raycast.projective_free_space_pooled
 min_pool_depth_plain = raycast.min_pool_depth
 carve_against_pooled_plain = raycast.carve_against_pooled
+depth_hits_plain = raycast.depth_hits
+log_odds_update_plain = raycast.log_odds_update
 
 # kernel launches since the last reset, by wrapper name
-launches = {"projective_free_space_exact": 0, "projective_free_space_pooled": 0, "min_pool_depth": 0}
+launches = {"projective_free_space_exact": 0, "projective_free_space_pooled": 0, "min_pool_depth": 0,
+            "depth_hits": 0, "log_odds_update": 0}
 
 
 def _checked_image(image: torch.Tensor, name: str) -> None:
@@ -52,10 +65,14 @@ def _checked(depth: torch.Tensor, pose, dims, name: str):
     pose = to_device(pose, torch.float32, depth.device).contiguous()
     if pose.shape != (4, 4):
         raise ValueError(f"pose must be [4, 4], got {tuple(pose.shape)}")
+    return pose, _checked_dims(dims, name)
+
+
+def _checked_dims(dims, name: str) -> tuple[int, int, int]:
     dx, dy, dz = (int(d) for d in dims)
     if dx * dy * dz >= 2**31:
         raise ValueError(f"the {name} kernel indexes voxels in int32; {dims} is too large")
-    return pose, (dx, dy, dz)
+    return dx, dy, dz
 
 
 def _checked_z0(z_index_offset: int, dz: int) -> int:
@@ -196,4 +213,87 @@ def carve_against_pooled(
         )
     kernels.check(err, "projective_free_space_pooled")
     launches["projective_free_space_pooled"] += 1
+    return out
+
+
+def _pose_pointers(pose, device: torch.device) -> tuple:
+    """(device pose, host pose) for S1, one of them NULL, and the host array
+    the host pointer points into: a CUDA pose is read on its card, anything
+    else is a host [4, 4] rounded to float32, as `to_device` rounds it."""
+    if isinstance(pose, torch.Tensor) and pose.device.type != "cpu":
+        if pose.device != device or pose.dtype != torch.float32 or pose.shape != (4, 4) or not pose.is_contiguous():
+            raise ValueError(f"a pose on the card must be a contiguous float32 [4, 4] on {device}, got {pose.dtype} "
+                             f"{tuple(pose.shape)} on {pose.device}")
+        return pose.data_ptr(), None, None
+    host = np.ascontiguousarray(np.asarray(pose, dtype=np.float32))
+    if host.shape != (4, 4):
+        raise ValueError(f"pose must be [4, 4], got {host.shape}")
+    return None, host.ctypes.data, host
+
+
+def depth_hits(
+    depth: torch.Tensor,
+    pose,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    side_length: float,
+    dims,
+    invalid_value: float = 0.0,
+    z_index_offset: int = 0,
+) -> torch.Tensor:
+    """int32[dz*dy*dx]: the number of a depth frame's measurements in each
+    voxel, `raycast.depth_hits` (S1 on CUDA: the memset and one launch).
+    With `z_index_offset` z0 the grid is the z-slab [z0, z0 + dz) of a
+    larger one, voxelized in the global frame. The pose may be on the host
+    (it travels in the launch's arguments) or a float32 [4, 4] on the
+    image's card."""
+    if depth.device.type == "cpu":
+        return depth_hits_plain(depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, z_index_offset)
+    _checked_image(depth, "depth-hits")
+    dx, dy, dz = _checked_dims(dims, "depth-hits")
+    z0 = _checked_z0(z_index_offset, dz)
+    on_card, on_host, _host = _pose_pointers(pose, depth.device)  # _host lives past the call
+    h, w = depth.shape
+    out = torch.empty(dx * dy * dz, dtype=torch.int32, device=depth.device)
+    stream = torch.cuda.current_stream(depth.device).cuda_stream
+    with torch.cuda.device(depth.device):
+        err = kernels.library().gv_depth_hits(
+            depth.data_ptr(), h, w, on_card, on_host, fx, fy, cx, cy, invalid_value,
+            float(np.float32(1.0 / float(side_length))), dx, dy, dz, z0, out.data_ptr(), stream,
+        )
+    kernels.check(err, "depth_hits")
+    launches["depth_hits"] += 1
+    return out
+
+
+def log_odds_update(data: torch.Tensor, hit_counts: torch.Tensor, free: torch.Tensor,
+                    robot_occupied_mask=None) -> torch.Tensor:
+    """int8[N]: the log-odds map `data` updated by a frame's hit counts and
+    carve mask, `raycast.log_odds_update` byte for byte (S2 on CUDA, one
+    launch); voxels of `robot_occupied_mask` (bool[N], or None) take no
+    hits."""
+    if data.device.type == "cpu":
+        return log_odds_update_plain(data, hit_counts, free, robot_occupied_mask)
+    if not data.is_cuda:
+        raise ValueError(f"the log-odds kernel needs a CUDA map, got {data.device}")
+    n = data.numel()
+    checks = [(data, "data", torch.int8), (hit_counts, "hit_counts", torch.int32), (free, "free", torch.bool)]
+    if robot_occupied_mask is not None:
+        checks.append((robot_occupied_mask, "robot_occupied_mask", torch.bool))
+    for t, what, dtype in checks:
+        if t.dtype != dtype or tuple(t.shape) != (n,) or not t.is_contiguous():
+            raise ValueError(f"{what} must be a contiguous {dtype} [{n}] tensor, got {t.dtype} {tuple(t.shape)}")
+        if t.device != data.device:
+            raise ValueError(f"{what} must be on {data.device}, got {t.device}")
+    out = torch.empty_like(data)
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    with torch.cuda.device(data.device):
+        err = kernels.library().gv_log_odds_update(
+            data.data_ptr(), hit_counts.data_ptr(), free.data_ptr(),
+            None if robot_occupied_mask is None else robot_occupied_mask.data_ptr(), out.data_ptr(), n, stream,
+        )
+    kernels.check(err, "log_odds_update")
+    launches["log_odds_update"] += 1
     return out

@@ -76,6 +76,13 @@ SIGNATURES = {
     "gv_dh_fk_points": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _P),
     # (values or NULL, host values or NULL, params, joint_types, cloud_link, out, T, L, C, stream)
     "gv_dh_chain": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P),
+    # (depth, h, w, pose or NULL, host pose (4 x 4 on the host) or NULL, fx, fy, cx, cy, invalid, recip,
+    #  dx, dy, dz, z0, counts, stream)
+    "gv_depth_hits": (
+        _P, _I32, _I32, _P, _P, _F32, _F32, _F32, _F32, _F32, _F32, _I32, _I32, _I32, _I32, _P, _P,
+    ),
+    # (data, counts, free, robot mask or NULL, out, n, stream)
+    "gv_log_odds_update": (_P, _P, _P, _P, _P, _I64, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -928,7 +928,8 @@ def _hier_pose() -> np.ndarray:
 def test_sharded_hierarchy_fusion_runs_k3_k6_per_slab(cuda_device, kind):
     """A 640x480 frame into a sharded 512^3 hierarchy (8 slabs on the card):
     K3 once a slab at carve_pool 1; at 8, K6's pool once a frame and its
-    carve once a slab; every level (and the occupancy) equals the
+    carve once a slab; the prob tier's depth insert also its hits and
+    log-odds update once a slab; every level (and the occupancy) equals the
     single-device fusion on the card, and check_tree holds."""
     from gpu_voxels_tpu_torch.maps import hierarchical
     from gpu_voxels_tpu_torch.parallel import assert_sharded, make_grid_mesh, shard_map_value
@@ -946,8 +947,9 @@ def test_sharded_hierarchy_fusion_runs_k3_k6_per_slab(cuda_device, kind):
     frame[100:140, 200:260] = 0.0
     single = cls.create((512, 512, 512), 0.01, device=cuda_device)
     sharded = shard_map_value(single, mesh)
-    for pool, want_launches in ((1, {"projective_free_space_exact": 8}),
-                                (8, {"projective_free_space_pooled": 8, "min_pool_depth": 1})):
+    sense = {} if kind == "bit" else {"depth_hits": 8, "log_odds_update": 8}
+    for pool, want_launches in ((1, {"projective_free_space_exact": 8, **sense}),
+                                (8, {"projective_free_space_pooled": 8, "min_pool_depth": 1, **sense})):
         before = dict(raycast_cuda.launches)
         got = sharded.insert_depth_image(frame, Posed(), carve_pool=pool)
         ran = {name: n - before[name] for name, n in raycast_cuda.launches.items() if n != before[name]}

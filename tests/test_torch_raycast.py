@@ -12,7 +12,9 @@ its reciprocal and re-rounds the projection, which moves points by an ulp
 and flips voxels whose centre projects within ~1e-5 px of a pixel edge. The
 fixtures keep every measured point at least 1e-3 voxel from a cell
 boundary, so the transform's summation order cannot move a hit either. K3
-itself is checked on a card by tests/test_torch_cuda.py.
+itself is checked on a card by tests/test_torch_cuda.py, the frame update's
+kernels S1 and S2 by tests_cuda/; here their plain specs are held to the
+inline lines they replaced.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -246,3 +248,83 @@ def test_row_kernel_order_is_the_spec_bit_for_bit():
     # move there; under a rotation a hoisted sum rounds differently
     assert moved["bench"] == (0, 0), moved
     assert moved["tilted"][0] > 0 and moved["inside"][0] > 0, moved
+
+
+def _inline_update(data, depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, cut_real_robot,
+                   robot_occupied_mask, z_index_offset, free):
+    """The frame update's hits and log-odds lines as `insert_depth_image`
+    held them inline, before they became `raycast.depth_hits` and
+    `raycast.log_odds_update` (the specs of kernels S1 and S2)."""
+    from gpu_voxels_tpu_torch import probability
+    from gpu_voxels_tpu_torch.constants import SENSOR_MODEL_FREE, SENSOR_MODEL_OCCUPIED
+    from gpu_voxels_tpu_torch.geometry import transforms
+    from gpu_voxels_tpu_torch.ops.insert import in_map, linear_index, map_to_voxels, shifted
+
+    pose = torch.as_tensor(np.asarray(pose, np.float32))
+    pts = trc.depth_image_to_point_cloud(depth, fx, fy, cx, cy, invalid_value)
+    world = transforms.transform_points(pose, pts)
+    n = dims[0] * dims[1] * dims[2]
+    finite = torch.all(torch.isfinite(world), dim=-1)
+    coords = map_to_voxels(torch.where(finite[:, None], world, -1.0), side_length)
+    if z_index_offset:
+        coords = shifted(coords, (0, 0, z_index_offset), -1)
+    inside = finite & in_map(coords, dims)
+    idx = torch.where(inside, linear_index(coords, dims), n)
+    hit_counts = torch.zeros(n + 1, dtype=torch.int32, device=data.device)
+    hit_counts = hit_counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))[:n]
+    if cut_real_robot and robot_occupied_mask is not None:
+        hit_counts = torch.where(robot_occupied_mask, 0, hit_counts)
+    carved = (free & (hit_counts == 0)).to(torch.int32)
+    delta = hit_counts * SENSOR_MODEL_OCCUPIED + carved * SENSOR_MODEL_FREE
+    return torch.where(delta != 0, probability.update_occupancy(data, delta), data)
+
+
+@pytest.mark.parametrize("case", ["step_axis", "noise_tilted", "invalid_beam", "z_offset", "robot", "all_invalid"])
+def test_depth_hits_and_log_odds_update_on_the_cpu_take_the_plain_path(case, monkeypatch):
+    """The frame update's hits and log-odds update (kernels S1 and S2 on a
+    card) on CPU tensors: `depth_hits_plain` then `log_odds_update_plain`
+    equal the composition they replaced, byte for byte, on seeded frames with
+    invalid pixels, points outside the map (the tilted pose), a z-slab at
+    offsets 16 and 48, a robot cut-out and an all-invalid frame, over maps
+    holding -128, +-127 and values that saturate; `insert_depth_image` and
+    the wrappers give the same, and never load the kernel library or count
+    a launch."""
+    from gpu_voxels_tpu_torch.utils import kernels
+
+    def no_library():
+        raise AssertionError("CPU tensors must not load the kernel library")
+
+    monkeypatch.setattr(kernels, "library", no_library)
+    before = {k: raycast_cuda.launches[k] for k in ("depth_hits", "log_odds_update")}
+    scene = {"z_offset": "noise_axis", "robot": "step_tilted", "all_invalid": "step_axis"}.get(case, case)
+    depth, pose = _scenes()[scene]
+    if case == "all_invalid":
+        depth = np.zeros_like(depth)
+    rng = np.random.default_rng(21)
+    slabs = [(16, (64, 64, 16)), (48, (64, 64, 16))] if case == "z_offset" else [(0, DIMS)]
+    for z0, dims in slabs:
+        n = dims[0] * dims[1] * dims[2]
+        data = torch.tensor(rng.integers(-128, 128, n).astype(np.int8))
+        data[:7] = torch.tensor([-128, -127, 127, 126, -126, 100, -100], dtype=torch.int8)
+        robot = torch.tensor(rng.random(n) < 0.3) if case == "robot" else None
+        d = torch.tensor(depth)
+        free = trc.projective_free_space(d, torch.tensor(pose), *INTR, 1.0, dims, z_index_offset=z0)
+        want = _inline_update(data, d, pose, *INTR, 1.0, dims, 0.0, robot is not None, robot, z0, free)
+        hits = raycast_cuda.depth_hits_plain(d, pose, *INTR, 1.0, dims, 0.0, z0)
+        assert torch.equal(raycast_cuda.log_odds_update_plain(data, hits, free, robot), want), (case, z0)
+        assert torch.equal(raycast_cuda.depth_hits(d, pose, *INTR, 1.0, dims, 0.0, z0), hits)
+        assert torch.equal(raycast_cuda.log_odds_update(data, hits, free, robot), want)
+        got = trc.insert_depth_image(data, d, pose, *INTR, 1.0, dims, cut_real_robot=robot is not None,
+                                     robot_occupied_mask=robot, z_index_offset=z0)
+        assert torch.equal(got, want), (case, z0)
+        valid = int((d != 0).sum())
+        if case == "all_invalid":
+            assert int(hits.sum()) == 0 and not bool(free.any()) and torch.equal(got, data)
+        else:
+            assert 0 < int(hits.sum()) <= valid and bool(free.any()) and not torch.equal(got, data), (case, z0)
+        if case in ("noise_tilted", "z_offset"):
+            assert int(hits.sum()) < valid, "the fixture must put points outside the map"
+        if robot is not None:
+            assert bool((hits > 0)[robot].any()) and torch.equal(got[robot], trc.log_odds_update(
+                data, torch.zeros_like(hits), free)[robot]), "the robot's voxels take no hits"
+    assert {k: raycast_cuda.launches[k] for k in before} == before == {"depth_hits": 0, "log_odds_update": 0}

@@ -9,8 +9,10 @@ oracles are the reference's own: the linkage count 8000
 (test/testing_distance.cu:79-119), bitMarginCollisionCheck's byte oracle
 (helpers/BitVector.h:415-471), host brute force and set arithmetic. Two
 contracts are this port's own: every map tier taking a slab-sharded operand
-(parallel/shard_value) at 64^3 on the card, and a DH chain's FK as one
-launch (csrc/dh_fk.cu) against float64 on the planner workcell's UR10.
+(parallel/shard_value) at 64^3 on the card, a DH chain's FK as one launch
+(csrc/dh_fk.cu) against float64 on the planner workcell's UR10, and a depth
+frame's hits and log-odds update as one launch each (csrc/depth_insert.cu)
+on the workcell Kinect's frames, against their plain versions and float64.
 """
 import json
 from pathlib import Path
@@ -791,3 +793,229 @@ def test_dh_fk_chain_forms_on_cuda(card):
     assert torch.equal(arm.get_transformed_clouds().points, arm.transformed_clouds_for(None).points)
     with pytest.raises(ValueError, match="on a CUDA device"):
         dh_cuda.dh_chain(vals.cpu(), *(t.cpu() for t in arm._table))
+
+
+# -- this port's own contract: a depth frame's hits and update, one launch each ------------
+CONFIGS = Path(__file__).resolve().parent.parent / "portbench" / "configs"
+KINECT30 = CONFIGS.parent / "traffic" / "kinect30.json"
+# the two update cells' configurations: the workcell monitor's 150 x 150 x 100
+# at 0.02 m, and the distance cell's 256^3 at 0.01 m, whose world_offset_m
+# moves boxes and camera alike (the same frames, the camera moved)
+SENSE_CELLS = {"monitor": "ur10_kinect_workcell_150.json", "distance": "ur10_kinect_distance_256.json"}
+# S1 against float64 and the plain version: equal at every voxel whose points
+# keep this far, in voxels, from every cell boundary in float64. S1 divides
+# in IEEE and sums in order; on the card the plain version multiplies by
+# the reciprocal and cuBLAS orders its own sums: both lie ~1e-4 voxel or
+# less from float64, so at most a point inside the band moves between them
+HITS_BAND = 1e-3
+
+
+def _sense_scene(card, cell: str, frames: int = 2):
+    """(the workcell Kinect's frames as [H, W] float32 tensors on the card,
+    its Sensor with the configuration's world offset, dims, side)."""
+    from portbench.inputs import depth_frames
+
+    from gpu_voxels_tpu_torch.sensors import Sensor
+
+    cfg = json.loads((CONFIGS / SENSE_CELLS[cell]).read_text())
+    scene = json.loads(KINECT30.read_text())["scene"]
+    rendered = depth_frames(cfg, scene, frames, 2_100_000_021, card)
+    s = cfg["sensor"]
+    offset = np.asarray(cfg.get("world_offset_m", [0.0, 0.0, 0.0]), np.float32)
+    sensor = Sensor(position=np.asarray(s["position_m"], np.float32) + offset,
+                    orientation_rpy=np.asarray(s["rpy"], np.float32), data_width=s["width"],
+                    data_height=s["height"], fx=s["fx"], fy=s["fy"], cx=s["cx"], cy=s["cy"],
+                    invalid_value=s["invalid_value"])
+    return [_t(f, card) for f in rendered], sensor, tuple(cfg["map"]["dims"]), cfg["map"]["side_m"]
+
+
+def _intr(sensor) -> tuple:
+    return float(sensor.fx), float(sensor.fy), float(sensor.cx), float(sensor.cy)
+
+
+def _hits_band64(depth: torch.Tensor, pose, intr, side: float, dims, z0: int = 0) -> tuple:
+    """(lo, hi) int64[N]: the fewest and the most of the frame's points each
+    voxel can count, from the points in float64 (the float32 inputs and
+    pose, the float32 reciprocal of the side): a point at least HITS_BAND
+    voxel from every boundary counts in its voxel, one nearer in any voxel
+    within HITS_BAND of it."""
+    fx, fy, cx, cy = (float(np.float32(v)) for v in intr)
+    h, w = depth.shape
+    d = depth.double()
+    u = torch.arange(w, dtype=torch.float64, device=depth.device)[None, :]
+    v = torch.arange(h, dtype=torch.float64, device=depth.device)[:, None]
+    pts = torch.stack([(u - cx) * d / fx, (v - cy) * d / fy, d], -1).reshape(-1, 3)
+    valid = (depth != 0.0).reshape(-1) & torch.isfinite(pts).all(-1)
+    m = torch.as_tensor(np.asarray(pose, np.float32), dtype=torch.float64, device=depth.device)
+    f = (pts[valid] @ m[:3, :3].T + m[:3, 3]) * float(np.float32(1.0 / side))
+    f[:, 2] -= z0
+    sure = ((f - torch.round(f)).abs() >= HITS_BAND).all(-1)
+    dx, dy, dz = dims
+
+    def keys(c):
+        c = c.to(torch.int64)
+        inside = (c >= 0).all(-1) & (c[:, 0] < dx) & (c[:, 1] < dy) & (c[:, 2] < dz)
+        return torch.where(inside, (c[:, 2] * dy + c[:, 1]) * dx + c[:, 0], -1)
+
+    k = keys(torch.floor(f[sure]))
+    lo = torch.bincount(k[k >= 0], minlength=dx * dy * dz)
+    near = f[~sure]
+    signs = [(a, b, c) for a in (-1, 1) for b in (-1, 1) for c in (-1, 1)]
+    cand, _ = torch.sort(torch.stack([keys(torch.floor(near + HITS_BAND * near.new_tensor(sg))) for sg in signs], -1),
+                         -1)
+    first = torch.ones_like(cand, dtype=torch.bool)
+    first[:, 1:] = cand[:, 1:] != cand[:, :-1]
+    return lo, lo + torch.bincount(cand[first & (cand >= 0)], minlength=dx * dy * dz)
+
+
+def _in_band(got: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> bool:
+    return bool(((got >= lo) & (got <= hi)).all())
+
+
+@pytest.mark.parametrize("cell", ["monitor", "distance"])
+def test_depth_hits_one_launch_against_plain_and_float64_on_cuda(card, cell):
+    """S1 on the workcell Kinect's frames at the update cells' grids (150 x
+    150 x 100 at 0.02 m; 256^3 at 0.01 m, the camera moved by the world
+    offset), a frame with NaN, +inf and -inf pixels planted, and an
+    all-invalid frame: one launch a call with no host read, the host pose
+    (in the launch's arguments) equal to the same pose on the card, every
+    count inside float64's band and equal to float64's and to the plain
+    version's at every voxel whose points keep HITS_BAND voxel from every
+    boundary; the frames hold invalid pixels and points outside the map."""
+    frames, sensor, dims, side = _sense_scene(card, cell)
+    planted = frames[0].clone()
+    planted[100, 50:60] = torch.nan
+    planted[200, 300:310] = torch.inf
+    planted[300, 320] = -torch.inf
+    frames += [planted, torch.zeros_like(planted)]
+    pose = sensor.pose()
+    on_card = _t(pose, card)
+    for i, depth in enumerate(frames):
+        torch.cuda.synchronize()
+        before = raycast_cuda.launches["depth_hits"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = raycast_cuda.depth_hits(depth, pose, *_intr(sensor), side, dims)
+            from_card = raycast_cuda.depth_hits(depth, on_card, *_intr(sensor), side, dims)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert raycast_cuda.launches["depth_hits"] == before + 2
+        assert got.dtype == torch.int32 and got.shape == (dims[0] * dims[1] * dims[2],)
+        assert torch.equal(got, from_card), i
+        plain = raycast_cuda.depth_hits_plain(depth, on_card, *_intr(sensor), side, dims)
+        lo, hi = _hits_band64(depth, pose, _intr(sensor), side, dims)
+        sure = lo == hi
+        assert _in_band(got, lo, hi) and _in_band(plain, lo, hi), i
+        assert torch.equal(got[sure], lo[sure].to(torch.int32)) and torch.equal(got[sure], plain[sure]), i
+        valid = int((torch.isfinite(depth) & (depth != 0.0)).sum())
+        if i == len(frames) - 1:
+            assert int(got.sum()) == 0
+        else:
+            assert 0 < int(got.sum()) < valid and int((depth == 0.0).sum()) > 0, (i, int(got.sum()), valid)
+            assert int(sure.sum()) > 0.99 * got.numel(), i
+
+
+def test_depth_hits_slabs_on_cuda(card):
+    """S1 on 32-deep z-slabs of the distance cell's 256^3 grid at
+    z_index_offset 0, 32 and 224: each slab's counts are the whole grid's
+    rows [z0, z0 + 32) exactly, and inside float64's band against the plain
+    version's slab; the pose given on the card."""
+    frames, sensor, dims, side = _sense_scene(card, "distance", frames=1)
+    depth, on_card = frames[0], _t(sensor.pose(), card)
+    whole = raycast_cuda.depth_hits(depth, on_card, *_intr(sensor), side, dims).reshape(dims[2], -1)
+    slab = (dims[0], dims[1], 32)
+    for z0 in (0, 32, 224):
+        got = raycast_cuda.depth_hits(depth, on_card, *_intr(sensor), side, slab, z_index_offset=z0)
+        assert torch.equal(got, whole[z0:z0 + 32].reshape(-1)), z0
+        plain = raycast_cuda.depth_hits_plain(depth, on_card, *_intr(sensor), side, slab, z_index_offset=z0)
+        lo, hi = _hits_band64(depth, sensor.pose(), _intr(sensor), side, slab, z0)
+        assert _in_band(got, lo, hi) and _in_band(plain, lo, hi), z0
+        assert torch.equal(got[lo == hi], plain[lo == hi]), z0
+    assert int(whole.sum()) > 0
+
+
+@pytest.mark.parametrize("form", ["monitor", "distance", "ragged", "misaligned"])
+def test_log_odds_update_byte_identical_on_cuda(card, form):
+    """S2 against its plain version byte for byte on random int8 maps that
+    hold -128, +-127 and values every count saturates, counts 0 to 5 and
+    300,000, a random carve mask, with and without a robot mask; at the
+    update cells' sizes, a length that is not a multiple of 16 and a map
+    that is a view one byte off a 16-byte boundary (the voxel-a-thread
+    form); one launch a call with no host read."""
+    n = {"monitor": 150 * 150 * 100, "distance": 256**3, "ragged": 150 * 150 * 100 - 37,
+         "misaligned": 150 * 150 * 100}[form]
+    g = torch.Generator(device=card).manual_seed(n)
+    offset = 1 if form == "misaligned" else 0
+    data = torch.randint(-128, 128, (n + offset,), dtype=torch.int8, device=card, generator=g)[offset:]
+    data[:6] = _t([-128, -127, 127, 126, -126, 120], card, torch.int8)
+    counts = torch.randint(0, 6, (n,), dtype=torch.int32, device=card, generator=g)
+    counts[5::1009] = 300_000
+    free = torch.rand(n, device=card, generator=g) < 0.5
+    robot = torch.rand(n, device=card, generator=g) < 0.1
+    for mask in (None, robot):
+        torch.cuda.synchronize()
+        before = raycast_cuda.launches["log_odds_update"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = raycast_cuda.log_odds_update(data, counts, free, mask)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert raycast_cuda.launches["log_odds_update"] == before + 1
+        want = raycast_cuda.log_odds_update_plain(data, counts, free, mask)
+        assert got.dtype == torch.int8 and torch.equal(got, want), (form, mask is None)
+        assert int((got == 127).sum()) > 0 and int((got == -127).sum()) > 0 and int((got == -128).sum()) > 0
+
+
+def test_depth_insert_one_launch_each_and_refusals_on_cuda(card):
+    """A ProbVoxelMap's depth insert on the card is S1, K3 and S2, one launch
+    each, with no host read, equal to the plain hits and update on the same
+    carve; the wrappers refuse what their kernels do not take."""
+    from gpu_voxels_tpu_torch.ops import raycast
+
+    frames, sensor, dims, side = _sense_scene(card, "monitor", frames=1)
+    depth = frames[0]
+    env = ProbVoxelMap.create(dims, side, device=card)
+    names = ("depth_hits", "projective_free_space_exact", "log_odds_update")
+    torch.cuda.synchronize()
+    before = {k: raycast_cuda.launches[k] for k in names}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused = env.insert_depth_image(depth, sensor)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert {k: raycast_cuda.launches[k] - before[k] for k in names} == dict.fromkeys(names, 1)
+    pose = _t(sensor.pose(), card)
+    hits = raycast_cuda.depth_hits(depth, pose, *_intr(sensor), side, dims)
+    free = raycast_cuda.projective_free_space_exact(depth, pose, *_intr(sensor), side, dims)
+    assert torch.equal(fused.data, raycast.log_odds_update(env.data, hits, free))
+    assert int((fused.data > 0).sum()) > 0 and int(((fused.data < 0) & (fused.data > -128)).sum()) > 0
+
+    n = dims[0] * dims[1] * dims[2]
+    intr = _intr(sensor)
+    bad_hits = [
+        ((depth.double(), pose, *intr, side, dims), "float32"),
+        ((depth.T, pose, *intr, side, dims), "contiguous"),
+        ((depth, pose.double(), *intr, side, dims), "float32 \\[4, 4\\]"),
+        ((depth, pose[:3].contiguous(), *intr, side, dims), "\\[4, 4\\]"),
+        ((depth, sensor.pose()[:3], *intr, side, dims), "\\[4, 4\\]"),
+        ((depth, pose, *intr, side, (2048, 1024, 1024)), "int32"),
+    ]
+    for args, msg in bad_hits:
+        with pytest.raises(ValueError, match=msg):
+            raycast_cuda.depth_hits(*args)
+    with pytest.raises(ValueError, match="2\\^24"):
+        raycast_cuda.depth_hits(depth, pose, *intr, side, dims, z_index_offset=2**24)
+    data, counts = env.data, hits
+    bad_update = [
+        ((data.to(torch.int16), counts, free), "data"),
+        ((data, counts.long(), free), "hit_counts"),
+        ((data, counts, free.to(torch.uint8)), "free"),
+        ((data, counts[:-1], free), "hit_counts"),
+        ((data, counts, free, free[:-1]), "robot_occupied_mask"),
+        ((data, counts.cpu(), free), "hit_counts must be on"),
+        ((data, counts, free, torch.zeros(n, dtype=torch.bool)), "robot_occupied_mask must be on"),
+        ((data.reshape(dims[2], -1), counts, free), "data"),
+    ]
+    for args, msg in bad_update:
+        with pytest.raises(ValueError, match=msg):
+            raycast_cuda.log_odds_update(*args)
