@@ -4,7 +4,7 @@ torch.profiler.
 
     python3 chip_profile.py
 
-For each path of chip_smoke.py's phase 4 (the 512^3 insert -> collide cycle,
+For each path of chip_smoke.py's phase 3 (the 512^3 insert -> collide cycle,
 the 256^3 fusion of one 640x480 frame, the UR10 64-step swept volume with
 its types collide, BASELINE #4's exact EDT at 512^3, the 256^3 camera ->
 distance field frame, the schedule fitter's ordering search and one

@@ -145,13 +145,6 @@ def _shift_words(w: Words, k: int) -> Words:
     return out
 
 
-def _or_fold(w: Words) -> torch.Tensor:
-    out = w[0]
-    for x in w[1:]:
-        out = out | x
-    return out
-
-
 def _masked(w: Words, mask: np.ndarray) -> Words:
     """Each word AND its plane's uint32 constant of `mask`."""
     return [x & as_int32(int(m)) for x, m in zip(w, mask)]

@@ -11,9 +11,10 @@ with its offset semantics (ops/collide._offset_slices). Each wrapper
 
 * on CPU tensors returns the plain torch version (`*_plain`, the spec in
   ops/collide.py);
-* on CUDA tensors launches the kernel on the current stream, without
-  synchronising, and adds one to `launches[name]`; an input the kernel does
-  not take raises. There is no fallback.
+* on CUDA tensors launches the kernel on the current stream with
+  `kernels.launch`, without synchronising (counted in `kernels.launches`
+  under its entry point); an input the kernel does not take raises. There
+  is no fallback.
 
 The count is a 0-d int64 device tensor.
 """
@@ -31,23 +32,16 @@ count_and_mark_prob_plain = collide.count_and_mark_prob
 count_and_mark_prob_run_plain = collide.count_and_mark_prob_run
 count_bit_bit_plain = collide.count_bit_bit
 
-# kernel launches since the last reset, by wrapper name
-launches = {"count_prob_prob": 0, "count_and_mark_prob": 0, "collide_types_bit_bit": 0, "count_bit_bit": 0}
-
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
-def _check(a: torch.Tensor, b: torch.Tensor) -> None:
-    if not (a.is_cuda and b.is_cuda and a.device == b.device):
-        raise ValueError(f"prob collide kernels need both maps on one CUDA device, got {a.device}, {b.device}")
-    if a.dtype != torch.int8 or b.dtype != torch.int8:
-        raise TypeError(f"prob maps are int8, got {a.dtype}, {b.dtype}")
-    if a.ndim != 1 or a.shape != b.shape:
-        raise ValueError(f"prob maps must be flat and of one size, got {tuple(a.shape)}, {tuple(b.shape)}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("prob maps must be contiguous")
+def _check(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
+    """Both maps contiguous, of `dtype` (else TypeError), of one `shape` and on one device."""
+    device = a.device
+    kernels.check_input(a, "a", dtype, shape, device, dtype_error=TypeError)
+    kernels.check_input(b, "b", dtype, a.shape, device, dtype_error=TypeError)
 
 
 def _slices(n: int, dims, offset):
@@ -59,16 +53,11 @@ def count_prob_prob(a, b, t1, t2, dims=None, offset=(0, 0, 0)) -> torch.Tensor:
     """#voxels with a[i+off] >= t1 and b[i] >= t2 (K1)."""
     if _on_cpu(a, b):
         return count_prob_prob_plain(a, b, t1, t2, dims, offset)
-    _check(a, b)
+    _check(a, b, torch.int8, ("N",))
     a0, b0, length = _slices(a.shape[0], dims, offset)
     count = torch.empty((), dtype=torch.int64, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    with torch.cuda.device(a.device):
-        err = kernels.library().gv_count_prob_prob(
-            a.data_ptr() + a0, b.data_ptr() + b0, length, int(t1), int(t2), count.data_ptr(), stream
-        )
-    kernels.check(err, "count_prob_prob")
-    launches["count_prob_prob"] += 1
+    kernels.launch("gv_count_prob_prob", a.device, a.data_ptr() + a0, b.data_ptr() + b0, length, int(t1), int(t2),
+                   count.data_ptr())
     return count
 
 
@@ -84,25 +73,18 @@ def count_and_mark_prob_run(a, b, t1, t2, a0: int, b0: int, length: int):
     """K2 over one run: a[a0 + i] against b[b0 + i] for i < length, the
     marks in a new copy of all of `a` (the offset's run of count_and_mark_prob,
     or a slab of a sharded map against the run of a slab of b an offset
-    pairs it with). One launch, counted under `count_and_mark_prob`.
-    Returns (count, new_a)."""
+    pairs it with). One launch. Returns (count, new_a)."""
     if _on_cpu(a, b):
         return count_and_mark_prob_run_plain(a, b, t1, t2, a0, b0, length)
-    _check(a, b)
+    _check(a, b, torch.int8, ("N",))
     n = a.shape[0]
     a0, b0, length = int(a0), int(b0), int(length)
     if min(a0, b0, length) < 0 or a0 + length > n or b0 + length > n:
         raise ValueError(f"the run [{a0}, +{length}) x [{b0}, +{length}) leaves maps of {n} voxels")
     count = torch.empty((), dtype=torch.int64, device=a.device)
     out = torch.empty_like(a)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    with torch.cuda.device(a.device):
-        err = kernels.library().gv_count_and_mark_prob(
-            a.data_ptr(), b.data_ptr() + b0, out.data_ptr(), n, a0, length, int(t1), int(t2), count.data_ptr(),
-            stream,
-        )
-    kernels.check(err, "count_and_mark_prob")
-    launches["count_and_mark_prob"] += 1
+    kernels.launch("gv_count_and_mark_prob", a.device, a.data_ptr(), b.data_ptr() + b0, out.data_ptr(), n, a0, length,
+                   int(t1), int(t2), count.data_ptr())
     return count, out
 
 
@@ -126,23 +108,9 @@ def k4_live_mask(a, occ_a, occ_b, margin: int) -> torch.Tensor:
     return (occ_b != 0) & live_a
 
 
-def _check_bits(a: torch.Tensor, b: torch.Tensor) -> None:
-    if not (a.is_cuda and b.is_cuda and a.device == b.device):
-        raise ValueError(f"the bit collide kernels need both maps on one CUDA device, got {a.device}, {b.device}")
-    if a.dtype != torch.int32 or b.dtype != torch.int32:
-        raise TypeError(f"bit planes are int32 views of uint32 words, got {a.dtype}, {b.dtype}")
-    if a.ndim != 2 or a.shape[0] != 8 or a.shape != b.shape:
-        raise ValueError(f"bit maps must be [8, N] and of one size, got {tuple(a.shape)}, {tuple(b.shape)}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("bit maps must be contiguous")
-
-
 def _gate(g: torch.Tensor, a: torch.Tensor, name: str) -> int:
     """The gate's address, after checking it is one byte per voxel of `a`."""
-    if g.device != a.device or g.dtype not in (torch.uint8, torch.bool) or g.shape != a.shape[1:] \
-            or not g.is_contiguous():
-        raise ValueError(f"{name} must be contiguous uint8 or bool [{a.shape[1]}] on {a.device}, "
-                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    kernels.check_input(g, name, (torch.uint8, torch.bool), (a.shape[1],), a.device)
     return g.data_ptr()
 
 
@@ -177,25 +145,22 @@ def collide_types_bit_bit(a, b, margin: int = 0, mark: bool = True, occ_a=None, 
     the card (PERF.md section 6)."""
     if _on_cpu(a, b):
         return collide_types_bit_bit_plain(a, b, margin, mark, b_valid=b_valid)
-    _check_bits(a, b)
+    _check(a, b, torch.int32, (8, "N"))
     if not 0 <= int(margin) <= 24:
         raise ValueError(f"the types collide kernel covers margins 0..24, got {margin}")
+    device = a.device
     summaries = occ_a is not None and occ_b is not None
     pa = _gate(occ_a, a, "occ_a") if summaries else None
     pb = _gate(occ_b, a, "occ_b") if summaries else None
     pv = None if b_valid is None else _gate(b_valid, a, "b_valid")
-    count = torch.empty((), dtype=torch.int64, device=a.device)
-    meanings = torch.empty(8, dtype=torch.int32, device=a.device)
+    count = torch.empty((), dtype=torch.int64, device=device)
+    meanings = torch.empty(8, dtype=torch.int32, device=device)
     out = (a.clone() if summaries or pv is not None else torch.empty_like(a)) if mark else a
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    _, ws, words = _workspace(a.device, stream)
-    with torch.cuda.device(a.device):
-        err = kernels.library().gv_collide_types_bit_bit(
-            a.data_ptr(), b.data_ptr(), out.data_ptr() if mark else None, a.shape[1], int(margin), pa, pb, pv,
-            ws, words, count.data_ptr(), meanings.data_ptr(), stream,
-        )
-    kernels.check(err, "collide_types_bit_bit")
-    launches["collide_types_bit_bit"] += 1
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _, ws, words = _workspace(device, stream)
+    kernels.launch("gv_collide_types_bit_bit", device, a.data_ptr(), b.data_ptr(), out.data_ptr() if mark else None,
+                   a.shape[1], int(margin), pa, pb, pv, ws, words, count.data_ptr(), meanings.data_ptr(),
+                   stream=stream)
     return count, meanings, out
 
 
@@ -206,15 +171,10 @@ def count_bit_bit(a_planes, b_planes, dims=None, offset=(0, 0, 0)) -> torch.Tens
     occupancy summary."""
     if _on_cpu(a_planes, b_planes):
         return count_bit_bit_plain(a_planes, b_planes, dims, offset)
-    _check_bits(a_planes, b_planes)
+    _check(a_planes, b_planes, torch.int32, (8, "N"))
     n = a_planes.shape[1]
     a0, b0, length = _slices(n, dims, offset)
     count = torch.empty((), dtype=torch.int64, device=a_planes.device)
-    stream = torch.cuda.current_stream(a_planes.device).cuda_stream
-    with torch.cuda.device(a_planes.device):
-        err = kernels.library().gv_count_bit_bit(
-            a_planes.data_ptr(), b_planes.data_ptr(), n, a0, b0, length, count.data_ptr(), stream
-        )
-    kernels.check(err, "count_bit_bit")
-    launches["count_bit_bit"] += 1
+    kernels.launch("gv_count_bit_bit", a_planes.device, a_planes.data_ptr(), b_planes.data_ptr(), n, a0, b0, length,
+                   count.data_ptr())
     return count

@@ -5,9 +5,9 @@ kernel is csrc/edt_envelope.cu. The wrapper
 
 * on CPU tensors returns the plain torch version (`envelope_pass_plain`,
   the spec in ops/edt_envelope.py);
-* on CUDA tensors launches the kernel on the current stream, without
-  synchronising, and adds one to `launches[name]`; an input the kernel does
-  not take raises. There is no fallback.
+* on CUDA tensors launches the kernel on the current stream with
+  `kernels.launch`, without synchronising; an input the kernel does not
+  take raises. There is no fallback.
 
 The pass along axis 1 (Y) of a [dz, dy, dx] grid is the kernel's
 [A, n, C] = [dz, dy, dx] layout; along axis 2 (X) it is [dz * dy, dx, 1].
@@ -24,9 +24,6 @@ from . import edt_envelope
 
 envelope_pass_plain = edt_envelope.envelope_plain
 
-# kernel launches since the last reset, by wrapper name
-launches = {"envelope_pass": 0}
-
 
 def envelope_pass(g2: torch.Tensor, payload: torch.Tensor, axis: int = 1):
     """(d2, payload) int32 [dz, dy, dx]: the lower envelope along `axis`
@@ -34,15 +31,9 @@ def envelope_pass(g2: torch.Tensor, payload: torch.Tensor, axis: int = 1):
     on CUDA)."""
     if g2.device.type == "cpu" and payload.device.type == "cpu":
         return envelope_pass_plain(g2, payload, axis)
-    if not (g2.is_cuda and payload.is_cuda and g2.device == payload.device):
-        raise ValueError(f"the envelope kernel needs both grids on one CUDA device, got {g2.device}, {payload.device}")
-    if g2.dtype != torch.int32 or payload.dtype != torch.int32:
-        raise TypeError(f"the envelope takes int32 grids, got {g2.dtype}, {payload.dtype}")
-    if g2.ndim != 3 or g2.shape != payload.shape:
-        raise ValueError(f"the envelope takes two [dz, dy, dx] grids of one shape, got {tuple(g2.shape)}, "
-                         f"{tuple(payload.shape)}")
-    if not (g2.is_contiguous() and payload.is_contiguous()):
-        raise ValueError("the envelope's grids must be contiguous")
+    device = g2.device
+    kernels.check_input(g2, "g2", torch.int32, ("dz", "dy", "dx"), device, dtype_error=TypeError)
+    kernels.check_input(payload, "payload", torch.int32, g2.shape, device, dtype_error=TypeError)
     dz, dy, dx = g2.shape
     if axis == 1:
         a, n, c = dz, dy, dx
@@ -54,13 +45,8 @@ def envelope_pass(g2: torch.Tensor, payload: torch.Tensor, axis: int = 1):
         raise ValueError(f"packed sites have 10-bit coordinates: lines of at most 1024, got {n}")
     out_d = torch.empty_like(g2)
     out_p = torch.empty_like(payload)
-    stream = torch.cuda.current_stream(g2.device).cuda_stream
-    with torch.cuda.device(g2.device):
-        err = kernels.library().gv_envelope_pass(
-            g2.data_ptr(), payload.data_ptr(), out_d.data_ptr(), out_p.data_ptr(), a, n, c, stream
-        )
-    kernels.check(err, "envelope_pass")
-    launches["envelope_pass"] += 1
+    kernels.launch("gv_envelope_pass", device, g2.data_ptr(), payload.data_ptr(), out_d.data_ptr(), out_p.data_ptr(),
+                   a, n, c)
     return out_d, out_p
 
 

@@ -7,9 +7,9 @@ kernels are csrc/carve_exact.cu and csrc/carve_pooled.cu. Each wrapper
 
 * on a CPU depth image returns the plain torch version (`*_plain`, the
   specs in ops/raycast.py);
-* on a CUDA depth image launches its kernel on the current stream, without
-  synchronising, and adds one to `launches[name]`; an input the kernel does
-  not take raises. There is no fallback.
+* on a CUDA depth image launches its kernel on the current stream with
+  `kernels.launch`, without synchronising; an input the kernel does not
+  take raises. There is no fallback.
 
 The pose is a [4, 4] float32 tensor on the image's device, read by the
 kernel; the host never reads it. The pooled carve is two kernels of
@@ -17,8 +17,6 @@ csrc/carve_pooled.cu, launched one after the other on the same stream: the
 P x P min-pool of the frame (`min_pool_depth`, spec `raycast.min_pool_depth`;
 the reference builds its table outside its kernel too) and the carve against
 that table (`carve_against_pooled`, spec `raycast.carve_against_pooled`).
-Each counts its own launches; the carve's count is kept under its wrapper's
-name, `projective_free_space_pooled`, one per call of the wrapper.
 
 Around the carve, a depth frame's update of a log-odds map is two launches
 of csrc/depth_insert.cu, which replace no TPU kernel (the reference's frame
@@ -45,26 +43,14 @@ carve_against_pooled_plain = raycast.carve_against_pooled
 depth_hits_plain = raycast.depth_hits
 log_odds_update_plain = raycast.log_odds_update
 
-# kernel launches since the last reset, by wrapper name
-launches = {"projective_free_space_exact": 0, "projective_free_space_pooled": 0, "min_pool_depth": 0,
-            "depth_hits": 0, "log_odds_update": 0}
 
-
-def _checked_image(image: torch.Tensor, name: str) -> None:
-    """Raises on an image (a depth frame or a pooled table) the kernels do not take."""
-    if not image.is_cuda:
-        raise ValueError(f"the {name} kernel needs a CUDA depth image, got {image.device}")
-    if image.dtype != torch.float32 or image.ndim != 2 or not image.is_contiguous():
-        raise ValueError(f"depth must be a contiguous float32 [H, W] image, got {image.dtype} {tuple(image.shape)}")
-
-
-def _checked(depth: torch.Tensor, pose, dims, name: str):
+def _checked(image: torch.Tensor, image_name: str, pose, dims, name: str):
     """The pose on the image's device, the dims as ints; raises on what the
-    carve kernels do not take."""
-    _checked_image(depth, name)
-    pose = to_device(pose, torch.float32, depth.device).contiguous()
-    if pose.shape != (4, 4):
-        raise ValueError(f"pose must be [4, 4], got {tuple(pose.shape)}")
+    carve kernels do not take (the image: a depth frame or a pooled table)."""
+    device = image.device
+    kernels.check_input(image, image_name, torch.float32, ("H", "W"), device)
+    pose = to_device(pose, torch.float32, device).contiguous()
+    kernels.check_input(pose, "pose", torch.float32, (4, 4), device)
     return pose, _checked_dims(dims, name)
 
 
@@ -109,18 +95,12 @@ def projective_free_space_exact(
         return projective_free_space_plain(
             depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, eps_vox, z_index_offset
         )
-    pose, (dx, dy, dz) = _checked(depth, pose, dims, "carve")
+    pose, (dx, dy, dz) = _checked(depth, "depth", pose, dims, "carve")
     z0 = _checked_z0(z_index_offset, dz)
     h, w = depth.shape
     out = torch.empty(dx * dy * dz, dtype=torch.bool, device=depth.device)
-    stream = torch.cuda.current_stream(depth.device).cuda_stream
-    with torch.cuda.device(depth.device):
-        err = kernels.library().gv_carve_exact(
-            depth.data_ptr(), h, w, pose.data_ptr(), fx, fy, cx, cy, side_length, _eps(eps_vox, side_length),
-            invalid_value, dx, dy, dz, z0, out.data_ptr(), stream,
-        )
-    kernels.check(err, "projective_free_space_exact")
-    launches["projective_free_space_exact"] += 1
+    kernels.launch("gv_carve_exact", depth.device, depth.data_ptr(), h, w, pose.data_ptr(), fx, fy, cx, cy, side_length,
+                   _eps(eps_vox, side_length), invalid_value, dx, dy, dz, z0, out.data_ptr())
     return out
 
 
@@ -163,17 +143,11 @@ def min_pool_depth(depth: torch.Tensor, pool: int, invalid_value: float = 0.0) -
     kernel of K6 on CUDA)."""
     if depth.device.type == "cpu":
         return min_pool_depth_plain(depth, pool, invalid_value)
-    _checked_image(depth, "min-pool")
+    kernels.check_input(depth, "depth", torch.float32, ("H", "W"), depth.device)
     h, w = depth.shape
     ph, pw = _pooled_shape(h, w, pool)
     out = torch.empty((ph, pw), dtype=torch.float32, device=depth.device)
-    stream = torch.cuda.current_stream(depth.device).cuda_stream
-    with torch.cuda.device(depth.device):
-        err = kernels.library().gv_min_pool_depth(
-            depth.data_ptr(), h, w, int(pool), invalid_value, out.data_ptr(), stream
-        )
-    kernels.check(err, "min_pool_depth")
-    launches["min_pool_depth"] += 1
+    kernels.launch("gv_min_pool_depth", depth.device, depth.data_ptr(), h, w, int(pool), invalid_value, out.data_ptr())
     return out
 
 
@@ -199,20 +173,15 @@ def carve_against_pooled(
     if pm.device.type == "cpu":
         return carve_against_pooled_plain(pm, pool, image_shape, pose, fx, fy, cx, cy, side_length, dims, eps_vox,
                                           z_index_offset)
-    pose, (dx, dy, dz) = _checked(pm, pose, dims, "pooled carve")
+    pose, (dx, dy, dz) = _checked(pm, "pm", pose, dims, "pooled carve")
     z0 = _checked_z0(z_index_offset, dz)
     h, w = (int(s) for s in image_shape)
     if tuple(pm.shape) != _pooled_shape(h, w, pool):
         raise ValueError(f"a {h}x{w} image pools to {_pooled_shape(h, w, pool)} at P = {pool}, got {tuple(pm.shape)}")
     out = torch.empty(dx * dy * dz, dtype=torch.bool, device=pm.device)
-    stream = torch.cuda.current_stream(pm.device).cuda_stream
-    with torch.cuda.device(pm.device):
-        err = kernels.library().gv_carve_pooled(
-            pm.data_ptr(), pm.shape[0], pm.shape[1], int(pool), h, w, pose.data_ptr(), fx, fy, cx, cy,
-            side_length, _eps(eps_vox, side_length), dx, dy, dz, z0, out.data_ptr(), stream,
-        )
-    kernels.check(err, "projective_free_space_pooled")
-    launches["projective_free_space_pooled"] += 1
+    kernels.launch("gv_carve_pooled", pm.device, pm.data_ptr(), pm.shape[0], pm.shape[1], int(pool), h, w,
+                   pose.data_ptr(), fx, fy, cx, cy, side_length, _eps(eps_vox, side_length), dx, dy, dz, z0,
+                   out.data_ptr())
     return out
 
 
@@ -221,9 +190,7 @@ def _pose_pointers(pose, device: torch.device) -> tuple:
     the host pointer points into: a CUDA pose is read on its card, anything
     else is a host [4, 4] rounded to float32, as `to_device` rounds it."""
     if isinstance(pose, torch.Tensor) and pose.device.type != "cpu":
-        if pose.device != device or pose.dtype != torch.float32 or pose.shape != (4, 4) or not pose.is_contiguous():
-            raise ValueError(f"a pose on the card must be a contiguous float32 [4, 4] on {device}, got {pose.dtype} "
-                             f"{tuple(pose.shape)} on {pose.device}")
+        kernels.check_input(pose, "pose", torch.float32, (4, 4), device)
         return pose.data_ptr(), None, None
     host = np.ascontiguousarray(np.asarray(pose, dtype=np.float32))
     if host.shape != (4, 4):
@@ -251,20 +218,14 @@ def depth_hits(
     image's card."""
     if depth.device.type == "cpu":
         return depth_hits_plain(depth, pose, fx, fy, cx, cy, side_length, dims, invalid_value, z_index_offset)
-    _checked_image(depth, "depth-hits")
+    kernels.check_input(depth, "depth", torch.float32, ("H", "W"), depth.device)
     dx, dy, dz = _checked_dims(dims, "depth-hits")
     z0 = _checked_z0(z_index_offset, dz)
     on_card, on_host, _host = _pose_pointers(pose, depth.device)  # _host lives past the call
     h, w = depth.shape
     out = torch.empty(dx * dy * dz, dtype=torch.int32, device=depth.device)
-    stream = torch.cuda.current_stream(depth.device).cuda_stream
-    with torch.cuda.device(depth.device):
-        err = kernels.library().gv_depth_hits(
-            depth.data_ptr(), h, w, on_card, on_host, fx, fy, cx, cy, invalid_value,
-            float(np.float32(1.0 / float(side_length))), dx, dy, dz, z0, out.data_ptr(), stream,
-        )
-    kernels.check(err, "depth_hits")
-    launches["depth_hits"] += 1
+    kernels.launch("gv_depth_hits", depth.device, depth.data_ptr(), h, w, on_card, on_host, fx, fy, cx, cy,
+                   invalid_value, float(np.float32(1.0 / float(side_length))), dx, dy, dz, z0, out.data_ptr())
     return out
 
 
@@ -276,24 +237,15 @@ def log_odds_update(data: torch.Tensor, hit_counts: torch.Tensor, free: torch.Te
     hits."""
     if data.device.type == "cpu":
         return log_odds_update_plain(data, hit_counts, free, robot_occupied_mask)
-    if not data.is_cuda:
-        raise ValueError(f"the log-odds kernel needs a CUDA map, got {data.device}")
     n = data.numel()
-    checks = [(data, "data", torch.int8), (hit_counts, "hit_counts", torch.int32), (free, "free", torch.bool)]
+    kernels.check_input(data, "data", torch.int8, (n,), data.device)
+    kernels.check_input(hit_counts, "hit_counts", torch.int32, (n,), data.device)
+    kernels.check_input(free, "free", torch.bool, (n,), data.device)
+    robot = None
     if robot_occupied_mask is not None:
-        checks.append((robot_occupied_mask, "robot_occupied_mask", torch.bool))
-    for t, what, dtype in checks:
-        if t.dtype != dtype or tuple(t.shape) != (n,) or not t.is_contiguous():
-            raise ValueError(f"{what} must be a contiguous {dtype} [{n}] tensor, got {t.dtype} {tuple(t.shape)}")
-        if t.device != data.device:
-            raise ValueError(f"{what} must be on {data.device}, got {t.device}")
+        kernels.check_input(robot_occupied_mask, "robot_occupied_mask", torch.bool, (n,), data.device)
+        robot = robot_occupied_mask.data_ptr()
     out = torch.empty_like(data)
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    with torch.cuda.device(data.device):
-        err = kernels.library().gv_log_odds_update(
-            data.data_ptr(), hit_counts.data_ptr(), free.data_ptr(),
-            None if robot_occupied_mask is None else robot_occupied_mask.data_ptr(), out.data_ptr(), n, stream,
-        )
-    kernels.check(err, "log_odds_update")
-    launches["log_odds_update"] += 1
+    kernels.launch("gv_log_odds_update", data.device, data.data_ptr(), hit_counts.data_ptr(), free.data_ptr(), robot,
+                   out.data_ptr(), n)
     return out

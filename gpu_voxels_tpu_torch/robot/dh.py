@@ -9,15 +9,13 @@ happens BEFORE the link's own matrix is multiplied in).
 [T, num_clouds, 4, 4]: the batch dimension written out that the reference
 gets from `jax.vmap` (swept_volume.py:75).
 
-The route follows the device of the clouds, where the joint values go (one
-state given on the host travels in the launch's arguments instead). On
-the card every FK is one launch of csrc/dh_fk.cu (robot/dh_cuda.py): the
-points through `dh_fk_points` (transformed_clouds_for, set_configuration,
-update_point_cloud), the matrices through `dh_chain` (link_matrices); an
-input the kernels do not take raises. On the CPU the plain versions run,
-`dh_chain_plain` and `MetaPointCloud.transformed_per_cloud`: the spec the
-tests hold against the reference. The chain packs its DH table once, on the
-clouds' device, as the kernels take it.
+FK goes through the wrappers of robot/dh_cuda.py, which route by the device
+of the chain's table, packed once on the clouds' device where the joint
+values go: the points through `dh_fk_points` (transformed_clouds_for,
+set_configuration, update_point_cloud), the matrices through `dh_chain`
+(link_matrices). On the card each is one launch of csrc/dh_fk.cu (one state
+given on the host travels in the launch's arguments); on the CPU the plain
+versions run: the spec the tests hold against the reference.
 """
 from __future__ import annotations
 
@@ -102,12 +100,6 @@ class KinematicChain(RobotInterface):
                 return host
         return to_device(values, torch.float32, self.clouds.device)
 
-    @staticmethod
-    def _flat(vals):
-        """Values as the kernels take them: [T, n_links] on the card, or one
-        host state."""
-        return vals if isinstance(vals, np.ndarray) else vals.reshape(-1, vals.shape[-1]).contiguous()
-
     def link_matrices(self, values=None) -> torch.Tensor:
         """[..., num_clouds, 4, 4]: the accumulated DH product per link cloud.
 
@@ -115,11 +107,7 @@ class KinematicChain(RobotInterface):
         [T, n_links] batch), or a dict by name; default: the stored
         configuration.
         """
-        vals = self._values(values)
-        if self.clouds.device.type != "cuda":
-            return dh_cuda.dh_chain_plain(vals, *self._table)
-        mats = dh_cuda.dh_chain(self._flat(vals), *self._table)
-        return mats.reshape(vals.shape[:-1] + (self.clouds.num_clouds, 4, 4))
+        return dh_cuda.dh_chain(self._values(values), *self._table)
 
     def set_configuration(self, joint_values: JointValueMap) -> None:
         for k, v in joint_values.items():
@@ -139,17 +127,12 @@ class KinematicChain(RobotInterface):
     def transformed_clouds_for(self, values) -> MetaPointCloud:
         """Pure FK: joint values ([n_links] or [T, n_links], a dict by name,
         or None for the stored configuration) -> transformed clouds ([total,
-        3] or [T, total, 3] points). On the card `robot.chain` holds the one
-        launch, the chain and the transform together."""
+        3] or [T, total, 3] points). `robot.chain` holds the chain and the
+        transform together: on the card one launch."""
         with perfmon.span("robot.fk"):
             with perfmon.span("robot.chain"):
-                vals = self._values(values)
-                if self.clouds.device.type == "cuda":
-                    pts = dh_cuda.dh_fk_points(self._flat(vals), *self._table, self._point_cloud, self.clouds.points)
-                    return replace(self.clouds, points=pts.reshape(vals.shape[:-1] + pts.shape[1:]))
-                matrices = self.link_matrices(vals)
-            with perfmon.span("robot.transform"):
-                return self.clouds.transformed_per_cloud(matrices)
+                pts = dh_cuda.dh_fk_points(self._values(values), *self._table, self._point_cloud, self.clouds.points)
+                return replace(self.clouds, points=pts)
 
     def get_lower_joint_limits(self) -> JointValueMap:
         return dict(self._lower)

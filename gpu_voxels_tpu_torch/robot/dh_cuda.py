@@ -3,25 +3,26 @@
 Replaces no TPU kernel: the JAX package's FK is jnp that XLA fuses. In
 PyTorch the same arithmetic is ~25 elementwise launches a link and a batched
 transform; `dh_fk_points` and `dh_chain` issue it as one launch. Each
-wrapper
+wrapper takes the joint values as f32[..., L] and
 
-* launches its kernel on the current stream of the table's card, without
-  synchronising and without reading anything back, and adds one to
-  `launches[name]` (an empty batch launches nothing);
-* takes the joint values as a CUDA tensor [T, L], or one state as a host
+* on a CPU table returns its plain version, called with the values as given;
+* on the card takes the values flattened to [T, L], or one state as a host
   numpy array [L], which travels in the launch's arguments (no upload: a
-  monitor's reading, a stored configuration);
+  monitor's reading, a stored configuration); launches its kernel on the
+  current stream of the table's card with `kernels.launch`, without
+  synchronising and without reading anything back (an empty batch launches
+  nothing); and returns the plain version's shape;
 * raises on an input the kernel does not take: another dtype or shape, a
-  tensor that is not contiguous, a chain of more than MAX_LINKS links, a
-  tensor off the card or on another card. There is no fallback: a CPU chain
-  calls the plain versions itself (KinematicChain routes by the device of
-  its clouds, where its joint values go).
+  table that is not contiguous, a chain of more than MAX_LINKS links, a
+  tensor off the table's card. There is no fallback.
 
 The plain versions, `dh_chain_plain` and `dh_fk_points_plain`, are the spec
 in torch: transforms.dh_matrix per link, the batched 4x4 products, then the
 per-point gather and product of MetaPointCloud.transformed_per_cloud. They
 read the DH table and the link indices to the host (free on the CPU; on the
-card they are the kernels' yardstick, never a path).
+card they are the kernels' yardstick, never a path). On the CPU they run
+with the batch shape as given: a batched 4x4 product need not round alike
+under another batch layout.
 
 The chain's table, as KinematicChain packs it once on the clouds' device:
 
@@ -46,43 +47,35 @@ from ..utils import kernels
 F32, I32 = torch.float32, torch.int32
 MAX_LINKS = 64  # csrc/dh_fk.cu kMaxLinks: the products of one state live in shared memory
 
-# kernel launches since the last reset, by wrapper name
-launches = {"dh_fk_points": 0, "dh_chain": 0}
 
-
-def _check(t: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple) -> None:
-    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-        raise ValueError(f"{what} must be a contiguous {dtype} {list(shape)} tensor, "
-                         f"got {t.dtype} {list(t.shape)}")
-
-
-def _checked(name: str, values, params, joint_types, cloud_link, *more) -> tuple[int, int, int]:
-    """(T, L, C); raises on what the kernels do not take. `more` pairs a
-    tensor with its name, dtype and shape."""
-    on_host = isinstance(values, np.ndarray)
-    if on_host and (values.dtype != np.float32 or values.ndim != 1 or not values.flags.c_contiguous):
-        raise ValueError(f"host values must be one contiguous float32 [L] state, got {values.dtype} "
-                         f"{list(values.shape)}")
-    if not on_host and values.ndim != 2:
-        raise ValueError(f"values must be [T, L], got {list(values.shape)}")
-    t, n = (1, values.shape[0]) if on_host else values.shape
+def _checked(values, params, joint_types, cloud_link) -> tuple:
+    """(values as the kernels take them: [T, L] on the table's card, or one
+    host state [L]; T; L; C); raises on what the kernels do not take."""
+    device = params.device
+    n = values.shape[-1] if values.ndim else 0
     if not 1 <= n <= MAX_LINKS:
-        raise ValueError(f"the {name} kernel takes 1 to {MAX_LINKS} links, got {n}")
-    if cloud_link.ndim != 1 or cloud_link.shape[0] < 1:
+        raise ValueError(f"the DH kernels take 1 to {MAX_LINKS} links, got values {list(values.shape)}")
+    if isinstance(values, np.ndarray):
+        if values.dtype != np.float32 or values.ndim != 1 or not values.flags.c_contiguous:
+            raise ValueError(f"host values must be one contiguous float32 [L] state, got {values.dtype} "
+                             f"{list(values.shape)}")
+        flat = values
+    else:
+        flat = values.reshape(-1, n).contiguous()
+        kernels.check_input(flat, "values", F32, ("T", n), device)
+    kernels.check_input(params, "params", F32, (n, 4), device)
+    kernels.check_input(joint_types, "joint_types", I32, (n,), device)
+    kernels.check_input(cloud_link, "cloud_link", I32, ("C",), device)
+    if cloud_link.shape[0] < 1:
         raise ValueError(f"cloud_link must be [C] with C >= 1, got {list(cloud_link.shape)}")
-    checks = [(params, "params", F32, (n, 4)), (joint_types, "joint_types", I32, (n,)),
-              (cloud_link, "cloud_link", I32, tuple(cloud_link.shape)), *more]
-    if not on_host:
-        checks.insert(0, (values, "values", F32, (t, n)))
-    for args in checks:
-        _check(*args)
-    device = checks[0][0].device
-    if device.type != "cuda":
-        raise ValueError(f"the {name} kernel needs its table and values on a CUDA device, got {device}")
-    for x, what, *_ in checks:
-        if x.device != device:
-            raise ValueError(f"{what} must be on {device}, got {x.device}")
-    return t, n, cloud_link.shape[0]
+    return flat, 1 if flat.ndim == 1 else flat.shape[0], n, cloud_link.shape[0]
+
+
+def _checked_points(point_cloud: torch.Tensor, points: torch.Tensor, device: torch.device) -> int:
+    """P; raises unless point_cloud is int32 [P] and points f32 [P, 3] on `device`."""
+    kernels.check_input(point_cloud, "point_cloud", I32, ("P",), device)
+    kernels.check_input(points, "points", F32, (point_cloud.shape[0], 3), device)
+    return point_cloud.shape[0]
 
 
 def _pointers(values) -> tuple:
@@ -91,45 +84,35 @@ def _pointers(values) -> tuple:
 
 
 def dh_fk_points(values, params, joint_types, cloud_link, point_cloud, points) -> torch.Tensor:
-    """f32[T, P, 3]: every point of the clouds moved by its link's product
-    for each of the T states of values f32[T, L] (or one host state f32[L],
-    T = 1; points f32[P, 3]); one launch of gv_dh_fk_points."""
-    if point_cloud.ndim != 1:
-        raise ValueError(f"point_cloud must be [P], got {list(point_cloud.shape)}")
-    n_points = point_cloud.shape[0]
-    t, n, c = _checked("FK", values, params, joint_types, cloud_link,
-                       (point_cloud, "point_cloud", I32, (n_points,)), (points, "points", F32, (n_points, 3)))
-    out = torch.empty((t, n_points, 3), dtype=F32, device=params.device)
-    if out.numel() == 0:
-        return out
-    stream = torch.cuda.current_stream(params.device).cuda_stream
-    with torch.cuda.device(params.device):
-        err = kernels.library().gv_dh_fk_points(
-            *_pointers(values), params.data_ptr(), joint_types.data_ptr(), cloud_link.data_ptr(),
-            point_cloud.data_ptr(), points.data_ptr(), out.data_ptr(), t, n, c, n_points, stream,
-        )
-    kernels.check(err, "dh_fk_points")
-    launches["dh_fk_points"] += 1
-    return out
+    """f32[..., P, 3]: every point of the clouds (points f32[P, 3]) moved by
+    its link's product for each state of values f32[..., L] (on the card
+    also one host state f32[L]); on the card one launch of gv_dh_fk_points."""
+    device = params.device
+    if device.type == "cpu":
+        return dh_fk_points_plain(values, params, joint_types, cloud_link, point_cloud, points)
+    flat, t, n, c = _checked(values, params, joint_types, cloud_link)
+    n_points = _checked_points(point_cloud, points, device)
+    out = torch.empty((t, n_points, 3), dtype=F32, device=device)
+    if out.numel():
+        kernels.launch("gv_dh_fk_points", device, *_pointers(flat), params.data_ptr(), joint_types.data_ptr(),
+                       cloud_link.data_ptr(), point_cloud.data_ptr(), points.data_ptr(), out.data_ptr(), t, n, c,
+                       n_points)
+    return out.reshape(values.shape[:-1] + (n_points, 3))
 
 
 def dh_chain(values, params, joint_types, cloud_link) -> torch.Tensor:
-    """f32[T, C, 4, 4]: each cloud's product for each of the T states of
-    values f32[T, L] (or one host state f32[L], T = 1); one launch of
-    gv_dh_chain."""
-    t, n, c = _checked("chain", values, params, joint_types, cloud_link)
-    out = torch.empty((t, c, 4, 4), dtype=F32, device=params.device)
-    if t == 0:
-        return out
-    stream = torch.cuda.current_stream(params.device).cuda_stream
-    with torch.cuda.device(params.device):
-        err = kernels.library().gv_dh_chain(
-            *_pointers(values), params.data_ptr(), joint_types.data_ptr(), cloud_link.data_ptr(), out.data_ptr(),
-            t, n, c, stream,
-        )
-    kernels.check(err, "dh_chain")
-    launches["dh_chain"] += 1
-    return out
+    """f32[..., C, 4, 4]: each cloud's product for each state of values
+    f32[..., L] (on the card also one host state f32[L]); on the card one
+    launch of gv_dh_chain."""
+    device = params.device
+    if device.type == "cpu":
+        return dh_chain_plain(values, params, joint_types, cloud_link)
+    flat, t, n, c = _checked(values, params, joint_types, cloud_link)
+    out = torch.empty((t, c, 4, 4), dtype=F32, device=device)
+    if t:
+        kernels.launch("gv_dh_chain", device, *_pointers(flat), params.data_ptr(), joint_types.data_ptr(),
+                       cloud_link.data_ptr(), out.data_ptr(), t, n, c)
+    return out.reshape(values.shape[:-1] + (c, 4, 4))
 
 
 def dh_chain_plain(values, params, joint_types, cloud_link) -> torch.Tensor:

@@ -13,6 +13,13 @@ nvcc's output; nothing falls back to the plain torch versions.
     python -c "from gpu_voxels_tpu_torch.utils import kernels; print(kernels.build())"
 
 builds on a machine with the CUDA toolkit and prints the library's path.
+
+Every kernel of the port passes this one seam: its C entry point is declared
+in `SIGNATURES`, its wrapper checks its inputs with `check_input` and
+launches it with `launch`, which counts it in `launches` under the entry
+point's name. A wrapper takes its plain version's signature and returns the
+plain version on CPU tensors; the kernels are checked against their plain
+versions on the card by the `cuda`-marked tests.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -85,7 +94,13 @@ SIGNATURES = {
     "gv_log_odds_update": (_P, _P, _P, _P, _P, _I64, _P),
 }
 
+# the entry points that run on the host and take no stream; `launch` calls every other one
+HOST_QUERIES = ("gv_collide_types_workspace_words", "gv_envelope_occupancy")
+# kernel launches since the last reset, by entry point
+launches = {name: 0 for name in SIGNATURES if name not in HOST_QUERIES}
+
 _lib: ctypes.CDLL | None = None
+_entries: dict = {}  # entry point -> its bound function, resolved when the library loads
 
 
 def _sources() -> list[Path]:
@@ -149,6 +164,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            if name in launches:
+                _entries[name] = fn
         _lib = lib
     return _lib
 
@@ -157,3 +174,45 @@ def check(err: int, name: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err}")
+
+
+def launch(name: str, device: torch.device, *args, stream: int | None = None) -> None:
+    """Call entry point `name` with `args` and the current stream of `device`
+    as its last argument, under a guard of that device; raise on a CUDA
+    error, and count the launch. Nothing waits for the device. A caller that
+    has read the current stream already (K4 keys its workspace by it) passes
+    it as `stream`."""
+    if not _entries:
+        library()
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = _entries[name](*args, stream)
+    check(err, name)
+    launches[name] += 1
+
+
+def check_input(t: torch.Tensor, name: str, dtype, shape: tuple, device: torch.device,
+                dtype_error: type = ValueError) -> None:
+    """Raise unless `t` is a contiguous tensor of `dtype` (or of one of a
+    tuple of dtypes), of `shape` (an int per dimension, or a name for one of
+    any extent), on `device`. Another dtype raises `dtype_error`; anything
+    else ValueError."""
+    if t.dtype is not dtype and (type(dtype) is not tuple or t.dtype not in dtype):
+        raise dtype_error(_wanted(t, name, dtype, shape))
+    got = t.shape
+    if got != shape:
+        if len(got) != len(shape):
+            raise ValueError(_wanted(t, name, dtype, shape))
+        for want, n in zip(shape, got):
+            if type(want) is not str and want != n:
+                raise ValueError(_wanted(t, name, dtype, shape))
+    if not t.is_contiguous():
+        raise ValueError(_wanted(t, name, dtype, shape))
+    if t.device != device:
+        raise ValueError(f"{name} must be on {device}, got {t.device}")
+
+
+def _wanted(t: torch.Tensor, name: str, dtype, shape: tuple) -> str:
+    kind = " or ".join(map(str, dtype)) if type(dtype) is tuple else str(dtype)
+    return f"{name} must be a contiguous {kind} [{', '.join(map(str, shape))}] tensor, got {t.dtype} {list(t.shape)}"

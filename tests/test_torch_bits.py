@@ -26,6 +26,7 @@ from gpu_voxels_tpu_torch.maps.voxelmap import ProbVoxelMap as TProb
 from gpu_voxels_tpu_torch.ops import collide as tcol
 from gpu_voxels_tpu_torch.ops import collide_cuda
 from gpu_voxels_tpu_torch.robot import swept_volume as tsv
+from gpu_voxels_tpu_torch.utils import kernels
 
 
 @pytest.fixture(autouse=True)
@@ -80,7 +81,7 @@ def test_count_bit_bit_matches_reference_over_offsets(dims, kind):
         counts.append(ref)
     assert counts[0] > counts[-1] > 0
     assert collide_cuda.count_bit_bit_plain is tcol.count_bit_bit
-    assert collide_cuda.launches["count_bit_bit"] == 0  # CPU tensors launch nothing
+    assert kernels.launches["gv_count_bit_bit"] == 0  # CPU tensors launch nothing
 
 
 @pytest.mark.parametrize("kind", ["dense", "low", "top"])

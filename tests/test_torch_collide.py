@@ -21,6 +21,7 @@ from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap as TBit
 from gpu_voxels_tpu_torch.maps.voxelmap import ProbVoxelMap as TProb
 from gpu_voxels_tpu_torch.ops import collide as tcol
 from gpu_voxels_tpu_torch.ops import collide_cuda
+from gpu_voxels_tpu_torch.utils import kernels
 
 
 @pytest.fixture(autouse=True)
@@ -148,8 +149,26 @@ def test_map_collides_match_reference(offset):
 
 
 def test_kernel_wrappers_refuse_what_they_cannot_take():
+    """The wrappers' one input check refuses, without a card, what a kernel
+    cannot take: a map off the kernel's device, another dtype (a TypeError
+    where the wrapper raises one), another shape, a view that is not
+    contiguous, a gate that is not one byte a voxel; CPU maps launch
+    nothing, and every launched entry point reads 0."""
     a = torch.zeros(10, dtype=torch.int8)
-    with pytest.raises(ValueError):  # a CPU map never meets a kernel
-        collide_cuda._check(a, a)
-    assert collide_cuda.launches == {"count_prob_prob": 0, "count_and_mark_prob": 0, "collide_types_bit_bit": 0,
-                                     "count_bit_bit": 0}
+    with pytest.raises(ValueError, match="a must be on cuda:0"):  # a CPU map never meets a kernel
+        kernels.check_input(a, "a", torch.int8, ("N",), torch.device("cuda", 0))
+    with pytest.raises(TypeError, match="torch.int8"):
+        collide_cuda._check(a, a.to(torch.int16), torch.int8, ("N",))
+    with pytest.raises(ValueError, match=r"b must be a contiguous torch.int8 \[10\] tensor"):
+        collide_cuda._check(a, a[:5].contiguous(), torch.int8, ("N",))
+    with pytest.raises(ValueError, match="contiguous"):
+        collide_cuda._check(a[::2], a[::2], torch.int8, ("N",))
+    planes = torch.zeros((8, 10), dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"\[8, N\]"):
+        collide_cuda._check(planes[:4], planes[:4], torch.int32, (8, "N"))
+    with pytest.raises(ValueError, match="torch.uint8 or torch.bool"):
+        collide_cuda._gate(torch.ones(10, dtype=torch.int32), planes, "occ_a")
+    assert collide_cuda._gate(torch.ones(10, dtype=torch.bool), planes, "occ_a") > 0
+    assert int(collide_cuda.count_prob_prob(a, a, 0, 0)) == 10
+    assert set(kernels.launches) == set(kernels.SIGNATURES) - set(kernels.HOST_QUERIES)
+    assert kernels.launches == dict.fromkeys(kernels.launches, 0)

@@ -10,6 +10,7 @@ they skip elsewhere. The others check, without a card, that the ctypes
 signatures match the C functions of csrc/ and that the build is keyed by
 the sources.
 """
+import ctypes
 import re
 
 import numpy as np
@@ -41,12 +42,19 @@ def cuda_device():
 
 
 def test_ctypes_signatures_match_csrc():
-    """Every bound C function exists in csrc/ with as many parameters."""
-    found = {}
+    """Every bound C function exists in csrc/ with as many parameters, and
+    every entry point `kernels.launch` may call (all but the host queries)
+    takes the stream last, where `launch` appends it."""
+    found, last = {}, {}
     for src in kernels._sources():
         for name, params in re.findall(r'extern "C" int (gv_\w+)\(([^)]*)\)', src.read_text()):
-            found[name] = len([p for p in params.split(",") if p.strip()])
+            params = [" ".join(p.split()) for p in params.split(",") if p.strip()]
+            found[name], last[name] = len(params), params[-1]
     assert found == {name: len(args) for name, args in kernels.SIGNATURES.items()}
+    assert set(kernels.launches) == set(kernels.SIGNATURES) - set(kernels.HOST_QUERIES)
+    for name in kernels.launches:
+        assert last[name] == "void* stream" and kernels.SIGNATURES[name][-1] is ctypes.c_void_p, name
+    assert all(last[name] != "void* stream" for name in kernels.HOST_QUERIES)
 
 
 def test_library_path_is_keyed_by_sources_and_flags():
@@ -78,16 +86,59 @@ def _carve_scenes(dev):
             yield torch.tensor(depth, device=dev), torch.tensor(pose, device=dev)
 
 
+# the main path's scale: a Kinect 640x480 frame (bench.py:288-293) into a
+# 256^3 grid at 0.02 m (BASELINE config #2)
+KINECT_INTR, KINECT_SIDE, KINECT_DIMS = (525.0, 525.0, 320.0, 240.0), 0.02, (256, 256, 256)
+
+
+def _kinect_frame(seed: int = 0) -> np.ndarray:
+    """640x480 depth with step edges, an invalid patch and noise."""
+    rng = np.random.default_rng(seed)
+    depth = np.full((480, 640), 4.0, np.float32)
+    depth[100:300, 200:450] = 2.5
+    depth[350:460, 50:250] = 1.8
+    depth += rng.normal(0, 0.003, depth.shape).astype(np.float32)
+    depth[20:60, 560:620] = 0.0  # invalid patch
+    return depth
+
+
+def _kinect_poses() -> dict:
+    """Axis-aligned at the grid's z = 0 face, tilted, and at the grid's centre
+    (half the grid behind the camera)."""
+    bench = np.eye(4, dtype=np.float32)
+    bench[:3, 3] = [2.56, 2.56, 0.1]
+    return {"bench": bench, "tilted": transforms.from_rpy_np([0.3, -0.2, 0.1], [2.0, 2.8, 0.3]),
+            "inside": transforms.from_rpy_np([0.05, 0.1, 0.0], [2.56, 2.56, 2.56])}
+
+
+def _carve_cases(dev, scene: str):
+    """(depth, pose, intrinsics, side, dims) of the carve tests: the small
+    scenes at 64^3, or the Kinect frame at 256^3 under its three poses and,
+    under the inside pose, a grid whose rows are ragged (dx = 250)."""
+    if scene == "small":
+        for depth, pose in _carve_scenes(dev):
+            yield depth, pose, (52.0, 52.0, 32.0, 24.0), 1.0, (64, 64, 64)
+        return
+    depth = torch.tensor(_kinect_frame(), device=dev)
+    poses = {name: torch.tensor(p, device=dev) for name, p in _kinect_poses().items()}
+    for pose in poses.values():
+        yield depth, pose, KINECT_INTR, KINECT_SIDE, KINECT_DIMS
+    yield depth, poses["inside"], KINECT_INTR, KINECT_SIDE, (250, *KINECT_DIMS[1:])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("offset", [(0, 0, 0), (-1, 0, -1), (3, -2, 1), (16, 0, 0)])
-def test_k1_k2_match_plain_on_card(cuda_device, offset):
-    """K1/K2 at a ragged size, incl. views whose addresses differ mod 16."""
+@pytest.mark.parametrize("dims, offset", [((67, 45, 39), off) for off in ((0, 0, 0), (-1, 0, -1), (3, -2, 1),
+                                                                       (16, 0, 0))]
+                         + [((512, 512, 512), off) for off in ((0, 0, 0), (-1, 0, -1), (3, -2, 1))],
+                         ids=lambda x: "x".join(map(str, x)))
+def test_k1_k2_match_plain_on_card(cuda_device, dims, offset):
+    """K1/K2 at a ragged size and on two random 512^3 maps (the main path's
+    cycle), incl. views whose addresses differ mod 16."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    dims = (67, 45, 39)
     n = dims[0] * dims[1] * dims[2]
     a = torch.randint(-128, 128, (n,), dtype=torch.int8, device=cuda_device, generator=g)
     b = torch.randint(-128, 128, (n,), dtype=torch.int8, device=cuda_device, generator=g)
-    before = dict(collide_cuda.launches)
+    before = dict(kernels.launches)
     for t1, t2 in ((-120, 0), (0, 0), (100, -50), (127, 127)):
         got = collide_cuda.count_prob_prob(a, b, t1, t2, dims, offset)
         assert got.dtype == torch.int64 and got.device == a.device
@@ -102,36 +153,45 @@ def test_k1_k2_match_plain_on_card(cuda_device, offset):
     cnt, marked = collide_cuda.count_and_mark_prob(x, y, 0, 0)
     assert torch.equal(marked, collide_cuda.count_and_mark_prob_plain(x, y, 0, 0)[1])
     torch.cuda.synchronize()
-    assert collide_cuda.launches["count_prob_prob"] == before["count_prob_prob"] + 5
-    assert collide_cuda.launches["count_and_mark_prob"] == before["count_and_mark_prob"] + 5
+    assert kernels.launches["gv_count_prob_prob"] == before["gv_count_prob_prob"] + 5
+    assert kernels.launches["gv_count_and_mark_prob"] == before["gv_count_and_mark_prob"] + 5
 
 
 @pytest.mark.cuda
-def test_k3_matches_plain_on_card(cuda_device):
-    """K3 bit for bit against the plain version on the card."""
-    before = raycast_cuda.launches["projective_free_space_exact"]
-    for i, (depth, pose) in enumerate(_carve_scenes(cuda_device)):
-        got = raycast_cuda.projective_free_space_exact(depth, pose, 52.0, 52.0, 32.0, 24.0, 1.0, (64, 64, 64))
-        ref = raycast_cuda.projective_free_space_plain(depth, pose, 52.0, 52.0, 32.0, 24.0, 1.0, (64, 64, 64))
+@pytest.mark.parametrize("scene", ["small", "kinect"])
+def test_k3_matches_plain_on_card(cuda_device, scene):
+    """K3 bit for bit against the plain version on the card: the small
+    scenes, and the Kinect frame at the main path's 256^3 under three poses
+    and on a grid whose rows are ragged (dx = 250)."""
+    before = kernels.launches["gv_carve_exact"]
+    cases = list(_carve_cases(cuda_device, scene))
+    for i, (depth, pose, intr, side, dims) in enumerate(cases):
+        got = raycast_cuda.projective_free_space_exact(depth, pose, *intr, side, dims)
+        ref = raycast_cuda.projective_free_space_plain(depth, pose, *intr, side, dims)
         assert got.dtype == torch.bool and torch.equal(got, ref), i
+        assert scene == "small" or int(got.sum()) > 0, i
     torch.cuda.synchronize()
-    assert raycast_cuda.launches["projective_free_space_exact"] == before + 6
+    assert kernels.launches["gv_carve_exact"] == before + len(cases)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("z0", [0, 8, 40, 56])
-def test_k3_z_index_offset_matches_plain_on_card(cuda_device, z0):
+@pytest.mark.parametrize("scene, z0", [("small", 0), ("small", 8), ("small", 40), ("small", 56),
+                                       ("kinect", 0), ("kinect", 32), ("kinect", 224)])
+def test_k3_z_index_offset_matches_plain_on_card(cuda_device, scene, z0):
     """K3 on a z-slab of a larger grid (z_index_offset): bit for bit the
-    plain version with the same offset, and eight 8-deep slabs stacked equal
-    the whole 64^3 grid's mask."""
-    slab = (64, 64, 8)
-    for i, (depth, pose) in enumerate(_carve_scenes(cuda_device)):
-        args = (depth, pose, 52.0, 52.0, 32.0, 24.0, 1.0)
+    plain version with the same offset, and eight slabs stacked equal the
+    whole grid's mask (8-deep slabs of the small scenes' 64^3, 32-deep ones
+    of the Kinect frame's 256^3, the multi-device carve's)."""
+    for i, (depth, pose, intr, side, dims) in enumerate(_carve_cases(cuda_device, scene)):
+        if dims[0] == 250:
+            continue
+        slab = (*dims[:2], dims[2] // 8)
+        args = (depth, pose, *intr, side)
         got = raycast_cuda.projective_free_space_exact(*args, slab, z_index_offset=z0)
         assert torch.equal(got, raycast_cuda.projective_free_space_plain(*args, slab, z_index_offset=z0)), i
-        whole = raycast_cuda.projective_free_space_exact(*args, (64, 64, 64))
+        whole = raycast_cuda.projective_free_space_exact(*args, dims)
         stacked = torch.cat([raycast_cuda.projective_free_space_exact(*args, slab, z_index_offset=k)
-                             for k in range(0, 64, 8)])
+                             for k in range(0, dims[2], slab[2])])
         assert torch.equal(stacked, whole), i
 
 
@@ -154,7 +214,7 @@ def test_sharded_builders_match_single_device_on_card(cuda_device):
     rng = np.random.default_rng(3)
     pa = torch.tensor(rng.uniform(0, 64, (4000, 3)).astype(np.float32), device=cuda_device)
     pb = torch.cat([pa[:1500], torch.tensor(rng.uniform(0, 64, (2000, 3)).astype(np.float32), device=cuda_device)])
-    before = {k: dict(m.launches) for k, m in (("c", collide_cuda), ("r", raycast_cuda), ("e", edt_cuda))}
+    before = dict(kernels.launches)
     a = ProbVoxelMap.create(dims, device=cuda_device).insert_point_cloud(pa)
     b = ProbVoxelMap.create(dims, device=cuda_device).insert_point_cloud(pb)
     assert int(build_sharded_cycle(mesh, dims, 1.0, 0.5)(pa, pb)) == int(a.collide_with(b, 0.5)) > 0
@@ -181,10 +241,10 @@ def test_sharded_builders_match_single_device_on_card(cuda_device):
     assert rounds < 4096
     assert torch.equal(edt.squared_distance_grid(jfa, dims), edt.squared_distance_grid(fixpoint, dims))
     torch.cuda.synchronize()
-    assert collide_cuda.launches["count_prob_prob"] > before["c"]["count_prob_prob"]
-    assert collide_cuda.launches["count_bit_bit"] > before["c"]["count_bit_bit"]
-    assert raycast_cuda.launches["projective_free_space_exact"] > before["r"]["projective_free_space_exact"]
-    assert edt_cuda.launches["envelope_pass"] >= before["e"]["envelope_pass"] + 16
+    assert kernels.launches["gv_count_prob_prob"] > before["gv_count_prob_prob"]
+    assert kernels.launches["gv_count_bit_bit"] > before["gv_count_bit_bit"]
+    assert kernels.launches["gv_carve_exact"] > before["gv_carve_exact"]
+    assert kernels.launches["gv_envelope_pass"] >= before["gv_envelope_pass"] + 16
 
 
 @pytest.mark.cuda
@@ -208,13 +268,13 @@ def test_sharded_world_and_values_match_single_device_on_card(cuda_device):
     mesh = make_grid_mesh(8)
     a = BitVectorVoxelMap.create((64, 64, 64), device=cuda_device).insert_point_cloud(pts[:, :3] % 64, 40)
     b = BitVectorVoxelMap.create((64, 64, 64), device=cuda_device).insert_point_cloud(pts[::-1] % 64, 42)
-    before = collide_cuda.launches["collide_types_bit_bit"]
+    before = kernels.launches["gv_collide_types_bit_bit"]
     cnt, meanings, marked = shard_map_value(a, mesh).collide_with_types(b, 1.0, 5)
     w_cnt, w_meanings, w_marked = a.collide_with_types(b, 1.0, 5)
     assert int(cnt) == int(w_cnt) and torch.equal(meanings, w_meanings)
     assert_sharded(marked, mesh)
     assert torch.equal(marked.gather().data, w_marked.data)
-    assert collide_cuda.launches["collide_types_bit_bit"] == before + 9  # 8 slabs, then the single call
+    assert kernels.launches["gv_collide_types_bit_bit"] == before + 9  # 8 slabs, then the single call
 
 
 @pytest.mark.cuda
@@ -264,22 +324,53 @@ def _bit_fixture(n, seed, device):
     return (torch.tensor(a.view(np.int32), device=device), torch.tensor(b.view(np.int32), device=device))
 
 
+def _device_bit_fixture(n, seed, device):
+    """_bit_fixture's kind of maps drawn on the card, for lengths whose numpy
+    draw would cost host gigabytes: dense-random words zeroed per voxel with
+    p = 0.7, and the bit-0-only hazard voxel of a against an SV bit of b."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    maps = []
+    for _ in range(2):
+        w = torch.randint(-(2**31), 2**31 - 1, (8, n), dtype=torch.int32, device=device, generator=g)
+        maps.append(w * (torch.rand(n, device=device, generator=g) < 0.3))
+    a, b = maps
+    a[:, 5], b[:, 5] = 0, 0
+    a[0, 5] = 1
+    b[0, 5] = 1 << 6
+    return a, b
+
+
+def _k4_fixture(kind, seed, device):
+    """K4's maps: dense-random at a length that is no multiple of the block
+    ("ragged"), at 256^3 and 37 voxels short of it, and the sparse single
+    bits of tests/test_collide_pallas.py at 256^3 (density 0.002)."""
+    n = 256 ** 3
+    if kind == "ragged":
+        return _bit_fixture(100_003, seed, device)
+    if kind == "sparse":
+        return _hazard_maps(n, device)[0.002]
+    a, b = _device_bit_fixture(n, seed, device)
+    return (a, b) if kind == "256^3" else (a[:, :n - 37].contiguous(), b[:, :n - 37].contiguous())
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ragged", "256^3", "256^3-37", "sparse"])
 @pytest.mark.parametrize("margin", [0, 1, 4, 8, 24])
-def test_k4_matches_plain_on_card(cuda_device, margin):
+def test_k4_matches_plain_on_card(cuda_device, margin, kind):
     """K4 equals its plain version exactly on count, meanings and marked map,
-    at a length that is not a multiple of the block size."""
-    a, b = _bit_fixture(100_003, margin, cuda_device)
-    before = collide_cuda.launches["collide_types_bit_bit"]
+    on dense maps at a length that is not a multiple of the block size and
+    at 256^3, and on sparse maps (which may count nothing)."""
+    a, b = _k4_fixture(kind, margin, cuda_device)
+    before = kernels.launches["gv_collide_types_bit_bit"]
     for mark in (True, False):
         cnt, meanings, new = collide_cuda.collide_types_bit_bit(a, b, margin, mark)
         ref_c, ref_m, ref_new = collide_cuda.collide_types_bit_bit_plain(a, b, margin, mark)
         assert cnt.dtype == torch.int64 and meanings.dtype == torch.int32
-        assert int(cnt) == int(ref_c) > 0
+        assert int(cnt) == int(ref_c) and (kind == "sparse" or int(ref_c) > 0)
         assert torch.equal(meanings, ref_m) and torch.equal(new, ref_new)
         assert (new.data_ptr() != a.data_ptr()) == mark
     torch.cuda.synchronize()
-    assert collide_cuda.launches["collide_types_bit_bit"] == before + 2
+    assert kernels.launches["gv_collide_types_bit_bit"] == before + 2
 
 
 def _bit_list(keys, payload, count):
@@ -307,10 +398,10 @@ def test_k4_as_the_list_bit_check_on_ragged_lengths(cuda_device, c):
     a = _bit_list(mine, words(c), c)
     b = _bit_list(theirs, words(theirs.numel()), theirs.numel())
     for margin in (0, 1, 24):
-        before = collide_cuda.launches["collide_types_bit_bit"]
+        before = kernels.launches["gv_collide_types_bit_bit"]
         got = a.collide_with_bitcheck(b, margin)
         torch.cuda.synchronize()
-        assert collide_cuda.launches["collide_types_bit_bit"] == before + (c > 0)
+        assert kernels.launches["gv_collide_types_bit_bit"] == before + (c > 0)
         mask, partner = a.find_matching(b)
         hit, _ = bitops.bit_margin_collision_check_packed(a.payload, torch.where(mask[None, :], partner, 0), margin)
         want = int((hit & mask).sum())
@@ -347,11 +438,11 @@ def _k4_gated_against_plain(a, b, margin, occ_a, occ_b, b_valid=None):
         hit, _ = bitops.bit_margin_collision_check_packed(a, b, margin)
         assert not bool((hit & ~live).any())
     ref_c, ref_m, ref_new = collide_cuda.collide_types_bit_bit_plain(a, b, margin, True, b_valid=b_valid)
-    before = collide_cuda.launches["collide_types_bit_bit"]
+    before = kernels.launches["gv_collide_types_bit_bit"]
     got = [collide_cuda.collide_types_bit_bit(a, b, margin, mark, occ_a, occ_b, b_valid=b_valid)
            for mark in (True, False)]
     torch.cuda.synchronize()
-    assert collide_cuda.launches["collide_types_bit_bit"] == before + 2
+    assert kernels.launches["gv_collide_types_bit_bit"] == before + 2
     for (cnt, meanings, new), mark in zip(got, (True, False)):
         assert int(cnt) == int(ref_c) and torch.equal(meanings, ref_m), (margin, mark)
         assert torch.equal(new, ref_new if mark else a), (margin, mark)
@@ -375,8 +466,9 @@ def test_k4_gated_matches_plain_on_card(cuda_device, n, density):
 
 @pytest.mark.cuda
 def test_k4_gated_on_conservative_dead_and_misaligned_summaries(cuda_device):
-    """A summary of ones, all-dead maps, summaries one byte off a 16-byte
-    boundary and a list's match mask (alone and with summaries) at 256^3."""
+    """A summary of ones, the maps' own summaries, all-dead maps, summaries
+    one byte off a 16-byte boundary and a list's match mask (alone and with
+    summaries) at 256^3."""
     from gpu_voxels_tpu_torch import bitops
 
     n = 256 ** 3
@@ -384,6 +476,7 @@ def test_k4_gated_on_conservative_dead_and_misaligned_summaries(cuda_device):
     occ = lambda x: bitops.occupied(x).to(torch.uint8)  # noqa: E731
     ones, dead = torch.ones(n, dtype=torch.uint8, device=cuda_device), torch.zeros_like(a)
     assert _k4_gated_against_plain(a, b, 5, ones, ones) > 0
+    assert _k4_gated_against_plain(a, b, 5, occ(a), occ(b)) > 0
     assert _k4_gated_against_plain(a, b, 5, None, None) > 0  # ungated
     assert _k4_gated_against_plain(dead, b, 8, occ(dead), occ(b)) == 0
     assert _k4_gated_against_plain(a, dead, 8, occ(a), occ(dead)) == 0
@@ -393,6 +486,7 @@ def test_k4_gated_on_conservative_dead_and_misaligned_summaries(cuda_device):
     ref_c, ref_m, _ = collide_cuda.collide_types_bit_bit_plain(a, b, 5, False, b_valid=valid)
     cnt, meanings, _ = collide_cuda.collide_types_bit_bit(a, b, 5, False, b_valid=valid)
     assert int(cnt) == int(ref_c) > 0 and torch.equal(meanings, ref_m)
+    assert _k4_gated_against_plain(a, b, 5, None, None, valid) > 0
     assert _k4_gated_against_plain(a, b, 4, occ(a), occ(b), valid) > 0
     with pytest.raises(ValueError):  # a summary of another length
         collide_cuda.collide_types_bit_bit(a, b, 0, True, ones[1:], ones)
@@ -431,17 +525,19 @@ def test_k4_raises_on_inputs_it_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims", [(64, 32, 20), (67, 45, 39)], ids=["n%4==0", "ragged-n"])
+@pytest.mark.parametrize("dims", [(64, 32, 20), (67, 45, 39), (256, 256, 256), (512, 512, 512)],
+                         ids=["n%4==0", "ragged-n", "256^3", "512^3"])
 def test_k7_matches_plain_on_card(cuda_device, dims):
     """K7 equals the plane fold exactly over offsets: those that keep both
     slices at one address mod 16 (the vector variant), those that do not, and
-    a ragged N (the scalar variant); the eBVM_FREE-only voxel never counts."""
+    a ragged N (the scalar variant), up to a pair of 512^3 maps (8.6 GB of
+    planes); the eBVM_FREE-only voxel never counts."""
     n = dims[0] * dims[1] * dims[2]
-    a, b = _bit_fixture(n, 11, cuda_device)
+    a, b = _bit_fixture(n, 11, cuda_device) if n < 2**24 else _device_bit_fixture(n, 11, cuda_device)
     b[0, 5] = 1  # both sides hold only bit 0 of plane 0 at voxel 5
     a[:, 9], b[:, 9] = 0, 0
     a[7, 9], b[7, 9] = -(2**31), -(2**31)  # only bit 31 of plane 7: counts
-    before = collide_cuda.launches["count_bit_bit"]
+    before = kernels.launches["gv_count_bit_bit"]
     offsets = [(0, 0, 0), (4, 0, 0), (-8, 1, 0), (1, 0, 0), (3, -2, 1), (-1, 0, -1), (0, 0, dims[2] - 1)]
     for off in offsets:
         got = collide_cuda.count_bit_bit(a, b, dims, off)
@@ -454,7 +550,7 @@ def test_k7_matches_plain_on_card(cuda_device, dims):
     one[3, 0] = 1
     assert int(collide_cuda.count_bit_bit(one, one)) == 1
     torch.cuda.synchronize()
-    assert collide_cuda.launches["count_bit_bit"] == before + len(offsets) + 4
+    assert kernels.launches["gv_count_bit_bit"] == before + len(offsets) + 4
 
 
 @pytest.mark.cuda
@@ -482,15 +578,15 @@ def test_raw_plane_maps_collide_through_k7(cuda_device):
     a, b = _bit_fixture(dims[0] * dims[1] * dims[2], 12, cuda_device)
     raw_a, raw_b = BitVectorVoxelMap(a, dims, 1.0), BitVectorVoxelMap(b, dims, 1.0)
     sum_a, sum_b = BitVectorVoxelMap.from_planes(a, dims), BitVectorVoxelMap.from_planes(b, dims)
-    before = collide_cuda.launches["count_bit_bit"]
+    before = kernels.launches["gv_count_bit_bit"]
     for off in ((0, 0, 0), (2, -1, 1)):
         expect = int(sum_a.collide_with(sum_b, offset=off))
-        assert collide_cuda.launches["count_bit_bit"] == before
+        assert kernels.launches["gv_count_bit_bit"] == before
         assert int(raw_a.collide_with(raw_b, offset=off)) == expect > 0
         assert int(raw_a.collide_with(sum_b, offset=off)) == expect
         assert int(sum_a.collide_with(raw_b, offset=off)) == expect
         before += 3
-    assert collide_cuda.launches["count_bit_bit"] == before
+    assert kernels.launches["gv_count_bit_bit"] == before
 
 
 def k6_frames():
@@ -530,14 +626,31 @@ def edge_frame():
     return depth
 
 
+def k6_kinect_frames():
+    """The pool's frames at the Kinect's 640x480: the frame, one cropped to
+    479x638 (neither side a multiple of 2, 4, 7 or 8), and one with NaN,
+    -inf and +inf pixels beside its invalid patch (a pooled cell with a NaN
+    pixel is NaN and carves nothing; a cell of +inf pixels carves up to the
+    frame)."""
+    frame = _kinect_frame()
+    special = _kinect_frame(seed=3)
+    rng = np.random.default_rng(3)
+    for value, share in ((np.nan, 0.002), (-np.inf, 0.002), (np.inf, 0.01)):
+        special[rng.random(special.shape) < share] = value
+    special[400:416, 560:576] = np.inf  # four whole cells at P = 8
+    special[200:203, 100:140] = np.nan  # a NaN band across cells
+    return {"frame": frame, "cropped": np.ascontiguousarray(frame[:479, :638]), "special": special}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("size", ["small", "kinect"])
 @pytest.mark.parametrize("pool", [1, 2, 4, 7, 8])
-def test_k6_pool_matches_plain_on_card(cuda_device, pool):
+def test_k6_pool_matches_plain_on_card(cuda_device, pool, size):
     """K6's pool kernel against the plain min-pool, bit pattern for bit
     pattern (a NaN cell equals a NaN cell), for invalid values 0, NaN and one
-    that occurs in the frame."""
-    before = raycast_cuda.launches["min_pool_depth"]
-    frames = k6_frames()
+    that occurs in the frame, on 64x48 frames and on the Kinect's 640x480."""
+    before = kernels.launches["gv_min_pool_depth"]
+    frames = k6_frames() if size == "small" else k6_kinect_frames()
     for name, frame in frames.items():
         depth = torch.tensor(frame, device=cuda_device)
         for invalid in (0.0, float("nan"), float(frame[3, 3])):
@@ -546,11 +659,63 @@ def test_k6_pool_matches_plain_on_card(cuda_device, pool):
             assert got.dtype == torch.float32 and got.shape == ref.shape, (name, invalid)
             assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), (name, invalid)
     torch.cuda.synchronize()
-    assert raycast_cuda.launches["min_pool_depth"] == before + 3 * len(frames)
+    assert kernels.launches["gv_min_pool_depth"] == before + 3 * len(frames)
 
 
-def _k6_cases(dev):
-    """(depth, pose, intrinsics, side, dims) of K6's card tests."""
+# The Kinect-size edge-aligned camera: at the centre of a 256^3 grid's z = 0
+# face, 0.25 m voxels, fx = fy = 840 for the 640x480 frame: with c = 128,
+# wx = (x - c) * 0.25 and sz = z * 0.25 hold exactly, so u = 320 + 840 *
+# (x - c) / z (v likewise) is an integer wherever z divides 840 * (x - c):
+# onto pooled-cell corners (u, v in P * Z) and onto the image's edges (z = 21:
+# u = 0 at x = c - 8, u = 640 at x = c + 8; z = 7: v = 0 at y = c - 2, v = 480
+# at y = c + 2).
+KINECT_EDGE_INTR, KINECT_EDGE_SIDE = (840.0, 840.0, 320.0, 240.0), 0.25
+
+
+def kinect_edge_pose() -> np.ndarray:
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [128.5 * KINECT_EDGE_SIDE, 128.5 * KINECT_EDGE_SIDE, 0.5 * KINECT_EDGE_SIDE]
+    return pose
+
+
+def _edge_projections(dev, pose, intr, side, dims, h, w) -> dict:
+    """How many in-front voxel centres of an edge-aligned pose project exactly
+    onto a pooled-cell corner at each P (u and v both in P * Z, inside the
+    image) and onto each edge of the image (u = w and v = h lie just outside
+    it)."""
+    from gpu_voxels_tpu_torch.ops import raycast
+
+    dx, dy, dz = dims
+    _, u, v, _ = raycast._project(dev, torch.tensor(pose, device=dev), *intr, side, dims, h, w)
+    u, v = u.reshape(-1), v.reshape(-1)
+    x = torch.arange(dx, device=dev).view(1, 1, dx) - dx // 2
+    y = torch.arange(dy, device=dev).view(1, dy, 1) - dy // 2
+    z = torch.arange(dz, device=dev).view(dz, 1, 1)
+    fx, fy = int(intr[0]), int(intr[1])
+    # u and v integers in exact arithmetic, in front of the camera
+    on_pixel = ((z > 0) & (fx * x % z.clamp(min=1) == 0) & (fy * y % z.clamp(min=1) == 0)).reshape(-1)
+    inside = (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    counts = {f"corners P={p}": int((on_pixel & inside & (u % p == 0) & (v % p == 0)).sum()) for p in (2, 4, 7, 8)}
+    for name, hit in (("u = 0", u == 0), (f"u = {w}", u == w), ("v = 0", v == 0), (f"v = {h}", v == h)):
+        counts[name] = int((on_pixel & hit).sum())
+    return counts
+
+
+def _k6_cases(dev, size="small"):
+    """(depth, pose, intrinsics, side, dims) of K6's card tests: the small
+    scenes at 64^3, or the Kinect frame at 256^3 under its three poses."""
+    if size == "kinect":
+        frames = {name: torch.tensor(f, device=dev) for name, f in k6_kinect_frames().items()}
+        poses = {name: torch.tensor(p, device=dev) for name, p in _kinect_poses().items()}
+        for pose in poses.values():
+            yield frames["frame"], pose, KINECT_INTR, KINECT_SIDE, KINECT_DIMS
+        yield frames["frame"], poses["inside"], KINECT_INTR, KINECT_SIDE, (250, *KINECT_DIMS[1:])
+        yield frames["cropped"], poses["tilted"], KINECT_INTR, KINECT_SIDE, KINECT_DIMS
+        yield frames["special"], poses["bench"], KINECT_INTR, KINECT_SIDE, KINECT_DIMS
+        # 32, 20 and 14.4 m planes: the 64 m grid carves
+        yield frames["frame"] * 8.0, torch.tensor(kinect_edge_pose(), device=dev), KINECT_EDGE_INTR, \
+            KINECT_EDGE_SIDE, KINECT_DIMS
+        return
     for depth, pose in _carve_scenes(dev):
         yield depth, pose, (52.0, 52.0, 32.0, 24.0), 1.0, (64, 64, 64)
     frames = {name: torch.tensor(f, device=dev) for name, f in k6_frames().items()}
@@ -563,13 +728,20 @@ def _k6_cases(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("size", ["small", "kinect"])
 @pytest.mark.parametrize("pool", [2, 4, 7, 8])
-def test_k6_matches_plain_on_card(cuda_device, pool):
+def test_k6_matches_plain_on_card(cuda_device, pool, size):
     """K6 (pool, then carve) bit for bit against the plain pooled carve, and
     inside K3's mask: the carve scenes, a ragged grid (dx = 250), a cropped
-    frame, a frame with NaN and infinities, and the edge-aligned pose."""
-    before = raycast_cuda.launches["projective_free_space_pooled"]
-    cases = list(_k6_cases(cuda_device))
+    frame, a frame with NaN and infinities, and the edge-aligned pose, on
+    64x48 frames into 64^3 and on the Kinect's 640x480 into 256^3 (whose
+    edge-aligned pose must meet the edges it is there for)."""
+    if size == "kinect":
+        counts = _edge_projections(cuda_device, kinect_edge_pose(), KINECT_EDGE_INTR, KINECT_EDGE_SIDE,
+                                   KINECT_DIMS, 480, 640)
+        assert all(v > 0 for v in counts.values()), counts
+    before = kernels.launches["gv_carve_pooled"]
+    cases = list(_k6_cases(cuda_device, size))
     for i, (depth, pose, intr, side, dims) in enumerate(cases):
         args = (depth, pose, *intr, side, dims)
         got = raycast_cuda.projective_free_space_pooled(*args, pool=pool)
@@ -578,34 +750,39 @@ def test_k6_matches_plain_on_card(cuda_device, pool):
         assert not bool((got & ~raycast_cuda.projective_free_space_exact(*args)).any()), i
         assert int(got.sum()) > 0, i
     torch.cuda.synchronize()
-    assert raycast_cuda.launches["projective_free_space_pooled"] == before + len(cases)
+    assert kernels.launches["gv_carve_pooled"] == before + len(cases)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["small", "kinect"])
 @pytest.mark.parametrize("pool", [2, 4, 7, 8])
-def test_k6_z_index_offset_matches_plain_on_card(cuda_device, pool):
-    """K6 on a z-slab of a larger grid: at offsets 0, 8, 40 and 56 bit for
-    bit the plain version with the same offset (the wrapper and the carve
-    against a prebuilt table), offset 0 equal to the call without one, and
-    eight 8-deep slabs against one table stacked equal the whole 64^3
-    grid's mask; one carve launch a slab."""
-    slab = (64, 64, 8)
-    for i, (depth, pose) in enumerate(_carve_scenes(cuda_device)):
-        args = (depth, pose, 52.0, 52.0, 32.0, 24.0, 1.0)
+def test_k6_z_index_offset_matches_plain_on_card(cuda_device, pool, scene):
+    """K6 on a z-slab of a larger grid: bit for bit the plain version with
+    the same offset (the wrapper and the carve against a prebuilt table),
+    offset 0 equal to the call without one, and eight slabs against one
+    table stacked equal the whole grid's mask, one carve launch a slab:
+    8-deep slabs of the small scenes' 64^3 at offsets 0, 8, 40 and 56, and
+    32-deep ones of the Kinect frame's 256^3 at 0, 32 and 224."""
+    for i, (depth, pose, intr, side, dims) in enumerate(_carve_cases(cuda_device, scene)):
+        if dims[0] == 250:
+            continue
+        slab = (*dims[:2], dims[2] // 8)
+        args = (depth, pose, *intr, side)
         table = raycast_cuda.min_pool_depth(depth, pool)
-        on_table = (table, pool, depth.shape, pose, 52.0, 52.0, 32.0, 24.0, 1.0, slab)
-        for z0 in (0, 8, 40, 56):
+        on_table = (table, pool, depth.shape, pose, *intr, side, slab)
+        for z0 in ((0, 8, 40, 56) if scene == "small" else (0, 32, 224)):
             ref = raycast_cuda.projective_free_space_pooled_plain(*args, slab, pool=pool, z_index_offset=z0)
             assert torch.equal(raycast_cuda.projective_free_space_pooled(*args, slab, pool=pool, z_index_offset=z0),
                                ref), (i, z0)
             assert torch.equal(raycast_cuda.carve_against_pooled(*on_table, z_index_offset=z0), ref), (i, z0)
         assert torch.equal(raycast_cuda.carve_against_pooled(*on_table), raycast_cuda.carve_against_pooled(
             *on_table, z_index_offset=0)), i
-        whole = raycast_cuda.projective_free_space_pooled(*args, (64, 64, 64), pool=pool)
-        before = raycast_cuda.launches["projective_free_space_pooled"]
-        stacked = torch.cat([raycast_cuda.carve_against_pooled(*on_table, z_index_offset=k) for k in range(0, 64, 8)])
+        whole = raycast_cuda.projective_free_space_pooled(*args, dims, pool=pool)
+        before = kernels.launches["gv_carve_pooled"]
+        stacked = torch.cat([raycast_cuda.carve_against_pooled(*on_table, z_index_offset=k)
+                             for k in range(0, dims[2], slab[2])])
         assert torch.equal(stacked, whole) and int(whole.sum()) > 0, i
-        assert raycast_cuda.launches["projective_free_space_pooled"] == before + 8
+        assert kernels.launches["gv_carve_pooled"] == before + 8
     with pytest.raises(ValueError, match="2\\^24"):
         raycast_cuda.carve_against_pooled(*on_table, z_index_offset=2**24)
 
@@ -635,11 +812,11 @@ def test_sharded_dense_forms_match_single_device_on_card(cuda_device, tmp_path):
         assert_sharded(got, mesh)
         return torch.equal(got.gather().data, want.data)
 
-    for pool, kernel in ((1, "projective_free_space_exact"), (8, "projective_free_space_pooled")):
-        before = dict(raycast_cuda.launches)
+    for pool, kernel in ((1, "gv_carve_exact"), (8, "gv_carve_pooled")):
+        before = dict(kernels.launches)
         got = sharded.insert_depth_image(frame, sensor, carve_pool=pool)
-        assert raycast_cuda.launches[kernel] == before[kernel] + 8
-        assert raycast_cuda.launches["min_pool_depth"] == before["min_pool_depth"] + (pool > 1)
+        assert kernels.launches[kernel] == before[kernel] + 8
+        assert kernels.launches["gv_min_pool_depth"] == before["gv_min_pool_depth"] + (pool > 1)
         assert same(got, single.insert_depth_image(frame, sensor, carve_pool=pool)), pool
     rays = sensor.process_depth_image(frame, device=cuda_device)
     assert same(sharded.insert_sensor_data(rays, sensor_origin=sensor.position),
@@ -648,20 +825,20 @@ def test_sharded_dense_forms_match_single_device_on_card(cuda_device, tmp_path):
     a = single.insert_point_cloud(pa)
     b = single.insert_point_cloud(torch.cat([pa[:5000] + 0.05, pa[5000:9000]]))
     for off in ((0, 0, 0), (1, -2, 17), (-3, 0, -40)):
-        before = collide_cuda.launches["count_and_mark_prob"]
+        before = kernels.launches["gv_count_and_mark_prob"]
         cnt, marked = shard_map_value(a, mesh).collide_with_marking(b, 0.5, off)
         w_cnt, w_marked = a.collide_with_marking(b, 0.5, off)
         assert int(cnt) == int(w_cnt) > 0 and same(marked, w_marked), off
-        assert collide_cuda.launches["count_and_mark_prob"] > before + 8 - (off == (0, 0, 0))
+        assert kernels.launches["gv_count_and_mark_prob"] > before + 8 - (off == (0, 0, 0))
     meta = MetaPointCloud.from_clouds([pa[:3000].cpu().numpy(), pa[2000:6000].cpu().numpy()], device=cuda_device)
     bits = BitVectorVoxelMap.create(dims, 0.05, device=cuda_device)
     got, ok = shard_map_value(bits, mesh).insert_robot_configuration(meta, True)
     w_map, w_ok = bits.insert_robot_configuration(meta, True)
     assert same(got, w_map) and torch.equal(got.gather().occ, w_map.occ) and bool(ok) == bool(w_ok) is False
     dist = DistanceVoxelMap.create(dims, 0.05, device=cuda_device).insert_point_cloud(pa[:300])
-    before = edt_cuda.launches["envelope_pass"]
+    before = kernels.launches["gv_envelope_pass"]
     field = shard_map_value(dist, mesh).jump_flood()
-    assert edt_cuda.launches["envelope_pass"] == before + 16
+    assert kernels.launches["gv_envelope_pass"] == before + 16
     want = dist.jump_flood()
     assert same(field, want) and torch.equal(field.min_distance_to(pa[9000:]), want.min_distance_to(pa[9000:]))
     assert torch.equal(field.extract_distances(), want.extract_distances())
@@ -683,8 +860,30 @@ ENVELOPE_SHAPES = {
 }
 
 
+def _flood_grids(kind, device):
+    """The Y pass's input in the EDT at 256^3 (a 250 x 200 x 130 grid for
+    "flood-ragged"): PBA phase 1 (edt_envelope.flood_z) of 2,500 random
+    obstacles (BASELINE #4's density), none, one at the centre, half the
+    voxels, or 1,500 obstacles."""
+    from gpu_voxels_tpu_torch.ops import edt
+
+    dims = (250, 200, 130) if kind == "flood-ragged" else (256, 256, 256)
+    n = dims[0] * dims[1] * dims[2]
+    g = torch.Generator(device=device).manual_seed(1234)
+    mask = torch.zeros(n, dtype=torch.bool, device=device)
+    if kind in ("flood-random", "flood-ragged"):
+        mask[torch.randint(0, n, (2500 if kind == "flood-random" else 1500,), device=device, generator=g)] = True
+    elif kind == "flood-single":
+        mask[(dims[2] // 2 * dims[1] + dims[1] // 2) * dims[0] + dims[0] // 2] = True
+    elif kind == "flood-dense50":
+        mask = torch.rand(n, device=device, generator=g) < 0.5
+    return edt_envelope.flood_z(edt.init_from_obstacle_mask(mask, dims), dims)
+
+
 def _envelope_grids(kind, device):
     """int32 g (MISS = no site) and payloads; small values make many ties."""
+    if kind.startswith("flood"):
+        return _flood_grids(kind, device)
     rng = np.random.default_rng(5)
     shape = ENVELOPE_SHAPES.get(kind, (6, 64, 40))
     g = rng.integers(0, 40, shape).astype(np.int32)
@@ -703,17 +902,22 @@ def _envelope_grids(kind, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["random", "ties", "empty", "ragged", "dense", "dense-zero", "n1024-y", "n1024-x",
-                                  "n1-y", "n1-x"])
+                                  "n1-y", "n1-x", "flood-random", "flood-empty", "flood-single", "flood-dense50",
+                                  "flood-ragged"])
 def test_k5_matches_plain_on_card(cuda_device, kind):
-    """K5 equals the plain envelope on distances and payloads, along Y and X."""
+    """K5 equals the plain envelope on distances and payloads, along Y and X;
+    on the EDT's own inputs ("flood-*") the X pass takes the Y pass's
+    output, as the EDT does."""
     g, pay = _envelope_grids(kind, cuda_device)
-    before = edt_cuda.launches["envelope_pass"]
+    before = kernels.launches["gv_envelope_pass"]
     for axis in (1, 2):
         d, p = edt_cuda.envelope_pass(g, pay, axis)
         ref_d, ref_p = edt_cuda.envelope_pass_plain(g, pay, axis)
         assert d.dtype == torch.int32 and torch.equal(d, ref_d) and torch.equal(p, ref_p), axis
+        if kind.startswith("flood"):
+            g, pay = ref_d, ref_p
     torch.cuda.synchronize()
-    assert edt_cuda.launches["envelope_pass"] == before + 2
+    assert kernels.launches["gv_envelope_pass"] == before + 2
 
 
 @pytest.mark.cuda
@@ -793,11 +997,11 @@ def test_hierarchical_fusion_runs_k3_k6_and_matches_plain(cuda_device, monkeypat
             m = m.insert_depth_image(f, sensor, carve_pool=pool)
         return m
 
-    name = "projective_free_space_exact" if pool == 1 else "projective_free_space_pooled"
-    before = raycast_cuda.launches[name]
+    name = "gv_carve_exact" if pool == 1 else "gv_carve_pooled"
+    before = kernels.launches[name]
     card = fuse(cuda_device)
     torch.cuda.synchronize()
-    assert raycast_cuda.launches[name] == before + 2
+    assert kernels.launches[name] == before + 2
     cpu = fuse("cpu")
     monkeypatch.setattr(raycast_cuda, "projective_free_space_exact", raycast_cuda.projective_free_space_plain)
     monkeypatch.setattr(raycast_cuda, "projective_free_space_pooled", raycast_cuda.projective_free_space_pooled_plain)
@@ -947,12 +1151,12 @@ def test_sharded_hierarchy_fusion_runs_k3_k6_per_slab(cuda_device, kind):
     frame[100:140, 200:260] = 0.0
     single = cls.create((512, 512, 512), 0.01, device=cuda_device)
     sharded = shard_map_value(single, mesh)
-    sense = {} if kind == "bit" else {"depth_hits": 8, "log_odds_update": 8}
-    for pool, want_launches in ((1, {"projective_free_space_exact": 8, **sense}),
-                                (8, {"projective_free_space_pooled": 8, "min_pool_depth": 1, **sense})):
-        before = dict(raycast_cuda.launches)
+    sense = {} if kind == "bit" else {"gv_depth_hits": 8, "gv_log_odds_update": 8}
+    for pool, want_launches in ((1, {"gv_carve_exact": 8, **sense}),
+                                (8, {"gv_carve_pooled": 8, "gv_min_pool_depth": 1, **sense})):
+        before = dict(kernels.launches)
         got = sharded.insert_depth_image(frame, Posed(), carve_pool=pool)
-        ran = {name: n - before[name] for name, n in raycast_cuda.launches.items() if n != before[name]}
+        ran = {name: n - before[name] for name, n in kernels.launches.items() if n != before[name]}
         assert ran == want_launches, (pool, ran)
         want = single.insert_depth_image(frame, Posed(), carve_pool=pool)
         assert_sharded(got, mesh)

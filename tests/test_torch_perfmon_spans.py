@@ -156,10 +156,10 @@ def test_annotated_spans_lie_in_the_profiler_trace_in_order(tmp_path):
 
 @pytest.mark.parametrize("site, want", [
     ("insert_depth_image", ["sense", "sense.upload", "sense.hits", "sense.carve", "sense.update"]),
-    ("transformed_clouds_for", ["robot.fk", "robot.chain", "robot.transform"]),
+    ("transformed_clouds_for", ["robot.fk", "robot.chain"]),
     ("maps", ["maps.create", "maps.insert", "maps.collide", "maps.create", "maps.insert", "maps.collide"]),
     ("check_motion", ["validity.check_motion", "validity.states", "validity.count", "robot.fk", "robot.chain",
-                      "robot.transform", "validity.gather", "validity.distinct", "validity.read"]),
+                      "validity.gather", "validity.distinct", "validity.read"]),
     ("distance", ["distance.merge", "distance.edt", "distance.flood_z", "distance.envelope", "distance.envelope",
                   "distance.query"]),
     ("solve", ["plan.solve", "validity.count", "validity.read", "validity.count", "validity.read",

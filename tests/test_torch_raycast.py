@@ -295,7 +295,7 @@ def test_depth_hits_and_log_odds_update_on_the_cpu_take_the_plain_path(case, mon
         raise AssertionError("CPU tensors must not load the kernel library")
 
     monkeypatch.setattr(kernels, "library", no_library)
-    before = {k: raycast_cuda.launches[k] for k in ("depth_hits", "log_odds_update")}
+    before = {k: kernels.launches[k] for k in ("gv_depth_hits", "gv_log_odds_update")}
     scene = {"z_offset": "noise_axis", "robot": "step_tilted", "all_invalid": "step_axis"}.get(case, case)
     depth, pose = _scenes()[scene]
     if case == "all_invalid":
@@ -327,4 +327,4 @@ def test_depth_hits_and_log_odds_update_on_the_cpu_take_the_plain_path(case, mon
         if robot is not None:
             assert bool((hits > 0)[robot].any()) and torch.equal(got[robot], trc.log_odds_update(
                 data, torch.zeros_like(hits), free)[robot]), "the robot's voxels take no hits"
-    assert {k: raycast_cuda.launches[k] for k in before} == before == {"depth_hits": 0, "log_odds_update": 0}
+    assert {k: kernels.launches[k] for k in before} == before == {"gv_depth_hits": 0, "gv_log_odds_update": 0}

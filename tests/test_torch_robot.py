@@ -394,8 +394,8 @@ def test_chain_fk_on_the_cpu_takes_the_plain_path(case, monkeypatch):
     of [L] and [T, L] joint values, a prismatic joint and clouds on a strict
     subset of the links against a float64 oracle (and, unbatched, the
     reference), link_matrices equal to dh_chain_plain, set_configuration
-    equal to transformed_clouds_for; and the wrappers' argument checks raise
-    without a card."""
+    equal to transformed_clouds_for; and the card route's argument checks
+    (`_checked`, `_checked_points`) raise without a card."""
     from gpu_voxels_tpu_torch.robot import dh_cuda
     from gpu_voxels_tpu_torch.utils import kernels
 
@@ -403,7 +403,7 @@ def test_chain_fk_on_the_cpu_takes_the_plain_path(case, monkeypatch):
         raise AssertionError("a CPU chain must not load the kernel library")
 
     monkeypatch.setattr(kernels, "library", no_library)
-    before = dict(dh_cuda.launches)
+    before = dict(kernels.launches)
     arm = _fk_arm(case)
     params, types, cloud_link = arm._table
     assert params.dtype == torch.float32 and types.dtype == torch.int32 and cloud_link.dtype == torch.int32
@@ -414,28 +414,27 @@ def test_chain_fk_on_the_cpu_takes_the_plain_path(case, monkeypatch):
         vals = torch.zeros((2, 7))
         bad = [
             ((vals.double(), params, types, cloud_link), "float32"),
-            ((vals[0], params, types, cloud_link), r"\[T, L\]"),
             ((vals[:, :3].contiguous(), params, types, cloud_link), "params .* \\[3, 4\\]"),
-            ((vals.T.contiguous().T, params, types, cloud_link), "values"),
             ((vals, params[:, :3].contiguous(), types, cloud_link), "params"),
             ((vals, params, types.long(), cloud_link), "joint_types"),
             ((vals, params, types, cloud_link.long()), "cloud_link"),
             ((vals, params, types, cloud_link[:0]), "C >= 1"),
             ((torch.zeros((2, 65)), torch.zeros((65, 4)), torch.zeros(65, dtype=torch.int32), cloud_link), "1 to 64"),
+            ((torch.zeros(()), params, types, cloud_link), "1 to 64"),
             ((vals.numpy()[0].astype(np.float64), params, types, cloud_link), "host values"),
             ((vals.numpy(), params, types, cloud_link), "host values"),
-            ((vals.numpy()[0], params, types, cloud_link), "on a CUDA device"),
-            ((vals, params, types, cloud_link), "on a CUDA device"),
+            ((vals, params.to("meta"), types, cloud_link), "values must be on meta"),
         ]
-        for args, msg in bad:
+        for args, msg in bad:  # the card's checks; a CPU table takes the plain versions
             with pytest.raises(ValueError, match=msg):
-                dh_cuda.dh_chain(*args)
-            with pytest.raises(ValueError, match=msg):
-                dh_cuda.dh_fk_points(*args, pc, pts)
+                dh_cuda._checked(*args)
         for more, msg in [((pc.long(), pts), "point_cloud"), ((pc[None], pts), r"\[P\]"),
                           ((pc, pts.T.contiguous().T), "points"), ((pc, pts[:-1]), "points")]:
             with pytest.raises(ValueError, match=msg):
-                dh_cuda.dh_fk_points(vals, params, types, cloud_link, *more)
+                dh_cuda._checked_points(*more, params.device)
+        flat, t, n, c = dh_cuda._checked(torch.zeros((3, 4, 7)).transpose(0, 1), params, types, cloud_link)
+        assert flat.shape == (12, 7) and flat.is_contiguous() and (t, n, c) == (12, 7, 7)
+        assert dh_cuda._checked(vals.numpy()[0], params, types, cloud_link)[1:] == (1, 7, 7)
     elif case == "set_configuration":
         cfg = {n: float(v) for n, v in zip(arm.link_names, rng.uniform(-2, 2, 7))}
         arm.set_configuration(cfg)
@@ -462,4 +461,29 @@ def test_chain_fk_on_the_cpu_takes_the_plain_path(case, monkeypatch):
             jarm = jpresets.ur_robot("ur10", 0.05)
             np.testing.assert_allclose(got.numpy(), np.asarray(jarm.transformed_clouds_for(jnp.asarray(vals)).points),
                                        **FK_TOL)
-    assert dh_cuda.launches == before
+    assert kernels.launches == before
+
+
+@pytest.mark.parametrize("shape", [(7,), (5, 7), (2, 3, 7)], ids=["L", "T,L", "A,B,L"])
+def test_dh_wrappers_on_cpu_equal_the_plain_route_bit_for_bit(shape, monkeypatch):
+    """On a CPU table `dh_chain` and `dh_fk_points` are the route a CPU chain
+    took before they routed it: dh_chain_plain, then the clouds' batched
+    transform (MetaPointCloud.transformed_per_cloud), bit for bit, at the
+    batch shape given; and they launch nothing and never load the library."""
+    from gpu_voxels_tpu_torch.robot import dh_cuda
+    from gpu_voxels_tpu_torch.utils import kernels
+
+    def no_library():
+        raise AssertionError("a CPU table must not load the kernel library")
+
+    monkeypatch.setattr(kernels, "library", no_library)
+    before = dict(kernels.launches)
+    arm = _fk_arm("prismatic")
+    vals = torch.from_numpy(np.random.default_rng(22).uniform(-np.pi, np.pi, shape).astype(np.float32))
+    mats = dh_cuda.dh_chain_plain(vals, *arm._table)
+    assert torch.equal(dh_cuda.dh_chain(vals, *arm._table), mats)
+    pts = dh_cuda.dh_fk_points(vals, *arm._table, arm._point_cloud, arm.clouds.points)
+    assert pts.shape == shape[:-1] + (arm.clouds.accumulated_size, 3)
+    assert torch.equal(pts, arm.clouds.transformed_per_cloud(mats).points)
+    assert torch.equal(arm.transformed_clouds_for(vals).points, pts) and torch.equal(arm.link_matrices(vals), mats)
+    assert kernels.launches == before

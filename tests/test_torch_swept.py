@@ -38,6 +38,7 @@ from gpu_voxels_tpu_torch.ops import raycast
 from gpu_voxels_tpu_torch.robot import swept_volume as tsv
 from gpu_voxels_tpu_torch.robot.dh import DHParameters as TDH
 from gpu_voxels_tpu_torch.robot.dh import KinematicChain as TChain
+from gpu_voxels_tpu_torch.utils import kernels
 
 
 @pytest.fixture(autouse=True)
@@ -111,7 +112,7 @@ def test_k4_plain_matches_the_xla_path(margin):
     _same_types(collide_cuda.collide_types_bit_bit(ta, _t(b), margin, True), ref)
     cnt, meanings, same = collide_cuda.collide_types_bit_bit(ta, _t(b), margin, False)
     assert same is ta and int(cnt) == int(ref[0])  # without marking, `a` itself
-    assert collide_cuda.launches["collide_types_bit_bit"] == 0  # CPU tensors take the plain version
+    assert kernels.launches["gv_collide_types_bit_bit"] == 0  # CPU tensors take the plain version
 
 
 def test_scatter_bits_multi_matches_reference():

@@ -9,16 +9,23 @@ version on the contract's inputs. Run it on a machine with a card:
     python -m pytest tests_cuda -q
 
 It imports torch and the port only (no JAX, nothing of `tests/`), and the
-default `python -m pytest tests/` does not collect it. Every test is marked
-`cuda` and skips where `torch.cuda.is_available()` is false.
+default `python -m pytest tests/` does not collect it. Every test of this
+directory is marked `cuda` and skips where `torch.cuda.is_available()` is
+false; a run that collects other directories beside it leaves their items'
+marks as they are.
 """
+from pathlib import Path
+
 import pytest
 import torch
+
+HERE = Path(__file__).resolve().parent
 
 
 def pytest_collection_modifyitems(config, items):
     for item in items:
-        item.add_marker(pytest.mark.cuda)
+        if HERE in Path(str(item.path)).resolve().parents:
+            item.add_marker(pytest.mark.cuda)
 
 
 def pytest_runtest_setup(item):

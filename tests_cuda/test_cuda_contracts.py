@@ -24,10 +24,12 @@ import torch
 from gpu_voxels_tpu_torch import bitops
 from gpu_voxels_tpu_torch.api import GpuVoxels
 from gpu_voxels_tpu_torch.constants import SV_END, SV_START, BitVoxelMeaning, MapType
+from gpu_voxels_tpu_torch.geometry import transforms
 from gpu_voxels_tpu_torch.maps.distance_map import DistanceVoxelMap
 from gpu_voxels_tpu_torch.maps.voxellist import VoxelList
 from gpu_voxels_tpu_torch.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
 from gpu_voxels_tpu_torch.ops import collide_cuda, raycast_cuda
+from gpu_voxels_tpu_torch.utils import kernels
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -60,9 +62,9 @@ def test_linkage_scene_exact_count_on_cuda(card):
     c4 = c3 - box
     gvl.insert_box_into_map(c1, c2, "a", BitVoxelMeaning.eBVM_OCCUPIED, 1)
     gvl.insert_box_into_map(c4, c3, "b", BitVoxelMeaning.eBVM_OCCUPIED, 1)
-    before = collide_cuda.launches["count_prob_prob"]
+    before = kernels.launches["gv_count_prob_prob"]
     assert int(gvl.get_map("a").collide_with(gvl.get_map("b"))) == 8000
-    assert collide_cuda.launches["count_prob_prob"] == before + 1
+    assert kernels.launches["gv_count_prob_prob"] == before + 1
     GpuVoxels._instance = None
 
 
@@ -77,9 +79,9 @@ def test_cuda_collide_count_matches_plain_on_cuda(card):
     t = 100
     want = int(np.sum((a.astype(np.int32) >= t) & (b.astype(np.int32) >= t)))
     ta, tb = _t(a, card), _t(b, card)
-    before = collide_cuda.launches["count_prob_prob"]
+    before = kernels.launches["gv_count_prob_prob"]
     got = collide_cuda.count_prob_prob(ta, tb, t, t)
-    assert collide_cuda.launches["count_prob_prob"] == before + 1
+    assert kernels.launches["gv_count_prob_prob"] == before + 1
     assert int(got) == int(collide_cuda.count_prob_prob_plain(ta, tb, t, t)) == want
 
 
@@ -225,10 +227,10 @@ def test_bitvector_swept_volume_window_on_cuda(card):
     pts = np.array([[4.5, 4.5, 4.5], [10.5, 4.5, 4.5]], np.float32)
     a = BitVectorVoxelMap.create(dims, device=card).insert_point_cloud(pts, sv0)
     b = BitVectorVoxelMap.create(dims, device=card).insert_point_cloud(pts[:1], sv0 + 3)
-    before = collide_cuda.launches["collide_types_bit_bit"]
+    before = kernels.launches["gv_collide_types_bit_bit"]
     assert int(a.collide_with_bitcheck(b, margin=2)) == 0  # steps 3 apart
     assert int(a.collide_with_bitcheck(b, margin=3)) == 1
-    assert collide_cuda.launches["collide_types_bit_bit"] == before + 2
+    assert kernels.launches["gv_collide_types_bit_bit"] == before + 2
 
 
 def test_prob_bit_cross_collide_on_cuda(card):
@@ -321,9 +323,9 @@ def test_exact_carve_band_refinement_on_cuda(card):
     pose[:3, 3] = [20, 45, 3]
     args = (_t(depth, card), _t(pose, card), 52.0, 52.0, 32.0, 24.0, 1.0, dims)
     exact = raycast_cuda.projective_free_space_plain(*args)
-    before = raycast_cuda.launches["projective_free_space_exact"]
+    before = kernels.launches["gv_carve_exact"]
     got = raycast_cuda.projective_free_space_exact(*args)
-    assert raycast_cuda.launches["projective_free_space_exact"] == before + 1
+    assert kernels.launches["gv_carve_exact"] == before + 1
     assert torch.equal(got, exact)
     assert int(exact.sum()) > 0
 
@@ -428,13 +430,13 @@ def test_fitter_slot_delays_on_cuda(card):
         return m
 
     a, b, c = swept((1, 1, 1)), swept((40, 1, 1)), swept((1, 40, 1))
-    before = collide_cuda.launches["collide_types_bit_bit"]
+    before = kernels.launches["gv_collide_types_bit_bit"]
     assert int(a.collide_with_bitcheck(b, margin=1)) == 216  # 6^3 shared
     assert deconflict_slot([a, b, c], margin=1) == [0, 4, 8]
     robots = [("A", [("t", a)]), ("B", [("t", b)]), ("C", [("t", c)])]
     rescued = fit_schedule(robots, margin=1, windows_in_search=True)
     assert rescued[0][1] == [[0, 4, 8]]
-    assert collide_cuda.launches["collide_types_bit_bit"] > before
+    assert kernels.launches["gv_collide_types_bit_bit"] > before
 
 
 def test_native_streamed_disk_io_on_cuda(card, tmp_path):
@@ -712,14 +714,15 @@ def test_dh_fk_one_launch_against_float64_on_cuda(card, states):
     vals[:, :6] = rng.uniform(lo, hi, (states, 6))
     vals = torch.from_numpy(vals).to(card)
     torch.cuda.synchronize()
-    before = dict(dh_cuda.launches)
+    before = dict(kernels.launches)
     torch.cuda.set_sync_debug_mode("error")
     try:
         pts = arm.transformed_clouds_for(vals).points
         mats = arm.link_matrices(vals)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert dh_cuda.launches == {"dh_fk_points": before["dh_fk_points"] + 1, "dh_chain": before["dh_chain"] + 1}
+    assert kernels.launches == {**before, "gv_dh_fk_points": before["gv_dh_fk_points"] + 1,
+                                "gv_dh_chain": before["gv_dh_chain"] + 1}
     assert pts.shape == (states, arm.clouds.accumulated_size, 3) and mats.shape == (states, 7, 4, 4)
     worst, kept, same, total = 0.0, 0, 0, 0
     for i in range(0, states, 2048):
@@ -741,14 +744,15 @@ def test_dh_fk_one_launch_against_float64_on_cuda(card, states):
 
 def test_dh_fk_chain_forms_on_cuda(card):
     """Every entry point of a CUDA chain takes the kernels: [L] values give
-    [P, 3] points and [C, 4, 4] matrices; one state on the host (numpy, a
+    [P, 3] points and [C, 4, 4] matrices, [A, B, L] values [A, B, P, 3]
+    points equal to the same states' in a [T, L] batch; one state on the host (numpy, a
     dict by name, the stored configuration), which travels in the launch's
     arguments, gives the same points and matrices as on the card;
     set_configuration and update_point_cloud give transformed_clouds_for's
     points; a prismatic
     joint and clouds on a strict subset of the links agree with float64 and
-    the plain version; an empty batch launches nothing; a CPU tensor is
-    refused."""
+    the plain version; an empty batch launches nothing; a CPU table takes
+    the plain version, and CPU values beside a card's table are refused."""
     from gpu_voxels_tpu_torch.geometry.pointcloud import MetaPointCloud
     from gpu_voxels_tpu_torch.robot import dh_cuda
     from gpu_voxels_tpu_torch.robot.dh import DHJointType, DHParameters, KinematicChain
@@ -766,7 +770,7 @@ def test_dh_fk_chain_forms_on_cuda(card):
         cfg_ = {n: float(v) for n, v in zip(chain.link_names, vals[0].tolist())}
         host = vals[0].cpu().numpy()
         torch.cuda.synchronize()
-        before = dict(dh_cuda.launches)
+        before = dict(kernels.launches)
         torch.cuda.set_sync_debug_mode("error")
         try:
             one = chain.transformed_clouds_for(vals[0]).points
@@ -776,13 +780,16 @@ def test_dh_fk_chain_forms_on_cuda(card):
             chain.set_configuration(cfg_)
             stored = chain.get_transformed_clouds().points
             batch = chain.transformed_clouds_for(vals).points
+            grid = chain.transformed_clouds_for(vals[:4].reshape(2, 2, 7)).points
             empty = chain.transformed_clouds_for(vals[:0]).points
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        assert dh_cuda.launches == {"dh_fk_points": before["dh_fk_points"] + 5, "dh_chain": before["dh_chain"] + 2}
+        assert kernels.launches == {**before, "gv_dh_fk_points": before["gv_dh_fk_points"] + 6,
+                                    "gv_dh_chain": before["gv_dh_chain"] + 2}
         assert one.shape == (chain.clouds.accumulated_size, 3) and one_m.shape == (chain.clouds.num_clouds, 4, 4)
         assert empty.shape == (0, chain.clouds.accumulated_size, 3)
         assert torch.equal(one, batch[0]) and torch.equal(by_name, one) and torch.equal(stored, one)
+        assert torch.equal(grid, batch[:4].reshape(2, 2, -1, 3))
         assert torch.equal(from_host, one) and torch.equal(host_m, one_m)
         assert float((batch.double() - _fk64(chain, vals)).abs().max()) / side <= FK_ERR_VOX
         table = (*chain._table, chain._point_cloud, chain.clouds.points)
@@ -791,8 +798,10 @@ def test_dh_fk_chain_forms_on_cuda(card):
                                    atol=FK_PLAIN_ATOL)
     arm.update_point_cloud("elbow_joint", arm.clouds.get_cloud(2)[:10].cpu().numpy())  # resized
     assert torch.equal(arm.get_transformed_clouds().points, arm.transformed_clouds_for(None).points)
-    with pytest.raises(ValueError, match="on a CUDA device"):
-        dh_cuda.dh_chain(vals.cpu(), *(t.cpu() for t in arm._table))
+    cpu_table = tuple(t.cpu() for t in arm._table)
+    assert torch.equal(dh_cuda.dh_chain(vals.cpu(), *cpu_table), dh_cuda.dh_chain_plain(vals.cpu(), *cpu_table))
+    with pytest.raises(ValueError, match="values must be on"):
+        dh_cuda.dh_chain(vals.cpu(), *arm._table)
 
 
 # -- this port's own contract: a depth frame's hits and update, one launch each ------------
@@ -872,34 +881,48 @@ def _in_band(got: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> bool:
     return bool(((got >= lo) & (got <= hi)).all())
 
 
-@pytest.mark.parametrize("cell", ["monitor", "distance"])
+def _fusion_poses() -> list:
+    """The main path's carve poses in its 256^3 grid at 0.02 m: axis-aligned
+    at the z = 0 face, tilted, and at the centre (half the grid behind)."""
+    bench = np.eye(4, dtype=np.float32)
+    bench[:3, 3] = [2.56, 2.56, 0.1]
+    return [bench, transforms.from_rpy_np([0.3, -0.2, 0.1], [2.0, 2.8, 0.3]),
+            transforms.from_rpy_np([0.05, 0.1, 0.0], [2.56, 2.56, 2.56])]
+
+
+@pytest.mark.parametrize("cell", ["monitor", "distance", "fusion"])
 def test_depth_hits_one_launch_against_plain_and_float64_on_cuda(card, cell):
     """S1 on the workcell Kinect's frames at the update cells' grids (150 x
     150 x 100 at 0.02 m; 256^3 at 0.01 m, the camera moved by the world
-    offset), a frame with NaN, +inf and -inf pixels planted, and an
-    all-invalid frame: one launch a call with no host read, the host pose
-    (in the launch's arguments) equal to the same pose on the card, every
-    count inside float64's band and equal to float64's and to the plain
-    version's at every voxel whose points keep HITS_BAND voxel from every
-    boundary; the frames hold invalid pixels and points outside the map."""
-    frames, sensor, dims, side = _sense_scene(card, cell)
+    offset), or on its first frame at the main path's 256^3 at 0.02 m under
+    its three carve poses ("fusion"), a frame with NaN, +inf and -inf
+    pixels planted, and an all-invalid frame: one launch a call with no
+    host read, the host pose (in the launch's arguments) equal to the same
+    pose on the card, every count inside float64's band and equal to
+    float64's and to the plain version's at every voxel whose points keep
+    HITS_BAND voxel from every boundary; the frames hold invalid pixels and,
+    at the update cells, points outside the map."""
+    frames, sensor, dims, side = _sense_scene(card, cell if cell != "fusion" else "monitor")
+    poses = [sensor.pose()] * len(frames)
+    if cell == "fusion":
+        frames, poses, dims = [frames[0]] * 3, _fusion_poses(), (256, 256, 256)
     planted = frames[0].clone()
     planted[100, 50:60] = torch.nan
     planted[200, 300:310] = torch.inf
     planted[300, 320] = -torch.inf
     frames += [planted, torch.zeros_like(planted)]
-    pose = sensor.pose()
-    on_card = _t(pose, card)
-    for i, depth in enumerate(frames):
+    poses += [poses[0]] * 2
+    for i, (depth, pose) in enumerate(zip(frames, poses)):
+        on_card = _t(pose, card)
         torch.cuda.synchronize()
-        before = raycast_cuda.launches["depth_hits"]
+        before = kernels.launches["gv_depth_hits"]
         torch.cuda.set_sync_debug_mode("error")
         try:
             got = raycast_cuda.depth_hits(depth, pose, *_intr(sensor), side, dims)
             from_card = raycast_cuda.depth_hits(depth, on_card, *_intr(sensor), side, dims)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        assert raycast_cuda.launches["depth_hits"] == before + 2
+        assert kernels.launches["gv_depth_hits"] == before + 2
         assert got.dtype == torch.int32 and got.shape == (dims[0] * dims[1] * dims[2],)
         assert torch.equal(got, from_card), i
         plain = raycast_cuda.depth_hits_plain(depth, on_card, *_intr(sensor), side, dims)
@@ -911,7 +934,8 @@ def test_depth_hits_one_launch_against_plain_and_float64_on_cuda(card, cell):
         if i == len(frames) - 1:
             assert int(got.sum()) == 0
         else:
-            assert 0 < int(got.sum()) < valid and int((depth == 0.0).sum()) > 0, (i, int(got.sum()), valid)
+            assert 0 < int(got.sum()) <= valid and int((depth == 0.0).sum()) > 0, (i, int(got.sum()), valid)
+            assert cell == "fusion" or int(got.sum()) < valid, (i, int(got.sum()), valid)
             assert int(sure.sum()) > 0.99 * got.numel(), i
 
 
@@ -954,13 +978,13 @@ def test_log_odds_update_byte_identical_on_cuda(card, form):
     robot = torch.rand(n, device=card, generator=g) < 0.1
     for mask in (None, robot):
         torch.cuda.synchronize()
-        before = raycast_cuda.launches["log_odds_update"]
+        before = kernels.launches["gv_log_odds_update"]
         torch.cuda.set_sync_debug_mode("error")
         try:
             got = raycast_cuda.log_odds_update(data, counts, free, mask)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        assert raycast_cuda.launches["log_odds_update"] == before + 1
+        assert kernels.launches["gv_log_odds_update"] == before + 1
         want = raycast_cuda.log_odds_update_plain(data, counts, free, mask)
         assert got.dtype == torch.int8 and torch.equal(got, want), (form, mask is None)
         assert int((got == 127).sum()) > 0 and int((got == -127).sum()) > 0 and int((got == -128).sum()) > 0
@@ -975,15 +999,15 @@ def test_depth_insert_one_launch_each_and_refusals_on_cuda(card):
     frames, sensor, dims, side = _sense_scene(card, "monitor", frames=1)
     depth = frames[0]
     env = ProbVoxelMap.create(dims, side, device=card)
-    names = ("depth_hits", "projective_free_space_exact", "log_odds_update")
+    names = ("gv_depth_hits", "gv_carve_exact", "gv_log_odds_update")
     torch.cuda.synchronize()
-    before = {k: raycast_cuda.launches[k] for k in names}
+    before = {k: kernels.launches[k] for k in names}
     torch.cuda.set_sync_debug_mode("error")
     try:
         fused = env.insert_depth_image(depth, sensor)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert {k: raycast_cuda.launches[k] - before[k] for k in names} == dict.fromkeys(names, 1)
+    assert {k: kernels.launches[k] - before[k] for k in names} == dict.fromkeys(names, 1)
     pose = _t(sensor.pose(), card)
     hits = raycast_cuda.depth_hits(depth, pose, *_intr(sensor), side, dims)
     free = raycast_cuda.projective_free_space_exact(depth, pose, *_intr(sensor), side, dims)
