@@ -30,7 +30,8 @@ main path's shapes. Phases, each an assert or an exception:
      the facade, the BASELINE #3 64-step UR10 swept volume into a 256^3
      bit map, and its types collides and bit checks against an environment
      whose obstacles carry the SV bits of a few steps;
-   - the camera -> distance field path (K5, K6): BASELINE #4 through the
+   - the camera -> distance field path (K5, K6, the merge, the Z flood and
+     the query of csrc/edt_phase1.cu and distance_query.cu): BASELINE #4 through the
      facade (a 512^3 DistanceVoxelMap, 20,000 random obstacles, the exact
      EDT, proximity queries, byte distances), and five Kinect frames fused
      into 256^3 with the pooled carve (carve_pool = 8), merged into a
@@ -191,7 +192,8 @@ main path's shapes. Phases, each an assert or an exception:
    device work under its wrapper's host time, by torch.profiler's device
    time), the 512^3 cycle rate, the 256^3 fusion rate, the 64-step swept
    insert + types collide per trajectory, the 512^3 EDT, the 256^3
-   camera -> distance field frame, K7 at 256^3 (both load widths) and
+   camera -> distance field frame and its merge, Z flood and query
+   kernels against their plain versions, K7 at 256^3 (both load widths) and
    512^3, the fitter's ordering search and one deconflict_slot, one DDA
    insert_sensor_data frame, and the list and planning paths: a Kinect
    frame into a bit list, the 64-step swept list insert, list x list, the
@@ -415,6 +417,15 @@ KERNELS = [
     # fuses (gpu_voxels_tpu/ops/raycast.py insert_depth_image)
     ("gv_depth_hits", raycast_cuda, "depth_hits", "gpu_voxels_tpu_torch/csrc/depth_insert.cu", None),
     ("gv_log_odds_update", raycast_cuda, "log_odds_update", "gpu_voxels_tpu_torch/csrc/depth_insert.cu", None),
+    # the distance field's grids before K5, a launch each: no TPU kernel, the
+    # reference's merge and Z flood are jnp that XLA fuses
+    # (gpu_voxels_tpu/ops/edt.py with_obstacles, ops/edt_envelope.py _nearest_scan)
+    ("gv_merge_occupied", edt_cuda, "merge_occupied", "gpu_voxels_tpu_torch/csrc/edt_phase1.cu", None),
+    ("gv_flood_z", edt_cuda, "flood_z", "gpu_voxels_tpu_torch/csrc/edt_phase1.cu", None),
+    # the clearance query on a field in one launch: no TPU kernel, the
+    # reference's is jnp that XLA fuses (gpu_voxels_tpu/maps/distance_map.py
+    # min_distance_to)
+    ("gv_min_distance_to", edt_cuda, "min_distance_to", "gpu_voxels_tpu_torch/csrc/distance_query.cu", None),
 ]
 # the depth insert at the two update cells' grids: the workcell monitor's
 # and the distance cell's (portbench/configs), each with the workcell's
@@ -511,6 +522,9 @@ def plain_route():
         (raycast_cuda, "min_pool_depth"): raycast_cuda.min_pool_depth_plain,
         (collide_cuda, "count_bit_bit"): collide_cuda.count_bit_bit_plain,
         (raycast_cuda, "log_odds_update"): raycast_cuda.log_odds_update_plain,
+        (edt_cuda, "merge_occupied"): edt_cuda.merge_occupied_plain,
+        (edt_cuda, "flood_z"): edt_cuda.flood_z_plain,
+        (edt_cuda, "min_distance_to"): edt_cuda.min_distance_to_plain,
     }
     # FK's kernels and the depth insert's hits run in both routes, so both
     # take the same points: their plain versions agree with them to a
@@ -924,10 +938,11 @@ def drive_main_path(dev: torch.device) -> tuple[dict, dict, dict, dict, dict, di
     add_launches(launches, robot_launches)
     check_robot_path(robot)
 
-    log("  camera -> distance field (K5, K6)")
+    log("  camera -> distance field (the merge, the Z flood, K5, K6, the query)")
     dist_args = (dev, out["frames"], robot["placed"], robot["cfgs"])
     dist, dist_launches = drive(distance_path, {"gv_envelope_pass", "gv_carve_pooled", "gv_min_pool_depth",
-                                                "gv_depth_hits", "gv_log_odds_update"}, *dist_args)
+                                                "gv_depth_hits", "gv_log_odds_update", "gv_merge_occupied",
+                                                "gv_flood_z", "gv_min_distance_to"}, *dist_args)
     add_launches(launches, dist_launches)
     with plain_route():
         plain_dist = distance_path(*dist_args)
@@ -2223,10 +2238,12 @@ EX_KERNELS = {
     "batch_worlds_demo": set(),
     "collisions": {"gv_count_prob_prob", "gv_collide_types_bit_bit"},
     "counting_voxel_list": set(),
-    "distance_kinect_demo": {"gv_carve_exact", "gv_envelope_pass", "gv_depth_hits", "gv_log_odds_update"},
-    "distance_voxel_test": {"gv_envelope_pass"},
+    "distance_kinect_demo": {"gv_carve_exact", "gv_envelope_pass", "gv_depth_hits", "gv_log_odds_update",
+                             "gv_merge_occupied", "gv_flood_z", "gv_min_distance_to"},
+    "distance_voxel_test": {"gv_envelope_pass", "gv_flood_z", "gv_min_distance_to"},
     "full_pipeline_demo": {"gv_carve_pooled", "gv_min_pool_depth", "gv_envelope_pass", "gv_collide_types_bit_bit",
-                           "gv_depth_hits", "gv_log_odds_update"},
+                           "gv_depth_hits", "gv_log_odds_update", "gv_merge_occupied", "gv_flood_z",
+                           "gv_min_distance_to"},
     "heightmap_demo": set(),
     "maps_demo": set(),
     "octree_bench": set(),
@@ -3812,6 +3829,7 @@ def timings(dev: torch.device, smi: str, out: dict, robot: dict, dist: dict, fit
         f"{1000.0 / dda_ms:.2f} Hz  [{smi}]")
     fk_timings(dev, smi, t, bounds)
     depth_insert_timings(dev, smi, t, bounds)
+    distance_timings(dev, smi, t, bounds, dist, robot)
     return t, bounds
 
 
@@ -3923,6 +3941,46 @@ def depth_insert_timings(dev: torch.device, smi: str, t: dict, bounds: dict) -> 
             f"with the plain hits and update (K3 kept) {plain_ms:.4f} ms, {plain_ops:g}  [{smi}]")
 
 
+def distance_timings(dev: torch.device, smi: str, t: dict, bounds: dict, dist: dict, robot: dict) -> None:
+    """The distance field's kernels beside K5 against their plain versions at
+    the camera field's 256^3 (path 3's pooled frames: the merge into a fresh
+    map at the map method's default threshold, the Z flood of the merged
+    grid, the UR10's clearance at step 32 on the field), in turns; their
+    device time and device operations a call. Bytes: the merge reads the
+    log-odds and the grid (5 B a voxel) and writes 4; the flood reads the
+    grid (4 B) and writes g1 and the payload (8); the query reads a point (12
+    B) and its voxel's site (4). Operations: the merge ~8 integer a voxel
+    (the compare, the coordinate step, the pack, the select), the flood ~20
+    (the site test and bit, the two scans' bit operations, the distances,
+    the select, the pack), the query ~30 a point."""
+    prob, merged = dist["pooled_env"].data, dist["merged"].data
+    fresh = DistanceVoxelMap.create(FUSION_DIMS, FUSION_SIDE, device=dev).data
+    n = fresh.numel()
+    threshold = float_to_probability(0.5)
+    field = dist["field"].data
+    arm = robot["placed"].transformed_clouds_for(robot["cfgs"][32:33]).points[0].contiguous()
+    p = arm.shape[0]
+    rows = {
+        "gv_merge_occupied": ((lambda: edt_cuda.merge_occupied(fresh, prob, threshold, FUSION_DIMS)),
+                              (lambda: edt_cuda.merge_occupied_plain(fresh, prob, threshold, FUSION_DIMS)),
+                              bound(9 * n, 8 * n)),
+        "gv_flood_z": ((lambda: edt_cuda.flood_z(merged, FUSION_DIMS)),
+                       (lambda: edt_cuda.flood_z_plain(merged, FUSION_DIMS)),
+                       bound(12 * n, 20 * n)),
+        "gv_min_distance_to": ((lambda: edt_cuda.min_distance_to(field, arm, FUSION_SIDE, FUSION_DIMS)),
+                               (lambda: edt_cuda.min_distance_to_plain(field, arm, FUSION_SIDE, FUSION_DIMS)),
+                               bound(16 * p, 30 * p)),
+    }
+    for name, (kernel, plain, bnd) in rows.items():
+        k, pl = in_turns(kernel, plain, 30)
+        k_dev, p_dev = device_ms(kernel, 30), device_ms(plain, 30)
+        ops = launches_per_call(kernel, 10), launches_per_call(plain, 10)
+        log(f"  {name} dims={FUSION_DIMS} (query points {p}): kernel {k:.4f} ms (device {k_dev:.4f}), plain torch {pl:.4f} ms "
+            f"(device {p_dev:.4f}), bound {bnd[0]:.6f} ms ({bnd[1]}); device operations a call: kernel "
+            f"{ops[0]:g}, plain {ops[1]:g}  [{smi}]")
+        t[name], bounds[name] = (k, pl), bnd
+
+
 def main() -> int:
     dev, smi = card()
     log("phase 1: build")
@@ -3948,7 +4006,9 @@ def main() -> int:
          # collide, K5 a min-plus envelope, K7 a fold-and-count (>= 10 calls),
          # K6's pool a select then a min over a padded frame, FK a chain of
          # DH products, S1 a back-projection and a scatter-add, S2 a masked
-         # saturating update
+         # saturating update, the merge a compare and a coordinate select,
+         # the Z flood two scans and selects, the query a voxelize, a gather
+         # and a min
          "library_ms": None}
         for name, _module, wrapper, source, replaces in KERNELS
     ]}

@@ -3,11 +3,12 @@
 Counterpart of gpu_voxels_tpu/maps/distance_map.py: a dense grid of packed
 nearest-obstacle coordinates (int32[N], the reference's uint32 values; bit
 31 is never set) with the EDT algorithms and the distance queries.
-`parallel_banding` is the exact EDT through CUDA kernel K5
-(ops/edt_envelope.py); `jump_flood` routes by device as the reference
-routes by platform; `exact_separable` and `exact_distances` are the
-oracles. Methods are functional, like the other maps: each returns a new
-map (or a tensor) on the map's device.
+`parallel_banding` is the exact EDT through the Z flood kernel and CUDA
+kernel K5 (ops/edt_envelope.py); `merge_occupied` and `min_distance_to` are
+one kernel each on a CUDA map (ops/edt_cuda.py); `jump_flood` routes by
+device as the reference routes by platform; `exact_separable` and
+`exact_distances` are the oracles. Methods are functional, like the other
+maps: each returns a new map (or a tensor) on the map's device.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Tuple
 import torch
 
 from ..constants import PBA_UNINITIALISED_PACKED, BitVoxelMeaning, MapType, float_to_probability
-from ..ops import edt, edt_envelope
+from ..ops import edt, edt_cuda, edt_envelope
 from ..ops import insert as insert_ops
 from ..utils import perfmon, resolve_device, to_device
 from ..utils.logging import log_stream
@@ -72,17 +73,15 @@ class DistanceVoxelMap(_DenseMap):
         (any meaning). Out-of-map points go to a spare slot N (F2)."""
         idx, _ = insert_ops.voxelize(to_device(points, torch.float32, self.device), self.side_length, self.dims)
         mask = insert_ops.occupancy_mask(idx, self.voxelmap_size).bool()
-        return self._with_obstacles(mask)
+        return replace(self, data=edt.with_obstacles(self.data, mask, self.dims))
 
     @takes_sharded_operand
     def merge_occupied(self, prob_map: ProbVoxelMap, occupancy_threshold: float = 0.5) -> "DistanceVoxelMap":
         """mergeOccupied (DistanceVoxelMap.h:86-122): the prob map's occupied
-        voxels become obstacles."""
+        voxels become obstacles (one kernel launch on a CUDA map)."""
         with perfmon.span("distance.merge"):
-            return self._with_obstacles(prob_map.data.to(torch.int32) >= float_to_probability(occupancy_threshold))
-
-    def _with_obstacles(self, mask: torch.Tensor) -> "DistanceVoxelMap":
-        return replace(self, data=edt.with_obstacles(self.data, mask, self.dims))
+            return replace(self, data=edt_cuda.merge_occupied(self.data, prob_map.data,
+                                                              float_to_probability(occupancy_threshold), self.dims))
 
     # -- EDT algorithms ------------------------------------------------------
     def jump_flood(self, extra_rounds: int = 1) -> "DistanceVoxelMap":
@@ -154,11 +153,10 @@ class DistanceVoxelMap(_DenseMap):
         """The least metric distance from any of the query points to its
         nearest obstacle (a proximity query batch), a 0-d float32 tensor;
         points outside the map count as MAX_OBSTACLE_DISTANCE. Reads the
-        EDT at the query voxels only."""
+        EDT at the query voxels only (one kernel launch on a CUDA map)."""
         with perfmon.span("distance.query"):
-            idx, _ = insert_ops.voxelize(to_device(points, torch.float32, self.device), self.side_length, self.dims)
-            d2 = edt.min_squared_distance_at(self.data, idx, self.dims)
-            return torch.sqrt(d2.to(torch.float32)) * self.side_length
+            points = to_device(points, torch.float32, self.device).reshape(-1, 3).contiguous()
+            return edt_cuda.min_distance_to(self.data, points, self.side_length, self.dims)
 
     def extract_distances(self, robot_radius: int = 0) -> torch.Tensor:
         """int8 free-space bytes (extract_byte_distance functor)."""

@@ -32,6 +32,7 @@ from typing import Tuple
 import torch
 
 from ..constants import MAX_OBSTACLE_DISTANCE, PBA_UNINITIALISED_COORD, PBA_UNINITIALISED_PACKED
+from . import insert as insert_ops
 
 Dims = Tuple[int, int, int]
 I32 = torch.int32
@@ -118,6 +119,14 @@ def with_obstacles(packed_flat: torch.Tensor, mask_flat: torch.Tensor, dims: Dim
     return torch.where(mask_flat, init_from_obstacle_mask(mask_flat, dims, z_offset), packed_flat)
 
 
+def merge_occupied(packed_flat: torch.Tensor, prob: torch.Tensor, threshold: int, dims: Dims,
+                   z_offset: int = 0) -> torch.Tensor:
+    """int32[N]: the packed grid with every voxel whose int8 log-odds `prob`
+    is >= `threshold` made an obstacle (mergeOccupied, DistanceVoxelMap.h:86-122),
+    the rest kept. The spec of the merge kernel (ops/edt_cuda.py)."""
+    return with_obstacles(packed_flat, prob.to(I32) >= threshold, dims, z_offset)
+
+
 def min_squared_distance_at(packed_flat: torch.Tensor, idx: torch.Tensor, dims: Dims, z_offset: int = 0) -> torch.Tensor:
     """The least squared obstacle distance over the voxels `idx` (int64, as
     voxelize gives them: an index >= N, its spare slot, counts as
@@ -126,6 +135,16 @@ def min_squared_distance_at(packed_flat: torch.Tensor, idx: torch.Tensor, dims: 
     n = dims[0] * dims[1] * dims[2]
     d2 = squared_distance_at(packed_flat, idx.clamp(max=n - 1), dims, z_offset)
     return torch.where(idx < n, d2, MAX_OBSTACLE_DISTANCE).min()
+
+
+def min_distance_to(packed_flat: torch.Tensor, points: torch.Tensor, side_length: float, dims: Dims) -> torch.Tensor:
+    """The least metric distance from any of the float32 [P, 3] query
+    points to its nearest obstacle, a 0-d float32 tensor; points outside the
+    map count as MAX_OBSTACLE_DISTANCE. Reads the EDT at the query voxels
+    only. The spec of the query kernel (ops/edt_cuda.py)."""
+    idx, _ = insert_ops.voxelize(points, side_length, dims)
+    d2 = min_squared_distance_at(packed_flat, idx, dims)
+    return torch.sqrt(d2.to(torch.float32)) * side_length
 
 
 def exact_distances(obstacle_coords, dims: Dims, chunk: int = 4096, z_offset: int = 0) -> torch.Tensor:

@@ -11,7 +11,9 @@ carrying the winning site's packed payload. `envelope_plain` is the spec:
 the port of the reference's `_envelope_xla`, a full ascending scan over the
 candidate rows with a strict `<`, so on a tie the smallest q wins.
 `envelope_pass` runs CUDA kernel K5 (ops/edt_cuda.py, csrc/edt_envelope.cu)
-on CUDA tensors and the spec on CPU tensors.
+on CUDA tensors and the spec on CPU tensors; `flood_z`, the Z flood before
+the passes, runs its kernel (csrc/edt_phase1.cu) there and its spec
+`flood_z_plain` here.
 
 The reference's f32 distance math is exact for its inputs (finite values
 stay below 2^24); here every value is int32, exact for any g < MISS:
@@ -96,11 +98,11 @@ def _nearest_scan(flag: torch.Tensor):
     return torch.minimum(dd, du).clamp_(max=MISS), near
 
 
-def flood_z(packed_flat: torch.Tensor, dims: Dims) -> Tuple[torch.Tensor, torch.Tensor]:
+def flood_z_plain(packed_flat: torch.Tensor, dims: Dims) -> Tuple[torch.Tensor, torch.Tensor]:
     """PBA phase 1 (kernelPBAphase1FloodZ): per voxel, the squared distance
     along Z to the nearest site of its (y, x) column (MISS if none) and the
     packed payload (x, y, z of that site): the Y pass's input. A site is a
-    voxel that holds its own coordinates."""
+    voxel that holds its own coordinates. The spec of the Z flood kernel."""
     dx, dy, dz = dims
     grid = packed_flat.reshape(dz, dy, dx)
     ox, oy, oz = grid & 0x3FF, (grid >> 10) & 0x3FF, grid >> 20
@@ -111,6 +113,15 @@ def flood_z(packed_flat: torch.Tensor, dims: Dims) -> Tuple[torch.Tensor, torch.
     is_site = (ox == px) & (oy == py) & (oz == pz) & (ox != PBA_UNINITIALISED_COORD)
     g1, near_z = _nearest_scan(is_site)
     return g1, px | (py << 10) | (near_z.clamp(0, PBA_UNINITIALISED_COORD) << 20)
+
+
+def flood_z(packed_flat: torch.Tensor, dims: Dims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PBA phase 1 of the packed int32[N] grid: (g1, payload), int32
+    [dz, dy, dx]. The Z flood kernel (ops/edt_cuda.py) on CUDA tensors, the
+    spec on CPU tensors."""
+    from . import edt_cuda
+
+    return edt_cuda.flood_z(packed_flat, dims)
 
 
 def parallel_banding(packed_flat: torch.Tensor, dims: Dims) -> torch.Tensor:

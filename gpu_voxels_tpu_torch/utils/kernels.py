@@ -92,6 +92,12 @@ SIGNATURES = {
     ),
     # (data, counts, free, robot mask or NULL, out, n, stream)
     "gv_log_odds_update": (_P, _P, _P, _P, _P, _I64, _P),
+    # (packed, g1, pay1, dx, dy, dz, stream)
+    "gv_flood_z": (_P, _P, _P, _I32, _I32, _I32, _P),
+    # (packed, prob, out, n, dx, dy, z0, threshold, stream)
+    "gv_merge_occupied": (_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P),
+    # (points, n, recip, side, packed, dx, dy, dz, out, stream)
+    "gv_min_distance_to": (_P, _I64, _F32, _F32, _P, _I32, _I32, _I32, _P, _P),
 }
 
 # the entry points that run on the host and take no stream; `launch` calls every other one

@@ -950,6 +950,217 @@ def test_k5_k6_raise_on_inputs_they_do_not_take(cuda_device):
         raycast_cuda.projective_free_space_pooled(depth.double(), torch.eye(4), 1.0, 1.0, 2.0, 2.0, 1.0, (4, 4, 4))
 
 
+PHASE1_DIMS = {"256": (256, 256, 256), "odd": (37, 19, 53), "column": (1, 1, 1023), "x1024": (1024, 2, 5)}
+
+
+def _phase1_grid(kind, dims, device):
+    """A packed int32[N] grid of `dims` (x, y, z): "random" (5 % sites, and
+    30 % of the rest holding other voxels' coordinates), "empty" (no site),
+    "full" (every voxel a site), "ends" (sites at z = 0 and dz - 1 only),
+    "ties" (sites at z = 2, 6, 10, ...: every voxel midway is a tie) or
+    "edt" (an EDT's result: non-sites hold their nearest site's
+    coordinates)."""
+    from gpu_voxels_tpu_torch.ops import edt
+
+    dx, dy, dz = dims
+    n = dx * dy * dz
+    g = torch.Generator(device=device).manual_seed(n + len(kind))
+    if kind in ("random", "edt"):
+        mask = torch.rand(n, device=device, generator=g) < (0.05 if kind == "random" else 0.002)
+        mask[n // 2] = True
+    else:
+        mask = torch.zeros((dz, dy, dx), dtype=torch.bool, device=device)
+        if kind == "full":
+            mask[:] = True
+        elif kind == "ends":
+            mask[0] = mask[-1] = True
+        elif kind == "ties":
+            mask[2::4] = True
+        mask = mask.reshape(-1)
+    packed = edt.init_from_obstacle_mask(mask, dims)
+    if kind == "random":
+        other = torch.randint(0, 2**30, (n,), dtype=torch.int32, device=device, generator=g)
+        packed = torch.where(~mask & (torch.rand(n, device=device, generator=g) < 0.3), other, packed)
+    if kind == "edt":
+        packed = edt_envelope.parallel_banding(packed, dims)
+    return packed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(PHASE1_DIMS))
+@pytest.mark.parametrize("kind", ["random", "empty", "full", "ends", "ties", "edt"])
+def test_flood_z_matches_plain_on_card(cuda_device, shape, kind):
+    """The Z flood kernel equals PBA phase 1's plain version (g1 and the
+    payload) byte for byte, at 256^3, at dims that are no multiple of its
+    32-column tile or 32-z word, on one 1023-long column and on a 1024-wide
+    grid whose x = 1023 voxels are never sites; one launch a call, no host
+    read."""
+    dims = PHASE1_DIMS[shape]
+    packed = _phase1_grid(kind, dims, cuda_device)
+    torch.cuda.synchronize()
+    before = kernels.launches["gv_flood_z"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g1, pay1 = edt_cuda.flood_z(packed, dims)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.launches["gv_flood_z"] == before + 1
+    want_g1, want_pay1 = edt_cuda.flood_z_plain(packed, dims)
+    assert g1.dtype == torch.int32 and torch.equal(g1, want_g1) and torch.equal(pay1, want_pay1), (shape, kind)
+    sites = int((want_g1 == 0).sum())
+    assert (sites == 0) == (kind == "empty") and (kind != "full" or bool((want_g1 == 0).all()) or dims[0] == 1024)
+    if kind == "empty":
+        assert bool((g1 == edt_envelope.MISS).all()) and bool(((pay1 >> 20) == 1023).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["256", "odd", "tiny", "prob-view", "prob-view4", "packed-view"])
+def test_merge_occupied_matches_plain_on_card(cuda_device, form):
+    """The merge kernel equals its plain version (`edt.with_obstacles` of
+    the log-odds at or above the threshold) byte for byte: at 256^3, at
+    37 x 19 x 53 (no multiple of its 4-voxel quad), on 3 voxels, on maps
+    that are views one element off a 16-byte boundary (the voxel-a-thread
+    form) and log-odds 4 bytes off one (still its quads); thresholds at the
+    int8 extremes and past them, z offsets 0, 7 and 300; one launch a call,
+    no host read."""
+    dims = {"256": PHASE1_DIMS["256"], "tiny": (1, 1, 3)}.get(form, PHASE1_DIMS["odd"])
+    n = dims[0] * dims[1] * dims[2]
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    off_prob, off_packed = {"prob-view": 1, "prob-view4": 4}.get(form, 0), int(form == "packed-view")
+    prob = torch.randint(-128, 128, (n + off_prob,), dtype=torch.int8, device=cuda_device, generator=g)[off_prob:]
+    prob[:3] = torch.tensor([-128, 127, 0], dtype=torch.int8)
+    packed = torch.randint(0, 2**30, (n + off_packed,), dtype=torch.int32, device=cuda_device,
+                           generator=g)[off_packed:]
+    for threshold in (-129, -128, -127, 0, 76, 127, 128):
+        for z0 in (0, 7, 300):
+            torch.cuda.synchronize()
+            before = kernels.launches["gv_merge_occupied"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = edt_cuda.merge_occupied(packed, prob, threshold, dims, z0)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert kernels.launches["gv_merge_occupied"] == before + 1
+            want = edt_cuda.merge_occupied_plain(packed, prob, threshold, dims, z0)
+            assert got.dtype == torch.int32 and torch.equal(got, want), (form, threshold, z0)
+        taken = int((prob.to(torch.int32) >= threshold).sum())
+        assert (taken == n) == (threshold <= -128) and (taken == 0) == (threshold > 127), threshold
+    assert edt_cuda.merge_occupied(packed, prob, 0, dims).data_ptr() % 16 == 0
+
+
+def _query_points(kind, dims, side, device):
+    """float32 [P, 3] query points in a map of `dims` at `side`: "arm" (the
+    UR10's ~3,800 points' count, in the map), "edge" (a tenth outside the
+    map, NaN and inf coordinates), "outside" (none inside), "one" (a single
+    point) or "many" (100,000 points)."""
+    g = torch.Generator(device=device).manual_seed(len(kind))
+    count = {"one": 1, "many": 100_000}.get(kind, 3800)
+    ext = torch.tensor(dims, dtype=torch.float32, device=device) * side
+    lo, span = (-0.1 * ext, 1.2 * ext) if kind == "edge" else (0 * ext, ext)
+    pts = lo + span * torch.rand((count, 3), device=device, generator=g)
+    if kind == "edge":
+        pts[:3, 0] = torch.tensor([float("nan"), float("inf"), -float("inf")], device=device)
+    if kind == "outside":
+        pts += 2 * ext.max()
+    return pts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["arm", "edge", "outside", "one", "many"])
+@pytest.mark.parametrize("shape", ["256", "odd"])
+def test_min_distance_to_matches_plain_on_card(cuda_device, kind, shape):
+    """The query kernel's least distance equals its plain version's float32
+    bit for bit, on an EDT with few obstacles (most voxels hold a far site)
+    and on an empty one, for points in the map, past its faces, NaN and inf,
+    all outside, one point and 100,000; one launch a call, no host read."""
+    from gpu_voxels_tpu_torch.ops import edt
+
+    dims, side = PHASE1_DIMS[shape], 0.01
+    n = dims[0] * dims[1] * dims[2]
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    mask = torch.rand(n, device=cuda_device, generator=g) < 2e-5
+    mask[n // 3] = True
+    field = edt_envelope.parallel_banding(edt.init_from_obstacle_mask(mask, dims), dims)
+    empty = torch.full_like(field, edt.PBA_UNINITIALISED_PACKED)
+    pts = _query_points(kind, dims, side, cuda_device)
+    for packed in (field, empty):
+        torch.cuda.synchronize()
+        before = kernels.launches["gv_min_distance_to"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = edt_cuda.min_distance_to(packed, pts, side, dims)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert kernels.launches["gv_min_distance_to"] == before + 1
+        want = edt_cuda.min_distance_to_plain(packed, pts, side, dims)
+        assert got.dtype == torch.float32 and got.shape == () and torch.equal(got, want), (kind, float(got), float(want))
+    assert float(want) > 400.0  # the empty field: every point at MAX_OBSTACLE_DISTANCE
+
+
+@pytest.mark.cuda
+def test_distance_map_field_is_one_launch_a_phase_on_card(cuda_device):
+    """A CUDA DistanceVoxelMap's merge_occupied, parallel_banding and
+    min_distance_to launch the merge, the Z flood, K5 twice and the query,
+    one launch each but K5, with no host read, and equal the CPU map's (the
+    plain versions) byte for byte."""
+    from gpu_voxels_tpu_torch.maps.distance_map import DistanceVoxelMap
+    from gpu_voxels_tpu_torch.maps.voxelmap import ProbVoxelMap
+
+    dims = (96, 80, 72)
+    n = dims[0] * dims[1] * dims[2]
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    data = torch.randint(-128, 128, (n,), dtype=torch.int8, device=cuda_device, generator=g)
+    data[torch.rand(n, device=cuda_device, generator=g) < 0.9] = -100
+    prob = ProbVoxelMap(data, dims, 0.01)
+    points = _query_points("edge", dims, 0.01, cuda_device)
+    names = ("gv_merge_occupied", "gv_flood_z", "gv_envelope_pass", "gv_min_distance_to")
+    torch.cuda.synchronize()
+    before = {k: kernels.launches[k] for k in names}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        field = DistanceVoxelMap.create(dims, 0.01, device=cuda_device).merge_occupied(prob, 0.6).parallel_banding()
+        clearance = field.min_distance_to(points)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert {k: kernels.launches[k] - before[k] for k in names} == {"gv_merge_occupied": 1, "gv_flood_z": 1,
+                                                                     "gv_envelope_pass": 2, "gv_min_distance_to": 1}
+    cpu = DistanceVoxelMap.create(dims, 0.01, device="cpu").merge_occupied(ProbVoxelMap(data.cpu(), dims, 0.01), 0.6)
+    cpu = cpu.parallel_banding()
+    assert torch.equal(field.data.cpu(), cpu.data)
+    assert torch.equal(clearance.cpu(), cpu.min_distance_to(points.cpu()))
+    assert int((field.squared_distances() == 0).sum()) == int((data >= 25).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_phase1_kernels_raise_on_inputs_they_do_not_take(cuda_device):
+    dims = (8, 4, 4)
+    packed = torch.zeros(128, dtype=torch.int32, device=cuda_device)
+    prob = torch.zeros(128, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(TypeError):
+        edt_cuda.flood_z(packed.to(torch.int64), dims)
+    with pytest.raises(ValueError):
+        edt_cuda.flood_z(packed[:64], dims)
+    with pytest.raises(ValueError):
+        edt_cuda.flood_z(torch.zeros(256, dtype=torch.int32, device=cuda_device)[::2], dims)
+    with pytest.raises(ValueError, match="1024"):
+        edt_cuda.flood_z(torch.zeros(2050, dtype=torch.int32, device=cuda_device), (1025, 2, 1))
+    with pytest.raises(TypeError):
+        edt_cuda.merge_occupied(packed, prob.to(torch.int32), 0, dims)
+    with pytest.raises(ValueError):
+        edt_cuda.merge_occupied(packed, prob[:64], 0, dims)
+    with pytest.raises(ValueError):
+        edt_cuda.merge_occupied(packed, prob.cpu(), 0, dims)
+    points = torch.zeros((5, 3), dtype=torch.float32, device=cuda_device)
+    with pytest.raises(TypeError):
+        edt_cuda.min_distance_to(packed, points.double(), 1.0, dims)
+    with pytest.raises(ValueError):
+        edt_cuda.min_distance_to(packed, points.T, 1.0, dims)
+    with pytest.raises(ValueError, match="at least one"):
+        edt_cuda.min_distance_to(packed, points[:0], 1.0, dims)
+    with pytest.raises(ValueError):
+        edt_cuda.min_distance_to(packed, points.cpu(), 1.0, dims)
+
+
 def test_port_imports_no_jax():
     """Every module of the port, the octree tiers and the IO / visualization
     modules included, imports without JAX or the JAX package (the card's
